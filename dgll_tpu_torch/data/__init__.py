@@ -1,0 +1,4 @@
+from dgll_tpu_torch.data.datasets import synthetic_classification_graph
+from dgll_tpu_torch.data.transforms import gcn_normalize
+
+__all__ = ["synthetic_classification_graph", "gcn_normalize"]

@@ -1,0 +1,201 @@
+"""Graph container: COO + dst-major CSR as torch tensors.
+
+Counterpart of ``dgll_tpu/graph.py``. The conventions are the same:
+
+* Edges are stored sorted by **destination** node ("dst-major CSR"):
+  ``indptr[i]:indptr[i+1]`` spans the in-edges of node ``i`` and ``src[k]`` is the
+  neighbour the message comes from.
+* Graphs may be padded (``pad_graph``): padded edges are self-loops on a padded node
+  and carry zero weight; ``n_real_node`` / ``n_real_edge`` record the true counts.
+* Features, labels and split masks ride along as optional tensors.
+
+Construction is host-side: a graph is built on the CPU and moved once with
+``Graph.to(device)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def _tensor(x, dtype=None) -> Optional[torch.Tensor]:
+    if x is None:
+        return None
+    return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+@dataclass
+class Graph:
+    """Static-shape graph: COO + dst-major CSR, features, labels, split masks."""
+
+    # CSR over destinations: in-edges of node i are slots indptr[i]:indptr[i+1].
+    indptr: torch.Tensor                       # [n_node + 1] int32
+    src: torch.Tensor                          # [n_edge] int32, CSR order
+    dst: torch.Tensor                          # [n_edge] int32, non-decreasing
+    edge_weight: Optional[torch.Tensor] = None  # [n_edge] float32
+
+    node_feat: Optional[torch.Tensor] = None   # [n_node, d]
+    labels: Optional[torch.Tensor] = None      # [n_node] or [n_node, c]
+    train_mask: Optional[torch.Tensor] = None  # [n_node] bool
+    val_mask: Optional[torch.Tensor] = None    # [n_node] bool
+    test_mask: Optional[torch.Tensor] = None   # [n_node] bool
+
+    # Kernel layouts (ops/chunked.py), attached by ``with_chunked``.
+    chunked: Optional[Any] = None     # ChunkedCSR of A (dst-major)
+    chunked_t: Optional[Any] = None   # ChunkedCSR of A^T (drives backward)
+
+    n_node: int = 0
+    n_edge: int = 0
+    n_real_node: int = 0
+    n_real_edge: int = 0
+
+    @staticmethod
+    def from_edges(
+        src: Any,
+        dst: Any,
+        n_node: int,
+        edge_weight: Any = None,
+        node_feat: Any = None,
+        labels: Any = None,
+        train_mask: Any = None,
+        val_mask: Any = None,
+        test_mask: Any = None,
+        add_self_loops: bool = False,
+        make_bidirected: bool = False,
+    ) -> "Graph":
+        """Build a Graph from a COO edge list (host-side; sorts by dst, builds indptr)."""
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
+        if edge_weight is not None:
+            edge_weight = np.asarray(edge_weight, dtype=np.float32)
+
+        if make_bidirected:
+            s2 = np.concatenate([src, dst])
+            d2 = np.concatenate([dst, src])
+            # dedupe (also removes duplicate input edges)
+            _, keep = np.unique(s2 * n_node + d2, return_index=True)
+            src, dst = s2[keep], d2[keep]
+            if edge_weight is not None:
+                edge_weight = np.concatenate([edge_weight, edge_weight])[keep]
+        if add_self_loops:
+            has_loop = np.zeros(n_node, bool)
+            has_loop[dst[src == dst]] = True
+            loop = np.nonzero(~has_loop)[0].astype(np.int64)
+            src = np.concatenate([src, loop])
+            dst = np.concatenate([dst, loop])
+            if edge_weight is not None:
+                edge_weight = np.concatenate(
+                    [edge_weight, np.ones(loop.shape[0], np.float32)]
+                )
+
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+        if edge_weight is not None:
+            edge_weight = edge_weight[order]
+        indptr = np.zeros(n_node + 1, np.int64)
+        np.cumsum(np.bincount(dst, minlength=n_node), out=indptr[1:])
+
+        n_edge = src.shape[0]
+        return Graph(
+            indptr=_tensor(indptr, torch.int32),
+            src=_tensor(src, torch.int32),
+            dst=_tensor(dst, torch.int32),
+            edge_weight=_tensor(edge_weight, torch.float32),
+            node_feat=_tensor(node_feat),
+            labels=_tensor(labels),
+            train_mask=_tensor(train_mask, torch.bool),
+            val_mask=_tensor(val_mask, torch.bool),
+            test_mask=_tensor(test_mask, torch.bool),
+            n_node=int(n_node),
+            n_edge=int(n_edge),
+            n_real_node=int(n_node),
+            n_real_edge=int(n_edge),
+        )
+
+    def replace(self, **changes) -> "Graph":
+        return dataclasses.replace(self, **changes)
+
+    def with_chunked(self) -> "Graph":
+        """Attach the SpMM kernel layouts (A and A^T) built from the real edges and
+        the current edge weights. Layers then route weighted-sum aggregation through
+        the kernel (``ops/cuda/segment_matmul.py``)."""
+        from dgll_tpu_torch.ops.chunked import build_chunked_pair
+
+        e = self.n_real_edge
+        src = _np(self.src)[:e]
+        dst = _np(self.dst)[:e]
+        w = None if self.edge_weight is None else _np(self.edge_weight)[:e]
+        c, ct = build_chunked_pair(src, dst, self.n_real_node, self.n_real_node, w)
+        return self.replace(chunked=c.to(self.src.device),
+                            chunked_t=ct.to(self.src.device))
+
+    def to(self, device) -> "Graph":
+        """Move every tensor, and the kernel layouts, to ``device``."""
+        moved = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            moved[f.name] = v.to(device) if hasattr(v, "to") else v
+        return Graph(**moved)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_graph(g: Graph, node_multiple: int = 8, edge_multiple: int = 128) -> Graph:
+    """Pad node/edge counts up to multiples.
+
+    Padded edges are self-loops on a **padded** node (never a real one), so they
+    contribute nothing to any real aggregation, weighted or not. If edges need
+    padding but the node count is already aligned, one extra block of padding nodes
+    is added so that a padded target exists; padded feature rows are zero.
+    """
+    pn = _round_up(max(g.n_node, 1), node_multiple)
+    pe = _round_up(max(g.n_edge, 1), edge_multiple)
+    if pe > g.n_edge and pn == g.n_node:
+        pn += node_multiple
+    if pn == g.n_node and pe == g.n_edge:
+        return g
+
+    dn, de = pn - g.n_node, pe - g.n_edge
+    indptr, src, dst = _np(g.indptr), _np(g.src), _np(g.dst)
+    if dn:
+        indptr = np.concatenate([indptr, np.full((dn,), g.n_edge, np.int32)])
+    pad_target = pn - 1
+    if de:
+        src = np.concatenate([src, np.full((de,), pad_target, np.int32)])
+        dst = np.concatenate([dst, np.full((de,), pad_target, np.int32)])
+        indptr = indptr.copy()
+        indptr[-1] = pe
+
+    def _pad_rows(x, rows):
+        if x is None or rows == 0:
+            return x
+        x = _np(x)
+        return _tensor(np.pad(x, [(0, rows)] + [(0, 0)] * (x.ndim - 1)))
+
+    ew = g.edge_weight
+    if ew is not None and de:
+        ew = _tensor(np.concatenate([_np(ew), np.zeros((de,), np.float32)]))
+
+    return g.replace(
+        indptr=_tensor(indptr, torch.int32),
+        src=_tensor(src, torch.int32),
+        dst=_tensor(dst, torch.int32),
+        edge_weight=ew,
+        node_feat=_pad_rows(g.node_feat, dn),
+        labels=_pad_rows(g.labels, dn),
+        train_mask=_pad_rows(g.train_mask, dn),
+        val_mask=_pad_rows(g.val_mask, dn),
+        test_mask=_pad_rows(g.test_mask, dn),
+        n_node=pn,
+        n_edge=pe,
+    )

@@ -1,0 +1,49 @@
+"""End-to-end models. Counterpart of ``dgll_tpu/nn/models.py``; this slice holds
+``GCN`` on a full graph (sampled blocks come with the minibatch path)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from dgll_tpu_torch.nn.conv import GCNConv
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout with the mask drawn from ``generator`` (flax's rule: keep
+    with probability ``1 - rate`` and scale kept values by ``1 / (1 - rate)``)."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if keep <= 0.0:
+        return torch.zeros_like(x)
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+class GCN(nn.Module):
+    """``n_layers`` GCNConvs with ReLU and dropout between them and ``log_softmax``
+    at the end. Dropout applies in training mode, with masks from the generator
+    passed to ``forward``."""
+
+    def __init__(self, in_features: int, hidden: int, n_class: int, n_layers: int = 2,
+                 dropout: float = 0.5, dtype: Optional[torch.dtype] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dims = [in_features] + [hidden] * (n_layers - 1) + [n_class]
+        self.convs = nn.ModuleList(
+            GCNConv(dims[i], dims[i + 1], dtype=dtype, device=device,
+                    generator=generator)
+            for i in range(n_layers)
+        )
+        self.dropout = dropout
+
+    def forward(self, g, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for conv in self.convs[:-1]:
+            x = torch.relu(conv(g, x))
+            if self.training:
+                x = _dropout(x, self.dropout, generator)
+        x = self.convs[-1](g, x)
+        return torch.log_softmax(x, dim=-1)

@@ -1,0 +1,114 @@
+"""The SpMM kernel's layout, and the plain PyTorch version of the kernel.
+
+Counterpart of ``dgll_tpu/ops/chunked.py``. The JAX package packs the edges into
+fixed chunks of ``EB`` slots per 128-row block, with an odd chunk count and
+one-hot scatter matrices, because a TPU has no atomics and runs its grid in order.
+None of that carries over to the GPU: the kernel (``csrc/segment_matmul.cu``) walks
+a plain dst-major CSR, one warp per destination row, and needs no atomics.
+
+The API conventions stay:
+
+* the output row space is padded up to a multiple of ``R_BLOCK`` (``n_rows``);
+* the layouts hold real edges only;
+* padded rows and rows without edges come out as ``act(bias)``;
+* ``build_chunked_pair`` gives the layouts of A and of A^T, the second driving the
+  backward pass.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+R_BLOCK = 128  # the output row space is padded to a multiple of this
+
+
+@dataclass
+class ChunkedCSR:
+    """Weighted dst-major CSR over ``n_rows`` output rows and ``n_cols`` sources."""
+
+    indptr: torch.Tensor   # [n_rows + 1] int32
+    src: torch.Tensor      # [nnz] int32, source (column) of each edge
+    weight: torch.Tensor   # [nnz] float32
+    rows: torch.Tensor     # [nnz] int32, destination row of each edge (plain version)
+    n_rows: int            # padded up to a multiple of R_BLOCK
+    n_cols: int
+
+    def to(self, device) -> "ChunkedCSR":
+        return ChunkedCSR(self.indptr.to(device), self.src.to(device),
+                          self.weight.to(device), self.rows.to(device),
+                          self.n_rows, self.n_cols)
+
+
+def build_chunked(
+    src: np.ndarray,
+    dst: np.ndarray,
+    n_rows: int,
+    n_cols: int,
+    weight: Optional[np.ndarray] = None,
+) -> ChunkedCSR:
+    """Pack a COO edge list (any order) into the kernel's CSR layout (host, numpy).
+
+    Within a row, edges are sorted by source, so that the kernel's gather reads
+    ascending rows of ``x``.
+    """
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    w = np.ones(len(src), np.float32) if weight is None else np.asarray(weight, np.float32)
+    if len(src) and (src.min() < 0 or src.max() >= n_cols
+                     or dst.min() < 0 or dst.max() >= n_rows):
+        raise ValueError("edge endpoints out of range for the layout")
+    n_rows_pad = -(-n_rows // R_BLOCK) * R_BLOCK
+    if max(n_rows_pad, len(src)) >= 2**31:
+        raise ValueError("layout exceeds int32 indexing")
+
+    order = np.lexsort((src, dst))
+    indptr = np.zeros(n_rows_pad + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_rows_pad), out=indptr[1:])
+    return ChunkedCSR(
+        indptr=torch.from_numpy(indptr.astype(np.int32)),
+        src=torch.from_numpy(src[order].astype(np.int32)),
+        weight=torch.from_numpy(w[order]),
+        rows=torch.from_numpy(dst[order].astype(np.int32)),
+        n_rows=n_rows_pad,
+        n_cols=int(n_cols),
+    )
+
+
+def build_chunked_pair(
+    src: np.ndarray,
+    dst: np.ndarray,
+    n_rows: int,
+    n_cols: int,
+    weight: Optional[np.ndarray] = None,
+) -> Tuple[ChunkedCSR, ChunkedCSR]:
+    """Layouts for A and A^T (the transpose drives the backward pass)."""
+    a = build_chunked(src, dst, n_rows, n_cols, weight)
+    at = build_chunked(dst, src, n_cols, n_rows, weight)
+    return a, at
+
+
+def spmm_chunked_reference(
+    c: ChunkedCSR,
+    x: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``act(A @ x + bias)`` in f32, stored in
+    ``out_dtype`` (default ``x.dtype``) over the padded row space ``[c.n_rows, F]``.
+
+    Counterpart of ``spmm_chunked_xla``. Differentiable through autograd.
+    """
+    msg = x.index_select(0, c.src).float() * c.weight[:, None]
+    out = torch.zeros((c.n_rows, x.shape[-1]), dtype=torch.float32, device=x.device)
+    out = out.index_add(0, c.rows, msg)
+    if bias is not None:
+        out = out + bias.float()
+    if activation == "relu":
+        out = torch.relu(out)
+    elif activation is not None:
+        raise ValueError(f"unknown activation {activation!r}")
+    return out.to(x.dtype if out_dtype is None else out_dtype)

@@ -1,0 +1,147 @@
+"""SpMM kernel wrapper: ``act(A @ x + bias)`` with its backward on A^T.
+
+Counterpart of ``dgll_tpu/ops/pallas/segment_matmul.py:spmm_chunked``. The kernel is
+``csrc/segment_matmul.cu`` (weighted CSR, one warp per destination row, f32
+accumulation, fused bias and ReLU). The backward runs the same kernel on the
+transpose layout: ``dx = A^T (act'(out) * g)``, and ``db = sum(g)`` in plain torch.
+
+A tensor on the CPU goes through the plain version (``ops/chunked.py:
+spmm_chunked_reference``); a tensor on a CUDA device launches the kernel or raises.
+
+``launches_fwd`` and ``launches_bwd`` count the kernel's launches from the forward
+and the backward, so that a run can show it went through the kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from dgll_tpu_torch.ops.chunked import ChunkedCSR, spmm_chunked_reference
+from dgll_tpu_torch.ops.cuda.build import load_library
+
+launches_fwd = 0
+launches_bwd = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _uses_kernel(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"spmm_chunked runs on cpu or cuda tensors, not {x.device}")
+
+
+def _vector_width(x: torch.Tensor, f: int) -> int:
+    """Columns per lane: the widest load (up to 16 bytes) that divides F, fits the
+    pointer's alignment and still gives a warp 32 busy lanes; else 1."""
+    size = x.element_size()
+    vec = 16 // size
+    while vec > 1 and (f % vec or x.data_ptr() % (vec * size) or f // vec < 32):
+        vec //= 2
+    return vec
+
+
+def _check(name: str, t: torch.Tensor, dtype, device, numel=None) -> None:
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor on {device}, "
+                         f"got {t.dtype} on {t.device}")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name}: need {numel} elements, got {t.numel()}")
+
+
+def spmm_csr_cuda(c: ChunkedCSR, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                  activation: Optional[str] = None, out_dtype=None) -> torch.Tensor:
+    """Launch the kernel once: ``act(A @ x + bias)`` as ``[c.n_rows, F]``."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type != "cuda" or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("x: need a contiguous 2-D CUDA tensor")
+    if x.dtype not in _DTYPE_CODE or out_dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"unsupported dtypes: x {x.dtype}, out {out_dtype}")
+    if activation not in (None, "relu"):
+        raise ValueError(f"unknown activation {activation!r}")
+    dev, f = x.device, x.shape[1]
+    if x.shape[0] < c.n_cols:
+        raise ValueError(f"x has {x.shape[0]} rows, the layout reads {c.n_cols}")
+    if not 0 < f < 2**21 or c.n_rows <= 0:
+        raise ValueError(f"empty or too wide: n_rows {c.n_rows}, F {f}")
+    _check("indptr", c.indptr, torch.int32, dev, c.n_rows + 1)
+    _check("src", c.src, torch.int32, dev)
+    _check("weight", c.weight, torch.float32, dev, c.src.numel())
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+        _check("bias", bias, torch.float32, dev, f)
+
+    out = torch.empty((c.n_rows, f), dtype=out_dtype, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.dgll_spmm_csr(
+            c.indptr.data_ptr(), c.src.data_ptr(), c.weight.data_ptr(),
+            x.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            c.n_rows, f, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+            _vector_width(x, f), int(activation == "relu"),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError("spmm_csr kernel launch failed: "
+                           + lib.dgll_cuda_error_string(err).decode())
+    return out
+
+
+class _SpmmChunked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias, c, ct, activation, msg_dtype):
+        global launches_fwd
+        xm = x if msg_dtype is None else x.to(msg_dtype)
+        if _uses_kernel(x):
+            out = spmm_csr_cuda(c, xm, bias, activation, out_dtype=x.dtype)
+            launches_fwd += 1
+        else:
+            out = spmm_chunked_reference(c, xm, bias, activation, out_dtype=x.dtype)
+        ctx.ct, ctx.activation, ctx.msg_dtype = ct, activation, msg_dtype
+        ctx.n_in, ctx.x_dtype = x.shape[0], x.dtype
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        if activation == "relu":
+            ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global launches_bwd
+        if ctx.activation == "relu":
+            (out,) = ctx.saved_tensors
+            g = torch.where(out > 0, g, 0.0)
+        g = g.contiguous()
+        dx = db = None
+        if ctx.needs_input_grad[0]:
+            gm = g if ctx.msg_dtype is None else g.to(ctx.msg_dtype)
+            # A^T's sources are A's destination rows (< c.n_rows), so g, already
+            # padded to c.n_rows, feeds the transpose layout directly.
+            if _uses_kernel(g):
+                dx_full = spmm_csr_cuda(ctx.ct, gm, out_dtype=g.dtype)
+                launches_bwd += 1
+            else:
+                dx_full = spmm_chunked_reference(ctx.ct, gm, out_dtype=g.dtype)
+            # rows of x past the transpose layout's row space have no out-edges
+            short = ctx.n_in - dx_full.shape[0]
+            if short > 0:
+                dx_full = torch.nn.functional.pad(dx_full, (0, 0, 0, short))
+            dx = dx_full[: ctx.n_in].to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            db = g.sum(0).to(ctx.bias_dtype)
+        return dx, db, None, None, None, None
+
+
+def spmm_chunked(c: ChunkedCSR, ct: ChunkedCSR, x: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, activation: Optional[str] = None,
+                 msg_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``act(A @ x + bias)`` over the padded row space ``[c.n_rows, F]``; ``ct`` is
+    the transpose layout (A^T), which the backward runs the kernel on.
+
+    Differentiable in ``x`` and ``bias``. ``msg_dtype=torch.bfloat16`` casts ``x``
+    before the kernel so the edge-sized gather moves at half width, with f32
+    accumulation; the output stays in ``x.dtype``.
+    """
+    return _SpmmChunked.apply(x, bias, c, ct, activation, msg_dtype)

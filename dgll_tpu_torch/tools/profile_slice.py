@@ -1,0 +1,158 @@
+"""Where the time of the full-batch GCN slice goes on a CUDA device.
+
+    python -m dgll_tpu_torch.tools.profile_slice
+
+It takes the slice that ``chip_smoke.py`` trains (``SLICE_ARGS``: a 200k-node
+power-law graph, a 2-layer GCN of width 128, 16 classes) and measures:
+
+* a ``torch.profiler`` trace of ``STEPS`` epochs of ``FullBatchTrainer.fit``,
+  without and with the per-epoch validation pass the CLI runs: host wall time,
+  device busy time (the sum of the traced kernel, copy and fill times, which run on
+  one stream), the device's idle share of the wall time, and each kernel's share of
+  the busy time;
+* the hub-row probe: the SpMM kernel's time (CUDA events, median of 15) at each
+  width of the model on the layout of A, on only its rows with more than ``HUB``
+  in-edges, and with every row cut to its first ``CAP`` edges.
+
+Each result is a line; the last line is one JSON object with every number.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import subprocess
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dgll_tpu_torch.ops.chunked import ChunkedCSR, build_chunked
+
+# The slice's CLI arguments (dgll_tpu_torch.run), without the epoch count.
+SLICE_ARGS = ["--Model", "GCN", "--samp_type", "full", "--n_node", "200000",
+              "--avg_degree", "16", "--feat_dim", "128", "--nhid", "128",
+              "--n_class", "16", "--n_stops", "0", "--device", "cuda"]
+STEPS = 5     # profiled epochs
+HUB = 4096    # a row with more in-edges than this is a hub
+CAP = 1024    # edges kept per row in the probe's capped layout
+
+
+def restrict_rows(c: ChunkedCSR, keep_row: Optional[np.ndarray] = None,
+                  cap: Optional[int] = None) -> ChunkedCSR:
+    """Layout ``c`` with only the rows where ``keep_row`` holds, each cut to its
+    first ``cap`` edges (in the layout's order), on ``c``'s device."""
+    indptr = c.indptr.cpu().numpy().astype(np.int64)
+    rows = c.rows.cpu().numpy().astype(np.int64)
+    keep = np.ones(len(rows), bool)
+    if keep_row is not None:
+        keep &= keep_row[rows]
+    if cap is not None:
+        keep &= np.arange(len(rows)) - indptr[rows] < cap
+    sub = build_chunked(c.src.cpu().numpy()[keep], rows[keep], c.n_rows, c.n_cols,
+                        c.weight.cpu().numpy()[keep])
+    return sub.to(c.src.device)
+
+
+def profile(fn) -> dict:
+    """Trace ``fn()`` and split its host wall time into device busy and idle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            # names cut to 90 characters; kernels that share the cut name add up
+            k = kernels.setdefault(e.key[:90], {"ms": 0.0, "count": 0})
+            k["ms"] += e.self_device_time_total / 1e3
+            k["count"] += e.count
+    busy_ms = sum(k["ms"] for k in kernels.values())
+    if busy_ms <= 0:
+        raise RuntimeError("the profiler traced no device time")
+    for k in kernels.values():
+        k["share"] = k["ms"] / busy_ms
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:8])
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "kernels": top}
+
+
+def profile_training(cfg, steps: int):
+    """Profiles of ``steps`` epochs of training, with the graph (its kernel layout
+    attached, on the device) and the class count they ran with."""
+    from dgll_tpu_torch.run import build_dataset, build_model, resolve_device
+    from dgll_tpu_torch.train import FullBatchTrainer
+
+    dev = resolve_device(cfg.device)
+    g = build_dataset(cfg).with_chunked().to(dev)
+    n_class = int(g.labels[: g.n_real_node].max()) + 1
+    model = build_model(cfg, n_class, g.node_feat.shape[1],
+                        generator=torch.Generator().manual_seed(cfg.seed))
+    tr = FullBatchTrainer(model, functools.partial(torch.optim.Adam, lr=cfg.lr),
+                          seed=cfg.seed, device=dev)
+    fit = functools.partial(tr.fit, g, g.node_feat, g.labels, g.train_mask)
+    fit(epochs=2)  # warm-up: cuBLAS handles, the allocator, the kernel library
+    return {
+        "steps": steps,
+        "train_only": profile(lambda: fit(epochs=steps)),
+        "with_validation": profile(lambda: fit(g.val_mask, epochs=steps)),
+    }, g, n_class
+
+
+def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int) -> dict:
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    degree = np.diff(c.indptr.cpu().numpy().astype(np.int64))
+    layouts = {
+        "all rows": c,
+        f"rows with more than {hub} edges": restrict_rows(c, keep_row=degree > hub),
+        f"every row cut to {cap} edges": restrict_rows(c, cap=cap),
+    }
+    gen = torch.Generator(device=c.src.device).manual_seed(0)
+    out = {"hub_rows": int((degree > hub).sum()), "max_degree": int(degree.max()),
+           "layouts": {}}
+    for name, lay in layouts.items():
+        entry = {"edges": int(lay.src.numel())}
+        for f in widths:
+            x = torch.randn(lay.n_cols, f, generator=gen, device=c.src.device)
+            entry[f"F={f} ms"] = cuda_median_ms(lambda: spmm_csr_cuda(lay, x))
+        out["layouts"][name] = entry
+    return out
+
+
+def main() -> dict:
+    from dgll_tpu_torch.utils import parse_train_config
+
+    cfg = parse_train_config(SLICE_ARGS)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    prof, g, n_class = profile_training(cfg, STEPS)
+    probe = hub_probe(g.chunked, (cfg.nhid, n_class), HUB, CAP)
+
+    print(f"card: {card}")
+    for name, p in (("train only", prof["train_only"]),
+                    ("with validation", prof["with_validation"])):
+        print(f"{STEPS} epochs, {name}: wall {p['wall_ms']:.3f} ms, device busy "
+              f"{p['busy_ms']:.3f} ms, idle {100 * p['idle_share']:.2f}%")
+        for k, v in p["kernels"].items():
+            print(f"    {100 * v['share']:6.2f}%  {v['ms']:10.3f} ms  x{v['count']:<4d} {k}")
+    print(f"hub probe: {probe['hub_rows']} rows above {HUB} edges, "
+          f"max in-degree {probe['max_degree']}")
+    for name, entry in probe["layouts"].items():
+        print(f"    {name}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in entry.items()))
+    result = {"card": card, "profile": prof, "hub_probe": probe}
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,31 @@
+from dgll_tpu_torch.train.metrics import (
+    METRIC_FOR_DATASET,
+    accuracy,
+    masked_nll_loss,
+    metric_for_dataset,
+    micro_f1,
+)
+from dgll_tpu_torch.train.trainer import (
+    EpochStats,
+    FullBatchTrainer,
+    History,
+    TrainState,
+    create_train_state,
+    make_full_batch_eval,
+    make_full_batch_step,
+)
+
+__all__ = [
+    "METRIC_FOR_DATASET",
+    "accuracy",
+    "masked_nll_loss",
+    "metric_for_dataset",
+    "micro_f1",
+    "EpochStats",
+    "FullBatchTrainer",
+    "History",
+    "TrainState",
+    "create_train_state",
+    "make_full_batch_eval",
+    "make_full_batch_step",
+]
