@@ -3,21 +3,31 @@
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout, holds it against
-its plain PyTorch version on the card (on a power-law test graph, and through the
-autograd wrapper at the shapes of the full-batch GCN slice), times both at the
-slice's shapes, and then trains that slice for 20 epochs through the port's CLI
-(``dgll_tpu_torch.run.main``). It needs one CUDA device and ``nvcc`` (``CUDA_HOME``
-or ``PATH``), and no JAX.
+It builds the port's CUDA kernels from the sources in the checkout and drives the
+port's two slices, each through the port's CLI (``dgll_tpu_torch.run.main``) on a
+200k-node power-law graph:
+
+* full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
+  on a power-law test graph and, through the autograd wrapper, at the slice's
+  shapes; both timed there; 20 epochs of training;
+* full-batch GAT, 8 heads x 8 features (phases 6-9): the attention kernels K3-K7
+  and K1 with runtime columns against their plain versions on the test graph; the
+  fused layer's forward and backward against the plain composition at the slice's
+  shapes; each kernel and its plain version timed there; 20 epochs of training.
+
+Each slice's launch counters are set to 0 just before its training run and read
+just after. It needs one CUDA device and ``nvcc`` (``CUDA_HOME`` or ``PATH``), and
+no JAX.
 
 Each phase prints its lines; a failed check raises and the script exits non-zero.
 Before the last line it prints the card's name and power limit, as ``nvidia-smi``
-gives them, and one JSON line describing the kernel. The last line is
+gives them, and one JSON line describing the kernels. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import re
@@ -28,9 +38,24 @@ import time
 import numpy as np
 import torch
 
-EPOCHS = 20  # phase 5 trains the slice for this many epochs
+EPOCHS = 20  # phases 5 and 9 train each slice for this many epochs
 KERNEL_SOURCE = "dgll_tpu_torch/csrc/segment_matmul.cu"
 REPLACES = "dgll_tpu/ops/pallas/segment_matmul.py:34"
+GAT_SOURCE = "dgll_tpu_torch/csrc/gat_csr.cu"
+# the GAT kernels: (JSON name, wrapper's counter name, the TPU kernel it replaces)
+GAT_KERNELS = (
+    ("gat_stats (K3: per-row softmax max and sum)", "gat_stats",
+     "dgll_tpu/ops/pallas/gat_fused.py:46"),
+    ("gat_alpha (K4: per-edge attention and LeakyReLU slope)", "gat_alpha",
+     "dgll_tpu/ops/pallas/gat_fused.py:135"),
+    ("gat_bwd_softmax (K5: softmax VJP and its row sum)", "gat_bwd_softmax",
+     "dgll_tpu/ops/pallas/gat_fused.py:248"),
+    ("edges_to_rows_sum (K6, sum mode)", "edges_to_rows_sum",
+     "dgll_tpu/ops/pallas/edge_ops.py:293"),
+    ("expand_rows (K7: destination rows to edges)", "expand_rows",
+     "dgll_tpu/ops/pallas/expand_rows.py:20"),
+)
+K1_GAT = "spmm_csr (K1) with runtime columns and unit weights: GAT aggregation and scatter"
 
 
 def check(ok: bool, what: str) -> None:
@@ -183,20 +208,28 @@ def _slice_check(c, ct, n_in, f, gen) -> float:
     return worst
 
 
-def phase_time() -> dict:
-    from dgll_tpu_torch.ops import spmm_chunked_reference
-    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+@functools.cache
+def slice_graph():
+    """The slices' graph (both slices train on the same one), with its kernel
+    layouts on the card: (layout of A, layout of A^T, node count)."""
     from dgll_tpu_torch.run import build_dataset
     from dgll_tpu_torch.tools.profile_slice import SLICE_ARGS
     from dgll_tpu_torch.utils import parse_train_config
-    from dgll_tpu_torch.utils.profiling import cuda_median_ms
 
     g = build_dataset(parse_train_config(SLICE_ARGS)).with_chunked()
-    c, ct = g.chunked.to("cuda"), g.chunked_t.to("cuda")
+    return g.chunked.to("cuda"), g.chunked_t.to("cuda"), g.n_node
+
+
+def phase_time() -> dict:
+    from dgll_tpu_torch.ops import spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    c, ct, n_node = slice_graph()
     gen = torch.Generator(device="cuda").manual_seed(1)
     result = {}
     for f in (128, 16):
-        err = _slice_check(c, ct, g.n_node, f, gen)
+        err = _slice_check(c, ct, n_node, f, gen)
         for name, lay in (("A", c), ("A^T", ct)):
             x = torch.randn(lay.n_cols, f, generator=gen, device="cuda")
             k_ms = cuda_median_ms(lambda: spmm_csr_cuda(lay, x))
@@ -212,11 +245,20 @@ def phase_time() -> dict:
     return result
 
 
+def _peak_memory(held: int) -> str:
+    """The run's peak device memory, above what the script held before it (the
+    slices' layouts, kept for the later phases)."""
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak memory {(peak - held) / 2**30:.2f} GiB above the "
+            f"{held / 2**30:.2f} GiB held before the run")
+
+
 def phase_slice() -> dict:
     from dgll_tpu_torch import run
     from dgll_tpu_torch.ops.cuda import segment_matmul as sm
     from dgll_tpu_torch.tools.profile_slice import SLICE_ARGS
 
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     sm.launches_fwd = 0
     sm.launches_bwd = 0
@@ -239,9 +281,192 @@ def phase_slice() -> dict:
           f"(first {1e3 * secs[0]:.3f}, rest mean {1e3 * np.mean(steady):.3f}, "
           f"median {1e3 * np.median(steady):.3f}), train_s {trial['train_s']:.3f}, "
           f"layout_preprocess_s {trial['layout_preprocess_s']:.3f}, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{_peak_memory(held)}, "
           f"launches fwd {fwd} bwd {bwd}")
     return {"launches": fwd + bwd}
+
+
+def _gat_cases(c, ct, heads, width, gen) -> dict:
+    """Each GAT kernel, and K1 with runtime columns and weights, on ``heads`` heads
+    and ``width`` features: ``{name: (kernel call, plain call)}``, each call
+    returning a tuple of tensors. The inputs of K4 and K5 are the plain versions'
+    own outputs, so that each kernel is checked alone."""
+    from dgll_tpu_torch.ops import gat_csr, spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+
+    nnz = c.src.numel()
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    sc, sd = 2 * r(nnz, heads), 2 * r(c.n_rows, heads)
+    m, den = gat_csr.gat_stats_reference(c, sc, sd)
+    alpha, lgrad = gat_csr.gat_alpha_reference(c, sc, sd, m, den)
+    dalpha, s_row, g = r(nnz, heads), r(c.n_rows, heads), r(c.n_rows, width)
+    prod = alpha * dalpha
+    msg, w = r(nnz, width), torch.rand(nnz, generator=gen, device="cuda")
+    ids, ones = c.edge_ids, ct.unit_weight
+    return {
+        "gat_stats": (lambda: gf.gat_stats_cuda(c, sc, sd),
+                      lambda: gat_csr.gat_stats_reference(c, sc, sd)),
+        "gat_alpha": (lambda: gf.gat_alpha_cuda(c, sc, sd, m, den),
+                      lambda: gat_csr.gat_alpha_reference(c, sc, sd, m, den)),
+        "gat_bwd_softmax": (
+            lambda: gf.gat_bwd_softmax_cuda(c, alpha, dalpha, lgrad, s_row),
+            lambda: gat_csr.gat_bwd_softmax_reference(c, alpha, dalpha, lgrad, s_row)),
+        "edges_to_rows_sum": (lambda: (gf.edges_to_rows_sum_cuda(c, prod),),
+                              lambda: (gat_csr.edges_to_rows_sum_reference(c, prod),)),
+        "expand_rows": (lambda: (gf.expand_rows_cuda(c, g),),
+                        lambda: (gat_csr.expand_rows_reference(c, g),)),
+        "K1 identity columns, runtime weights, on A": (
+            lambda: (spmm_csr_cuda(c, msg, cols=ids, weights=w),),
+            lambda: (spmm_chunked_reference(c, msg, cols=ids, weights=w),)),
+        "K1 t_slot_perm columns, unit weights, on A^T": (
+            lambda: (spmm_csr_cuda(ct, msg, cols=c.t_slot_perm, weights=ones),),
+            lambda: (spmm_chunked_reference(ct, msg, cols=c.t_slot_perm, weights=ones),)),
+    }
+
+
+def _max_err(got, want) -> tuple:
+    """(max abs error, 1e-4 * max|ref|). Rows without edges carry the row max
+    NEG = -3e38 in K3's m: they must match exactly and are left out of the bound."""
+    from dgll_tpu_torch.ops.gat_csr import NEG
+
+    edgeless = want == NEG
+    check(torch.equal(got == NEG, edgeless), "rows without edges give m = NEG")
+    got, want = torch.where(edgeless, 0.0, got), torch.where(edgeless, 0.0, want)
+    return (got - want).abs().max().item(), 1e-4 * want.abs().max().item()
+
+
+def _gat_compare(tag, name, kernel, plain, worst) -> str:
+    """Check one case of ``_gat_cases`` (f32, bound 1e-4 * max|ref| on every
+    output; none of the kernels uses atomics, so two runs must be bitwise equal),
+    keep its max abs error in ``worst`` under the kernel's JSON key, and return
+    the printed summary."""
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    errs = [_max_err(a, b) for a, b in zip(got, want)]
+    check(all(x <= b for x, b in errs), f"{name} within tolerance ({tag})")
+    check(same, f"{name}: two runs bitwise equal ({tag})")
+    key = K1_GAT if name.startswith("K1") else name
+    worst[key] = max(worst.get(key, 0.0), *(x for x, _ in errs))
+    return ("max abs err " + ", ".join(f"{x:.3e} (tolerance {b:.3e})" for x, b in errs)
+            + f"; bitwise repeatable {same}")
+
+
+def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
+    """Phase 6: the GAT kernels against their plain versions on the power-law test
+    graph, H in {1, 8}."""
+    c, ct, n = power_law_layouts(n, e)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for heads, width in ((1, 16), (8, 64)):
+        for name, (kernel, plain) in _gat_cases(c, ct, heads, width, gen).items():
+            line = _gat_compare(f"H={heads}", name, kernel, plain, worst)
+            print(f"[6 check] H={heads} width={width} {name}: {line}")
+    print(f"[6 check] {c.src.numel()} edges over {n} rows, max in-degree "
+          f"{int((c.indptr[1:] - c.indptr[:-1]).max())}: all cases pass")
+
+
+def phase_gat_layer() -> None:
+    """Phase 7: the fused layer ``gat_attention_fused`` through autograd, forward and
+    backward, against the plain composition ``gat_attention_coo`` at the slice's
+    shapes (layer 1: 8 heads x 8 features with an attention-dropout mask; layer 2:
+    1 head x 16 features); f32, bound 1e-4 * max|ref| on out, dh, da_src, da_dst."""
+    from dgll_tpu_torch.ops import gat_attention_coo
+    from dgll_tpu_torch.ops.cuda.gat_fused import gat_attention_fused
+
+    c, ct, n = slice_graph()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for heads, f, p in ((8, 8, 0.6), (1, 16, 0.0)):
+        h0 = torch.randn(n, heads * f, generator=gen, device="cuda")
+        a0 = [0.3 * torch.randn(heads, f, generator=gen, device="cuda") for _ in range(2)]
+        cot = torch.randn(c.n_rows, heads, f, generator=gen, device="cuda")
+        mask = None
+        if p:
+            keep = torch.rand(c.src.numel(), heads, generator=gen, device="cuda") >= p
+            mask = keep.float() / (1 - p)
+
+        def grads(fn):
+            h, a_src, a_dst = (t.clone().requires_grad_(True) for t in (h0, *a0))
+            out = fn(h, a_src, a_dst)
+            (out * cot).sum().backward()
+            return out.detach(), h.grad, a_src.grad, a_dst.grad
+
+        got = grads(lambda h, s, d: gat_attention_fused(c, ct, h, s, d, 0.2, mask))
+        want = grads(lambda h, s, d: gat_attention_coo(c.src, c.rows, h, s, d, c.n_rows,
+                                                       0.2, mask))
+        for name, a, b in zip(("out", "dh", "da_src", "da_dst"), got, want):
+            err, bound = (a - b).abs().max().item(), 1e-4 * b.abs().max().item()
+            print(f"[7 layer] H={heads} F={f} dropout {p} {name} {tuple(a.shape)}: "
+                  f"max abs err {err:.3e}, tolerance {bound:.3e}")
+            check(err <= bound, f"fused layer within tolerance (H={heads}, {name})")
+
+
+def phase_gat_time(worst: dict) -> dict:
+    """Phase 8: each GAT kernel against its plain version at the slice's shapes,
+    checked as in phase 6 and then timed (CUDA events, median of 15 after 3
+    warm-ups). Returns {name: (kernel ms, plain ms)} at layer 1's shapes (8 heads,
+    width 64)."""
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    c, ct, _ = slice_graph()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    result = {}
+    for heads, width in ((8, 64), (1, 16)):
+        for name, (kernel, plain) in _gat_cases(c, ct, heads, width, gen).items():
+            line = _gat_compare(f"slice, H={heads}", name, kernel, plain, worst)
+            k_ms, p_ms = cuda_median_ms(kernel), cuda_median_ms(plain)
+            print(f"[8 time] H={heads} width={width} {name}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms ({p_ms / k_ms:.2f}x"
+                  f"{'; kernel SLOWER than plain' if k_ms > p_ms else ''}); {line}")
+            if heads == 8 and name != "K1 t_slot_perm columns, unit weights, on A^T":
+                result[K1_GAT if name.startswith("K1") else name] = (k_ms, p_ms)
+    return result
+
+
+def phase_gat_slice() -> dict:
+    """Phase 9: the GAT slice, 20 epochs through ``run.main``. Returns the launch
+    counts of the run, per kernel."""
+    from dgll_tpu_torch import run
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+    from dgll_tpu_torch.ops.cuda import segment_matmul as sm
+    from dgll_tpu_torch.tools.profile_slice import GAT_SLICE_ARGS
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for k in gf.launches:
+        gf.launches[k] = 0
+    sm.launches_fwd = sm.launches_bwd = 0
+    with contextlib.redirect_stdout(io.StringIO()):  # the CLI's own JSON line
+        out = run.main([*GAT_SLICE_ARGS, "--n_epochs", str(EPOCHS)])
+    counts = {**gf.launches, K1_GAT: sm.launches_fwd + sm.launches_bwd}
+    fwd, bwd = sm.launches_fwd, sm.launches_bwd
+    trial = out["trials"][0]
+    losses, secs, epochs = trial["epoch_loss"], trial["epoch_s"], trial["epochs"]
+    check(epochs == EPOCHS, f"{EPOCHS} epochs ran")
+    check(all(np.isfinite(losses)), "every loss is finite")
+    check(losses[-1] < losses[0], "the last loss is below the first")
+    check(trial["test_acc"] > 2 / 16, "test_acc above 2/16")
+    check(trial.get("gat_kernel") == run.GAT_KERNEL, "the slice names the fused GAT op")
+    # two layers: forward kernels at least twice per epoch (the validation pass
+    # runs the forward too), backward kernels exactly twice per epoch
+    for k in ("gat_stats", "gat_alpha"):
+        check(counts[k] >= 2 * epochs, f"at least 2 {k} launches per epoch")
+    for k in ("gat_bwd_softmax", "edges_to_rows_sum", "expand_rows"):
+        check(counts[k] == 2 * epochs, f"exactly 2 {k} launches per epoch")
+    check(fwd >= 2 * epochs and bwd == 2 * epochs, "K1: >= 2 forward and 2 backward "
+          "launches per epoch")
+    steady = secs[1:]
+    print(f"[9 gat slice] {epochs} epochs: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"test_acc {trial['test_acc']:.4f}, epoch ms mean {1e3 * np.mean(secs):.3f} "
+          f"(first {1e3 * secs[0]:.3f}, rest mean {1e3 * np.mean(steady):.3f}, "
+          f"median {1e3 * np.median(steady):.3f}), train_s {trial['train_s']:.3f}, "
+          f"layout_preprocess_s {trial['layout_preprocess_s']:.3f}, "
+          f"{_peak_memory(held)}, "
+          f"launches {counts} (K1 fwd {fwd} bwd {bwd})")
+    return counts
 
 
 def main() -> int:
@@ -250,8 +475,13 @@ def main() -> int:
     worst = phase_check()
     times = phase_time()
     sl = phase_slice()
+    gat_errs = {}  # max abs error per kernel, test graph and slice's shapes
+    phase_gat_check(gat_errs)
+    phase_gat_layer()
+    gat_times = phase_gat_time(gat_errs)
+    gat_counts = phase_gat_slice()
     k_ms, p_ms, err = times[(128, "A")]
-    kernels = {"kernels": [{
+    kernels = [{
         "name": "spmm_csr (K1: weighted SpMM, fused bias + ReLU)",
         "route": "cuda",
         "source": KERNEL_SOURCE,
@@ -260,9 +490,17 @@ def main() -> int:
         "max_abs_err": max(worst, err),
         "ms": k_ms,
         "plain_ms": p_ms,
-    }]}
+    }]
+    for name, key, replaces in (*GAT_KERNELS, (K1_GAT, K1_GAT, REPLACES)):
+        k_ms, p_ms = gat_times[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": KERNEL_SOURCE if key == K1_GAT else GAT_SOURCE,
+            "replaces": replaces, "launches": gat_counts[key],
+            "max_abs_err": gat_errs[key], "ms": k_ms, "plain_ms": p_ms,
+        })
     print(smi)
-    print(json.dumps(kernels))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

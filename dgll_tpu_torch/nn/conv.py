@@ -1,7 +1,7 @@
 """Graph convolution layers.
 
-Counterpart of ``dgll_tpu/nn/conv.py``; this slice holds ``GCNConv`` on a full
-``Graph``, which carries the kernel layouts ``chunked``/``chunked_t`` when
+Counterpart of ``dgll_tpu/nn/conv.py``; the port holds ``GCNConv`` and ``GATConv``
+on a full ``Graph``, which carries the kernel layouts ``chunked``/``chunked_t`` when
 ``Graph.with_chunked`` attached them.
 """
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from dgll_tpu_torch.ops.gat_csr import gat_attention_coo
 from dgll_tpu_torch.ops.spmm import spmm_coo
 
 
@@ -31,19 +32,44 @@ def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None):
     return w
 
 
+def glorot_uniform_(w: torch.Tensor, generator: Optional[torch.Generator] = None):
+    """In-place Glorot (Xavier) uniform init, as flax's ``glorot_uniform`` draws a
+    2-D parameter: bound ``sqrt(6 / (rows + columns))``. Drawn on the CPU, as
+    ``lecun_normal_``."""
+    cpu = torch.empty(w.shape, dtype=torch.float32)
+    nn.init.xavier_uniform_(cpu, generator=generator)
+    with torch.no_grad():
+        w.copy_(cpu)
+    return w
+
+
+def kernel_layouts(g, n_dst: int, device: torch.device):
+    """The graph's kernel layouts ``(A, A^T)`` (``Graph.with_chunked``), or None
+    where the layer runs its plain COO version instead, which it does only on the
+    CPU. On any other device a graph without the layouts raises: a CUDA input
+    launches the kernels and never falls back to the plain version."""
+    c = g.chunked
+    if c is not None and c.n_rows >= n_dst:
+        return c, g.chunked_t
+    if device.type != "cpu":
+        raise ValueError(f"an input on {device} runs the kernels, and the graph has no "
+                         "kernel layouts: attach them with Graph.with_chunked()")
+    return None
+
+
 def _weighted_aggregate(g, h: torch.Tensor, n_dst: int) -> torch.Tensor:
     """Weighted-sum aggregation: through the SpMM kernel when the graph carries its
-    layout (``Graph.with_chunked``), else through ``spmm_coo``.
+    layout (``Graph.with_chunked``), else, on the CPU, through ``spmm_coo``.
 
     Unlike the JAX package, every feature width goes through the kernel: the
     ``F % 128`` condition there is the TPU matrix unit's tiling rule, and the GPU
     kernel masks a ragged column tile instead. The math is the same.
     """
-    c = g.chunked
-    if c is not None and c.n_rows >= n_dst:
+    layouts = kernel_layouts(g, n_dst, h.device)
+    if layouts is not None:
         from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
 
-        return spmm_chunked(c, g.chunked_t, h)[:n_dst]
+        return spmm_chunked(*layouts, h)[:n_dst]
     return spmm_coo(g.src, g.dst, h, n_dst, g.edge_weight)
 
 
@@ -74,3 +100,66 @@ class GCNConv(nn.Module):
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention: ``e = LeakyReLU(a_src . h[src] + a_dst . h[dst])``
+    per edge and head, softmax over each destination's in-edges, then the
+    alpha-weighted sum of ``h[src]``. Heads are concatenated or averaged; there is no
+    bias, as in the JAX package.
+
+    On a graph that carries the kernel layouts (``Graph.with_chunked``) the layer is
+    the fused op ``gat_attention_fused`` (kernels K3-K7 and K1); otherwise, on the
+    CPU only, it runs the plain COO composition with ``segment_softmax``
+    (``kernel_layouts``). In training mode with
+    ``attn_dropout > 0``, alpha is dropped with a mask drawn from the generator
+    passed to ``forward`` and scaled by ``1 / (1 - attn_dropout)``.
+
+    Unlike the JAX package, the per-head width is not zero-padded to a multiple of
+    128 lanes (a TPU tiling rule; zero columns change nothing).
+    """
+
+    def __init__(self, in_features: int, features: int, num_heads: int = 1,
+                 concat_heads: bool = True, negative_slope: float = 0.2,
+                 attn_dropout: float = 0.0, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_heads, self.features = num_heads, features
+        self.concat_heads = concat_heads
+        self.negative_slope = negative_slope
+        self.attn_dropout = attn_dropout
+        self.linear = nn.Linear(in_features, num_heads * features, bias=False,
+                                device=device)
+        self.attn_src = nn.Parameter(torch.empty(num_heads, features, device=device))
+        self.attn_dst = nn.Parameter(torch.empty(num_heads, features, device=device))
+        lecun_normal_(self.linear.weight, generator)
+        glorot_uniform_(self.attn_src, generator)
+        glorot_uniform_(self.attn_dst, generator)
+
+    def _drop_mask(self, shape, device, generator) -> Optional[torch.Tensor]:
+        if not self.training or self.attn_dropout == 0.0:
+            return None
+        keep = 1.0 - self.attn_dropout
+        mask = torch.rand(shape, generator=generator, device=device) < keep
+        return mask.float() / keep
+
+    def forward(self, g, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        H, F = self.num_heads, self.features
+        n_dst = g.n_node
+        h = self.linear(x)                                   # [n, H*F]
+        layouts = kernel_layouts(g, n_dst, x.device)
+        if layouts is not None:
+            from dgll_tpu_torch.ops.cuda.gat_fused import gat_attention_fused
+
+            c, ct = layouts
+            mask = self._drop_mask((c.src.numel(), H), x.device, generator)
+            out = gat_attention_fused(c, ct, h, self.attn_src, self.attn_dst,
+                                      self.negative_slope, mask)[:n_dst]
+        else:
+            mask = self._drop_mask((g.src.numel(), H), x.device, generator)
+            out = gat_attention_coo(g.src, g.dst, h, self.attn_src, self.attn_dst, n_dst,
+                                    self.negative_slope, mask)
+        if self.concat_heads:
+            return out.reshape(n_dst, H * F)
+        return out.mean(dim=1)

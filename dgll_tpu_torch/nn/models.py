@@ -1,5 +1,5 @@
-"""End-to-end models. Counterpart of ``dgll_tpu/nn/models.py``; this slice holds
-``GCN`` on a full graph (sampled blocks come with the minibatch path)."""
+"""End-to-end models. Counterpart of ``dgll_tpu/nn/models.py``; the port holds
+``GCN`` and ``GAT`` on a full graph (sampled blocks come with the minibatch path)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +7,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dgll_tpu_torch.nn.conv import GCNConv
+from dgll_tpu_torch.nn.conv import GATConv, GCNConv
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
@@ -46,4 +46,40 @@ class GCN(nn.Module):
             if self.training:
                 x = _dropout(x, self.dropout, generator)
         x = self.convs[-1](g, x)
+        return torch.log_softmax(x, dim=-1)
+
+
+class GAT(nn.Module):
+    """``n_layers`` GATConvs: the hidden layers concatenate ``num_heads`` heads of
+    ``hidden`` features and apply ELU, the output layer averages one head of
+    ``n_class``, and ``log_softmax`` ends it (the reference's GAT, ``gatconv.py:
+    154-199``). In training mode, dropout ``dropout`` applies to the features before
+    each layer and to the attention of the hidden layers, with masks from the
+    generator passed to ``forward``."""
+
+    def __init__(self, in_features: int, hidden: int, n_class: int, num_heads: int = 8,
+                 n_layers: int = 2, dropout: float = 0.6, negative_slope: float = 0.2,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        convs = []
+        for _ in range(n_layers - 1):
+            convs.append(GATConv(in_features, hidden, num_heads, concat_heads=True,
+                                 negative_slope=negative_slope, attn_dropout=dropout,
+                                 device=device, generator=generator))
+            in_features = hidden * num_heads
+        convs.append(GATConv(in_features, n_class, 1, concat_heads=False,
+                             negative_slope=negative_slope, device=device,
+                             generator=generator))
+        self.convs = nn.ModuleList(convs)
+        self.dropout = dropout
+
+    def forward(self, g, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for conv in self.convs[:-1]:
+            if self.training:
+                x = _dropout(x, self.dropout, generator)
+            x = nn.functional.elu(conv(g, x, generator))
+        if self.training:
+            x = _dropout(x, self.dropout, generator)
+        x = self.convs[-1](g, x, generator)
         return torch.log_softmax(x, dim=-1)

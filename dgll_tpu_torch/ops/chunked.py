@@ -12,10 +12,13 @@ The API conventions stay:
 * the layouts hold real edges only;
 * padded rows and rows without edges come out as ``act(bias)``;
 * ``build_chunked_pair`` gives the layouts of A and of A^T, the second driving the
-  backward pass.
+  backward pass, and attaches to A's layout ``t_slot_perm``: for each edge of A^T,
+  the index of the same edge in A's edge order. Per-edge values in A's order,
+  gathered through it, come out in A^T's order (the GAT backward's scatter).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -35,11 +38,25 @@ class ChunkedCSR:
     rows: torch.Tensor     # [nnz] int32, destination row of each edge (plain version)
     n_rows: int            # padded up to a multiple of R_BLOCK
     n_cols: int
+    # [nnz] int32 (build_chunked_pair, on A's layout): t_slot_perm[j] is the index in
+    # this layout's edge order of the edge at the transpose layout's edge j
+    t_slot_perm: Optional[torch.Tensor] = None
+
+    @functools.cached_property
+    def edge_ids(self) -> torch.Tensor:
+        """[nnz] int32 identity columns: edge e reads row e of an edge-ordered array."""
+        return torch.arange(self.src.numel(), dtype=torch.int32, device=self.src.device)
+
+    @functools.cached_property
+    def unit_weight(self) -> torch.Tensor:
+        """[nnz] float32 ones: the weights of a plain sum over each row's edges."""
+        return torch.ones_like(self.weight)
 
     def to(self, device) -> "ChunkedCSR":
+        perm = None if self.t_slot_perm is None else self.t_slot_perm.to(device)
         return ChunkedCSR(self.indptr.to(device), self.src.to(device),
                           self.weight.to(device), self.rows.to(device),
-                          self.n_rows, self.n_cols)
+                          self.n_rows, self.n_cols, perm)
 
 
 def build_chunked(
@@ -84,9 +101,18 @@ def build_chunked_pair(
     n_cols: int,
     weight: Optional[np.ndarray] = None,
 ) -> Tuple[ChunkedCSR, ChunkedCSR]:
-    """Layouts for A and A^T (the transpose drives the backward pass)."""
+    """Layouts for A and A^T (the transpose drives the backward pass), with
+    ``a.t_slot_perm`` attached.
+
+    A^T's edges are sorted by (A's source, A's destination), so ``t_slot_perm`` is
+    A's edge order sorted by the same keys. Duplicate edges pair in a consistent
+    order, as the JAX package's lexsort pairs them; per-edge GAT quantities depend
+    only on the endpoints, so duplicates carry the same values.
+    """
     a = build_chunked(src, dst, n_rows, n_cols, weight)
     at = build_chunked(dst, src, n_cols, n_rows, weight)
+    perm = np.lexsort((a.rows.numpy(), a.src.numpy())).astype(np.int32)
+    a.t_slot_perm = torch.from_numpy(perm)
     return a, at
 
 
@@ -96,13 +122,22 @@ def spmm_chunked_reference(
     bias: Optional[torch.Tensor] = None,
     activation: Optional[str] = None,
     out_dtype: Optional[torch.dtype] = None,
+    cols: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``act(A @ x + bias)`` in f32, stored in
     ``out_dtype`` (default ``x.dtype``) over the padded row space ``[c.n_rows, F]``.
 
+    ``cols`` ([nnz] int32) and ``weights`` ([nnz] float32), in the layout's edge
+    order, override the layout's ``src`` and ``weight``: with ``cols`` the rows of
+    ``x`` summed into row r are ``x[cols[e]]`` for the edges e of row r (for
+    example per-edge messages, ``x`` of ``nnz`` rows and identity ``cols``).
+
     Counterpart of ``spmm_chunked_xla``. Differentiable through autograd.
     """
-    msg = x.index_select(0, c.src).float() * c.weight[:, None]
+    cols = c.src if cols is None else cols
+    weights = c.weight if weights is None else weights
+    msg = x.index_select(0, cols).float() * weights[:, None]
     out = torch.zeros((c.n_rows, x.shape[-1]), dtype=torch.float32, device=x.device)
     out = out.index_add(0, c.rows, msg)
     if bias is not None:

@@ -1,10 +1,11 @@
 """Builds the package's CUDA kernels on first use.
 
 Every ``.cu`` source in ``dgll_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, which is loaded with
-ctypes. The library's file name carries a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded from ``build/dgll_tpu_torch/``
-at the root of the checkout.
+``sm_90a`` (one ``nvcc`` process per source, all started together) and linked into
+one shared library with a plain C interface, which is loaded with ctypes. The
+library's file name carries a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded from ``build/dgll_tpu_torch/`` at the root of
+the checkout.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "dgll_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def nvcc_path() -> str:
@@ -57,13 +58,30 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    stem = f"{so.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    tmp = so.with_name(f"{stem}.so.tmp")
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        # wait for every compile before looking at any, so that none is left running
+        log = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, out in zip(cmds, procs, log):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
                            f"{' '.join(cmd)}\n{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    so.with_suffix(".log").write_text("".join(log) + proc.stdout + proc.stderr)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
     return so
 
@@ -73,8 +91,18 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C interface of every kernel."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dgll_spmm_csr.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.dgll_spmm_csr.restype = i
+    f, ll = ctypes.c_float, ctypes.c_longlong
+    signatures = {
+        "dgll_spmm_csr": [p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "dgll_gat_stats": [p, p, p, p, p, i, i, f, p],
+        "dgll_gat_alpha": [p, p, p, p, p, p, p, ll, i, f, p],
+        "dgll_edges_to_rows_sum": [p, p, p, i, i, p],
+        "dgll_gat_bwd_softmax": [p, p, p, p, p, p, p, i, i, p],
+        "dgll_expand_rows": [p, p, p, ll, i, i, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, i
     lib.dgll_cuda_error_string.argtypes = [i]
     lib.dgll_cuda_error_string.restype = ctypes.c_char_p
     return lib

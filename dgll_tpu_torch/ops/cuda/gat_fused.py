@@ -1,0 +1,253 @@
+"""The fused sparse GAT layer and the wrappers of its attention kernels.
+
+Counterpart of ``dgll_tpu/ops/pallas/gat_fused.py:gat_attention_fused`` (with
+``edge_ops.py``'s sum mode and ``expand_rows.py``). The kernels are
+``csrc/gat_csr.cu``; their plain PyTorch versions are ``ops/gat_csr.py``.
+
+Each wrapper (``gat_stats``, ``gat_alpha``, ``gat_bwd_softmax``,
+``edges_to_rows_sum``, ``expand_rows``) runs the plain version on CPU tensors and
+launches its kernel on CUDA tensors, or raises; ``launches[name]`` counts the
+kernel's launches. The layer's two sums over edges (the forward aggregation and the
+backward scatter of the message gradient) are K1 (``csrc/segment_matmul.cu``) with
+runtime columns and unit weights, ``segment_matmul.spmm_edges``, which counts them.
+
+Forward: K3 -> K4 -> K1 on A. Backward: K7 -> K6 -> K5 -> K1 on A^T, whose columns
+``c.t_slot_perm`` read the message gradient in A's edge order.
+
+Deviations from the JAX op, none of which changes the math: per-edge arrays are in
+the CSR's edge order (no padding slots), and the per-head products use ``[E, H, F]``
+views (the TPU's rank-2 ``head_proj``/``head_expand`` matrices avoid a tile padding
+the GPU does not have).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dgll_tpu_torch.ops import gat_csr
+from dgll_tpu_torch.ops.chunked import ChunkedCSR
+from dgll_tpu_torch.ops.cuda.build import load_library
+from dgll_tpu_torch.ops.cuda.segment_matmul import _check, _uses_kernel, spmm_edges
+
+launches = dict.fromkeys(
+    ("gat_stats", "gat_alpha", "gat_bwd_softmax", "edges_to_rows_sum", "expand_rows"), 0)
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"dgll_{name}")(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.dgll_cuda_error_string(err).decode())
+
+
+def _check_layout(c: ChunkedCSR, dev: torch.device) -> None:
+    _check("indptr", c.indptr, torch.int32, dev, c.n_rows + 1)
+    _check("rows", c.rows, torch.int32, dev, c.src.numel())
+
+
+def _check_f32(dev: torch.device, shape, **tensors) -> None:
+    for name, t in tensors.items():
+        _check(name, t, torch.float32, dev)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _per_edge(c: ChunkedCSR, t: torch.Tensor) -> Tuple[int, torch.device]:
+    """Heads and device of a per-edge ``[nnz, H]`` CUDA tensor."""
+    if t.device.type != "cuda" or t.dim() != 2 or t.shape[0] != c.src.numel():
+        raise ValueError(f"need a [nnz={c.src.numel()}, H] CUDA tensor, "
+                         f"got {tuple(t.shape)} on {t.device}")
+    return t.shape[1], t.device
+
+
+def gat_stats_cuda(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor,
+                   negative_slope: float = 0.2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3 once: ``(m, den)``, each ``[n_rows, H]``."""
+    h, dev = _per_edge(c, sc_src)
+    _check_layout(c, dev)
+    _check_f32(dev, sc_src.shape, sc_src=sc_src)
+    _check_f32(dev, (c.n_rows, h), s_dst=s_dst)
+    m = torch.empty((c.n_rows, h), device=dev)
+    den = torch.empty((c.n_rows, h), device=dev)
+    _launch("gat_stats", dev, c.indptr.data_ptr(), sc_src.data_ptr(), s_dst.data_ptr(),
+            m.data_ptr(), den.data_ptr(), c.n_rows, h, float(negative_slope))
+    return m, den
+
+
+def gat_alpha_cuda(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor,
+                   m: torch.Tensor, den: torch.Tensor, negative_slope: float = 0.2
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4 once: ``(alpha, lgrad)``, each ``[nnz, H]``."""
+    h, dev = _per_edge(c, sc_src)
+    _check_layout(c, dev)
+    _check_f32(dev, sc_src.shape, sc_src=sc_src)
+    _check_f32(dev, (c.n_rows, h), s_dst=s_dst, m=m, den=den)
+    alpha = torch.empty_like(sc_src)
+    lgrad = torch.empty_like(sc_src)
+    _launch("gat_alpha", dev, c.rows.data_ptr(), sc_src.data_ptr(), s_dst.data_ptr(),
+            m.data_ptr(), den.data_ptr(), alpha.data_ptr(), lgrad.data_ptr(),
+            c.src.numel(), h, float(negative_slope))
+    return alpha, lgrad
+
+
+def edges_to_rows_sum_cuda(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
+    """Launch K6 (sum mode) once: ``[n_rows, H]``."""
+    h, dev = _per_edge(c, v)
+    _check_layout(c, dev)
+    _check_f32(dev, v.shape, v=v)
+    out = torch.empty((c.n_rows, h), device=dev)
+    _launch("edges_to_rows_sum", dev, c.indptr.data_ptr(), v.data_ptr(), out.data_ptr(),
+            c.n_rows, h)
+    return out
+
+
+def gat_bwd_softmax_cuda(c: ChunkedCSR, alpha: torch.Tensor, dalpha: torch.Tensor,
+                         lgrad: torch.Tensor, s: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5 once: ``(dz [nnz, H], dsd [n_rows, H])``."""
+    h, dev = _per_edge(c, alpha)
+    _check_layout(c, dev)
+    _check_f32(dev, alpha.shape, alpha=alpha, dalpha=dalpha, lgrad=lgrad)
+    _check_f32(dev, (c.n_rows, h), s=s)
+    dz = torch.empty_like(alpha)
+    dsd = torch.empty((c.n_rows, h), device=dev)
+    _launch("gat_bwd_softmax", dev, c.indptr.data_ptr(), alpha.data_ptr(),
+            dalpha.data_ptr(), lgrad.data_ptr(), s.data_ptr(), dz.data_ptr(),
+            dsd.data_ptr(), c.n_rows, h)
+    return dz, dsd
+
+
+def expand_rows_cuda(c: ChunkedCSR, a: torch.Tensor) -> torch.Tensor:
+    """Launch K7 once: ``out[e] = a[row of e]``, ``[nnz, F]``."""
+    if a.device.type != "cuda" or a.dim() != 2 or a.shape[0] != c.n_rows:
+        raise ValueError(f"a: need a [n_rows={c.n_rows}, F] CUDA tensor, "
+                         f"got {tuple(a.shape)} on {a.device}")
+    dev, f = a.device, a.shape[1]
+    _check("rows", c.rows, torch.int32, dev, c.src.numel())
+    _check_f32(dev, a.shape, a=a)
+    out = torch.empty((c.src.numel(), f), device=dev)
+    vec = 4 if f % 4 == 0 and a.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
+    _launch("expand_rows", dev, c.rows.data_ptr(), a.data_ptr(), out.data_ptr(),
+            c.src.numel(), f, vec)
+    return out
+
+
+def _dispatch(name: str, kernel, reference, x: torch.Tensor, *args):
+    if _uses_kernel(x):
+        out = kernel(*args)
+        launches[name] += 1
+        return out
+    return reference(*args)
+
+
+def gat_stats(c, sc_src, s_dst, negative_slope=0.2):
+    """K3 (see ``ops/gat_csr.py:gat_stats_reference``)."""
+    return _dispatch("gat_stats", gat_stats_cuda, gat_csr.gat_stats_reference, sc_src,
+                     c, sc_src, s_dst, negative_slope)
+
+
+def gat_alpha(c, sc_src, s_dst, m, den, negative_slope=0.2):
+    """K4 (see ``ops/gat_csr.py:gat_alpha_reference``)."""
+    return _dispatch("gat_alpha", gat_alpha_cuda, gat_csr.gat_alpha_reference, sc_src,
+                     c, sc_src, s_dst, m, den, negative_slope)
+
+
+def edges_to_rows_sum(c, v):
+    """K6, sum mode (see ``ops/gat_csr.py:edges_to_rows_sum_reference``)."""
+    return _dispatch("edges_to_rows_sum", edges_to_rows_sum_cuda,
+                     gat_csr.edges_to_rows_sum_reference, v, c, v)
+
+
+def gat_bwd_softmax(c, alpha, dalpha, lgrad, s):
+    """K5 (see ``ops/gat_csr.py:gat_bwd_softmax_reference``)."""
+    return _dispatch("gat_bwd_softmax", gat_bwd_softmax_cuda,
+                     gat_csr.gat_bwd_softmax_reference, alpha, c, alpha, dalpha, lgrad, s)
+
+
+def expand_rows(c, a):
+    """K7 (see ``ops/gat_csr.py:expand_rows_reference``)."""
+    return _dispatch("expand_rows", expand_rows_cuda, gat_csr.expand_rows_reference, a,
+                     c, a)
+
+
+class _GatFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, a_src, a_dst, c, ct, negative_slope, drop_mask):
+        heads, f = a_src.shape
+        n_in, nnz = h.shape[0], c.src.numel()
+        msg = h.index_select(0, c.src)                       # [E, H*F], the one gather
+        sc_src = (msg.view(nnz, heads, f) * a_src).sum(-1)   # [E, H]
+        s_dst = (h.view(n_in, heads, f) * a_dst).sum(-1)     # [n_in, H]
+        s_dst = F.pad(s_dst, (0, 0, 0, c.n_rows - n_in))
+        m, den = gat_stats(c, sc_src, s_dst, negative_slope)
+        alpha, lgrad = gat_alpha(c, sc_src, s_dst, m, den, negative_slope)
+        alpha_d = alpha if drop_mask is None else alpha * drop_mask
+        msg_w = (msg.view(nnz, heads, f) * alpha_d[:, :, None]).view(nnz, heads * f)
+        out = spmm_edges(c, msg_w)
+        ctx.c, ctx.ct = c, ct
+        ctx.save_for_backward(h, a_src, a_dst, msg, alpha, lgrad, drop_mask)
+        return out.view(c.n_rows, heads, f)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, a_src, a_dst, msg, alpha, lgrad, drop_mask = ctx.saved_tensors
+        c, ct = ctx.c, ctx.ct
+        heads, f = a_src.shape
+        n_in, nnz = h.shape[0], msg.shape[0]
+        msg3 = msg.view(nnz, heads, f)
+        # the per-edge destination rows of g (K7)
+        g_edges = expand_rows(c, g.reshape(c.n_rows, heads * f).contiguous())
+        g_edges = g_edges.view(nnz, heads, f)
+        alpha_d = alpha if drop_mask is None else alpha * drop_mask
+        dmsg = g_edges * alpha_d[:, :, None]
+        dalpha = (g_edges * msg3).sum(-1)
+        del g_edges
+        if drop_mask is not None:  # the output used the dropped alpha
+            dalpha = dalpha * drop_mask
+        # softmax VJP: dz = alpha * (dalpha - S[dst]) * leaky', S = sum_dst alpha*dalpha
+        s = edges_to_rows_sum(c, alpha * dalpha)                   # K6
+        dz, dsd = gat_bwd_softmax(c, alpha, dalpha, lgrad, s)      # K5
+        # score paths: sc_src = <msg, a_src> per head, s_dst = <h, a_dst> per head
+        dmsg = dmsg + dz[:, :, None] * a_src
+        da_src = (dz[:, :, None] * msg3).sum(0)
+        dsd = dsd[:n_in]
+        dh = (dsd[:, :, None] * a_dst).reshape(n_in, heads * f)
+        da_dst = (dsd[:, :, None] * h.view(n_in, heads, f)).sum(0)
+        # dh += the scatter of dmsg by source: K1 on A^T, reading dmsg in A's order
+        dh_msg = spmm_edges(ct, dmsg.view(nnz, heads * f), c.t_slot_perm, backward=True)
+        if dh_msg.shape[0] < n_in:  # sources past A^T's row space have no out-edges
+            dh_msg = F.pad(dh_msg, (0, 0, 0, n_in - dh_msg.shape[0]))
+        dh = dh + dh_msg[:n_in]
+        return dh, da_src, da_dst, None, None, None, None
+
+
+def gat_attention_fused(c: ChunkedCSR, ct: ChunkedCSR, h: torch.Tensor,
+                        a_src: torch.Tensor, a_dst: torch.Tensor,
+                        negative_slope: float = 0.2,
+                        drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused multi-head sparse GAT attention, differentiable in ``h``, ``a_src`` and
+    ``a_dst``. Returns ``[c.n_rows, H, F]``.
+
+    ``h [n, H*F]`` holds the projected features of a full graph: its rows are both
+    the sources and the destinations, so ``c.n_cols <= n <= c.n_rows``. ``a_src`` and
+    ``a_dst`` are ``[H, F]``. ``c`` is A's layout with ``t_slot_perm`` attached and
+    ``ct`` the transpose's (``build_chunked_pair``). ``drop_mask [nnz, H]``, in A's
+    edge order, multiplies alpha (attention dropout; the caller scales kept entries
+    by ``1/(1-p)``).
+    """
+    heads, f = a_src.shape
+    if h.dim() != 2 or h.shape[1] != heads * f or not c.n_cols <= h.shape[0] <= c.n_rows:
+        raise ValueError(f"h: need [n, {heads * f}] with {c.n_cols} <= n <= {c.n_rows}, "
+                         f"got {tuple(h.shape)}")
+    if c.t_slot_perm is None:
+        raise ValueError("the layout has no t_slot_perm: build it with build_chunked_pair")
+    if drop_mask is not None and tuple(drop_mask.shape) != (c.src.numel(), heads):
+        raise ValueError(f"drop_mask: need [{c.src.numel()}, {heads}], "
+                         f"got {tuple(drop_mask.shape)}")
+    return _GatFused.apply(h.contiguous(), a_src, a_dst, c, ct, float(negative_slope),
+                           drop_mask)

@@ -8,6 +8,9 @@ transpose layout: ``dx = A^T (act'(out) * g)``, and ``db = sum(g)`` in plain tor
 A tensor on the CPU goes through the plain version (``ops/chunked.py:
 spmm_chunked_reference``); a tensor on a CUDA device launches the kernel or raises.
 
+``spmm_edges`` is the same kernel with runtime columns and unit weights, summing
+per-edge messages (the GAT layer's aggregation and backward scatter).
+
 ``launches_fwd`` and ``launches_bwd`` count the kernel's launches from the forward
 and the backward, so that a run can show it went through the kernel.
 """
@@ -27,11 +30,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _uses_kernel(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor (run the
+    plain version); any other device raises."""
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"spmm_chunked runs on cpu or cuda tensors, not {x.device}")
+    raise ValueError(f"the kernels run on cpu or cuda tensors, not {x.device}")
 
 
 def _vector_width(x: torch.Tensor, f: int) -> int:
@@ -53,8 +58,15 @@ def _check(name: str, t: torch.Tensor, dtype, device, numel=None) -> None:
 
 
 def spmm_csr_cuda(c: ChunkedCSR, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                  activation: Optional[str] = None, out_dtype=None) -> torch.Tensor:
-    """Launch the kernel once: ``act(A @ x + bias)`` as ``[c.n_rows, F]``."""
+                  activation: Optional[str] = None, out_dtype=None,
+                  cols: Optional[torch.Tensor] = None,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel once: ``act(A @ x + bias)`` as ``[c.n_rows, F]``.
+
+    ``cols`` and ``weights`` ([nnz], in the layout's edge order) override the
+    layout's ``src`` and ``weight``, as in ``spmm_chunked_reference``; ``cols`` must
+    index rows of ``x``.
+    """
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.device.type != "cuda" or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("x: need a contiguous 2-D CUDA tensor")
@@ -63,13 +75,15 @@ def spmm_csr_cuda(c: ChunkedCSR, x: torch.Tensor, bias: Optional[torch.Tensor] =
     if activation not in (None, "relu"):
         raise ValueError(f"unknown activation {activation!r}")
     dev, f = x.device, x.shape[1]
-    if x.shape[0] < c.n_cols:
+    if cols is None and x.shape[0] < c.n_cols:
         raise ValueError(f"x has {x.shape[0]} rows, the layout reads {c.n_cols}")
     if not 0 < f < 2**21 or c.n_rows <= 0:
         raise ValueError(f"empty or too wide: n_rows {c.n_rows}, F {f}")
+    cols = c.src if cols is None else cols
+    weights = c.weight if weights is None else weights
     _check("indptr", c.indptr, torch.int32, dev, c.n_rows + 1)
-    _check("src", c.src, torch.int32, dev)
-    _check("weight", c.weight, torch.float32, dev, c.src.numel())
+    _check("cols", cols, torch.int32, dev, c.src.numel())
+    _check("weights", weights, torch.float32, dev, c.src.numel())
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
         _check("bias", bias, torch.float32, dev, f)
@@ -78,7 +92,7 @@ def spmm_csr_cuda(c: ChunkedCSR, x: torch.Tensor, bias: Optional[torch.Tensor] =
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.dgll_spmm_csr(
-            c.indptr.data_ptr(), c.src.data_ptr(), c.weight.data_ptr(),
+            c.indptr.data_ptr(), cols.data_ptr(), weights.data_ptr(),
             x.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
             c.n_rows, f, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
             _vector_width(x, f), int(activation == "relu"),
@@ -132,6 +146,25 @@ class _SpmmChunked(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             db = g.sum(0).to(ctx.bias_dtype)
         return dx, db, None, None, None, None
+
+
+def spmm_edges(c: ChunkedCSR, msg: torch.Tensor, cols: Optional[torch.Tensor] = None,
+               backward: bool = False) -> torch.Tensor:
+    """Unit-weight sum of per-edge messages, ``[c.n_rows, F]``: ``out[r]`` is the sum
+    of ``msg[cols[e]]`` over the edges e of row r. ``cols`` defaults to the identity
+    (``msg`` in the layout's edge order, the GAT forward); the GAT backward passes
+    A^T's layout and ``t_slot_perm``. Not differentiable; the launch counts in
+    ``launches_bwd`` when ``backward``, else in ``launches_fwd``."""
+    global launches_fwd, launches_bwd
+    cols = c.edge_ids if cols is None else cols
+    if not _uses_kernel(msg):
+        return spmm_chunked_reference(c, msg, cols=cols, weights=c.unit_weight)
+    out = spmm_csr_cuda(c, msg, cols=cols, weights=c.unit_weight)
+    if backward:
+        launches_bwd += 1
+    else:
+        launches_fwd += 1
+    return out
 
 
 def spmm_chunked(c: ChunkedCSR, ct: ChunkedCSR, x: torch.Tensor,

@@ -1,12 +1,15 @@
-"""Training CLI: ``python -m dgll_tpu_torch.run --Model GCN --samp_type full ...``
+"""Training CLI: ``python -m dgll_tpu_torch.run --Model GCN|GAT --samp_type full ...``
 
 Counterpart of ``dgll_tpu/run.py``, for the part of it this package has ported:
-full-batch GCN training on the synthetic dataset, on one device. It prints the same
-JSON keys. Everything else raises ``NotImplementedError`` naming the ROADMAP.md
-item that will port it.
+full-batch GCN and GAT training on the synthetic dataset, on one device. It prints
+the same JSON keys. Everything else raises ``NotImplementedError`` naming the
+ROADMAP.md item that will port it.
 
-On a CUDA device, a graph with at least 100k edges gets the SpMM kernel's layout
-(``Graph.with_chunked``), and both GCN layers aggregate through the kernel.
+On a CUDA device the graph gets the kernel layouts (``Graph.with_chunked``),
+whatever its size: both GCN layers aggregate through the SpMM kernel, and every GAT
+layer runs the fused attention op (K3-K7 and K1). The JAX package's 100k-edge
+threshold is the TPU's launch-overhead rule; the port's layers have no plain
+version on the card.
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ import time
 import numpy as np
 import torch
 
-# The port's name for its SpMM kernel, reported as ``spmm_kernel``.
+# The port's names for its SpMM kernel and its fused GAT op, reported as
+# ``spmm_kernel`` and ``gat_kernel``.
 SPMM_KERNEL = "spmm_csr_cuda"
+GAT_KERNEL = "gat_attention_fused"
 
 
 def check_supported(cfg) -> None:
@@ -27,12 +32,13 @@ def check_supported(cfg) -> None:
     model = cfg.model.upper()
     if model in ("GRAPHSAGE", "SAGE"):
         raise NotImplementedError(f"--Model {cfg.model}: {todo} 1 (minibatch GraphSAGE)")
-    if model == "GAT":
-        raise NotImplementedError(f"--Model {cfg.model}: {todo} 3 (GAT and kernels K3-K7)")
     if model == "GIN":
         raise NotImplementedError(f"--Model {cfg.model}: {todo} 4 (GIN layers and pooling)")
-    if model != "GCN":
+    if model not in ("GCN", "GAT"):
         raise ValueError(f"unknown model {cfg.model!r}")
+    if model == "GAT" and _dtype(cfg) is not None:
+        raise NotImplementedError(f"--dtype {cfg.dtype} with --Model GAT: {todo} 2 "
+                                  "(GAT's bf16 path)")
     if cfg.sampler != "full":
         item = {"neighbor": "1 (device neighbour sampling) and 5 (host minibatch path)",
                 "fastgcn": "6 (layer-wise samplers)",
@@ -71,12 +77,27 @@ def build_dataset(cfg):
     return gcn_normalize(g)
 
 
-def build_model(cfg, n_class: int, in_features: int, generator=None):
-    from dgll_tpu_torch.nn import GCN
+def _dtype(cfg):
+    return {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16}.get(cfg.dtype)
 
-    dtype = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16}.get(cfg.dtype)
+
+def build_model(cfg, n_class: int, in_features: int, generator=None):
+    from dgll_tpu_torch.nn import GAT, GCN
+
+    if cfg.model.upper() == "GAT":
+        return GAT(in_features, hidden=cfg.nhid, n_class=n_class, num_heads=cfg.n_heads,
+                   n_layers=cfg.n_layers, dropout=cfg.dropout, generator=generator)
     return GCN(in_features, hidden=cfg.nhid, n_class=n_class, n_layers=cfg.n_layers,
-               dropout=cfg.dropout, dtype=dtype, generator=generator)
+               dropout=cfg.dropout, dtype=_dtype(cfg), generator=generator)
+
+
+def make_optimizer(cfg):
+    """The optimizer factory of the JAX CLI's choice: AdamW (decoupled weight
+    decay, as ``optax.adamw``) when ``--weight_decay`` is set, else Adam."""
+    if cfg.weight_decay:
+        return functools.partial(torch.optim.AdamW, lr=cfg.lr,
+                                 weight_decay=cfg.weight_decay)
+    return functools.partial(torch.optim.Adam, lr=cfg.lr)
 
 
 def _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
@@ -109,15 +130,16 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     n_class = int(g.labels[: g.n_real_node].max()) + 1
     model = build_model(cfg, n_class, g.node_feat.shape[1],
                         generator=torch.Generator().manual_seed(trial_seed))
-    opt = (functools.partial(torch.optim.AdamW, lr=cfg.lr, weight_decay=cfg.weight_decay)
-           if cfg.weight_decay else functools.partial(torch.optim.Adam, lr=cfg.lr))
+    opt = make_optimizer(cfg)
 
     t_start = time.perf_counter()
     extra: dict = {}
-    if dev.type == "cuda" and g.n_real_edge >= 100_000:
+    if dev.type == "cuda":
         t_pre = time.perf_counter()
         g = g.with_chunked()
         extra["spmm_kernel"] = SPMM_KERNEL
+        if cfg.model.upper() == "GAT":
+            extra["gat_kernel"] = GAT_KERNEL
         extra["layout_preprocess_s"] = time.perf_counter() - t_pre
     g = g.to(dev)
 

@@ -1,23 +1,26 @@
-"""Where the time of the full-batch GCN slice goes on a CUDA device.
+"""Where the time of a full-batch slice goes on a CUDA device.
 
-    python -m dgll_tpu_torch.tools.profile_slice
+    python -m dgll_tpu_torch.tools.profile_slice [--gat]
 
-It takes the slice that ``chip_smoke.py`` trains (``SLICE_ARGS``: a 200k-node
-power-law graph, a 2-layer GCN of width 128, 16 classes) and measures:
+It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph with
+16 classes: a 2-layer GCN of width 128 (``SLICE_ARGS``), or with ``--gat`` the
+2-layer GAT of 8 heads x 8 features (``GAT_SLICE_ARGS``), and measures:
 
 * a ``torch.profiler`` trace of ``STEPS`` epochs of ``FullBatchTrainer.fit``,
   without and with the per-epoch validation pass the CLI runs: host wall time,
   device busy time (the sum of the traced kernel, copy and fill times, which run on
   one stream), the device's idle share of the wall time, and each kernel's share of
   the busy time;
-* the hub-row probe: the SpMM kernel's time (CUDA events, median of 15) at each
-  width of the model on the layout of A, on only its rows with more than ``HUB``
-  in-edges, and with every row cut to its first ``CAP`` edges.
+* the hub-row probe (CUDA events, median of 15) on the layout of A, on only its
+  rows with more than ``HUB`` in-edges, and with every row cut to its first ``CAP``
+  edges: the SpMM kernel at each width of the model and, for GAT, the row
+  reductions K3, K5 and K6 at the hidden layer's head count.
 
 Each result is a line; the last line is one JSON object with every number.
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import subprocess
@@ -29,10 +32,17 @@ import torch
 
 from dgll_tpu_torch.ops.chunked import ChunkedCSR, build_chunked
 
-# The slice's CLI arguments (dgll_tpu_torch.run), without the epoch count.
+# The slices' CLI arguments (dgll_tpu_torch.run), without the epoch count: GCN, and
+# the published GAT (8 heads x 8 features, dropout 0.6, Adam with weight decay) on
+# the same graph.
 SLICE_ARGS = ["--Model", "GCN", "--samp_type", "full", "--n_node", "200000",
               "--avg_degree", "16", "--feat_dim", "128", "--nhid", "128",
               "--n_class", "16", "--n_stops", "0", "--device", "cuda"]
+GAT_SLICE_ARGS = ["--Model", "GAT", "--samp_type", "full", "--n_node", "200000",
+                  "--avg_degree", "16", "--feat_dim", "128", "--nhid", "8",
+                  "--n_heads", "8", "--dropout", "0.6", "--lr", "0.005",
+                  "--weight_decay", "0.0005", "--n_class", "16", "--n_stops", "0",
+                  "--device", "cuda"]
 STEPS = 5     # profiled epochs
 HUB = 4096    # a row with more in-edges than this is a hub
 CAP = 1024    # edges kept per row in the probe's capped layout
@@ -86,7 +96,7 @@ def profile(fn) -> dict:
 def profile_training(cfg, steps: int):
     """Profiles of ``steps`` epochs of training, with the graph (its kernel layout
     attached, on the device) and the class count they ran with."""
-    from dgll_tpu_torch.run import build_dataset, build_model, resolve_device
+    from dgll_tpu_torch.run import build_dataset, build_model, make_optimizer, resolve_device
     from dgll_tpu_torch.train import FullBatchTrainer
 
     dev = resolve_device(cfg.device)
@@ -94,8 +104,7 @@ def profile_training(cfg, steps: int):
     n_class = int(g.labels[: g.n_real_node].max()) + 1
     model = build_model(cfg, n_class, g.node_feat.shape[1],
                         generator=torch.Generator().manual_seed(cfg.seed))
-    tr = FullBatchTrainer(model, functools.partial(torch.optim.Adam, lr=cfg.lr),
-                          seed=cfg.seed, device=dev)
+    tr = FullBatchTrainer(model, make_optimizer(cfg), seed=cfg.seed, device=dev)
     fit = functools.partial(tr.fit, g, g.node_feat, g.labels, g.train_mask)
     fit(epochs=2)  # warm-up: cuBLAS handles, the allocator, the kernel library
     return {
@@ -105,7 +114,19 @@ def profile_training(cfg, steps: int):
     }, g, n_class
 
 
-def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int) -> dict:
+def _row_reductions(lay: ChunkedCSR, heads: int, gen) -> dict:
+    """Calls of the GAT row-reduction kernels K3, K5, K6 on ``lay``."""
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+
+    nnz, dev = lay.src.numel(), lay.src.device
+    e, r = (torch.randn(nnz, heads, generator=gen, device=dev) for _ in range(2))
+    rows = torch.randn(lay.n_rows, heads, generator=gen, device=dev)
+    return {"K3": lambda: gf.gat_stats_cuda(lay, e, rows),
+            "K5": lambda: gf.gat_bwd_softmax_cuda(lay, e, r, e, rows),
+            "K6": lambda: gf.edges_to_rows_sum_cuda(lay, e)}
+
+
+def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int, heads: int = 0) -> dict:
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
     from dgll_tpu_torch.utils.profiling import cuda_median_ms
 
@@ -123,21 +144,31 @@ def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int) -> dict:
         for f in widths:
             x = torch.randn(lay.n_cols, f, generator=gen, device=c.src.device)
             entry[f"F={f} ms"] = cuda_median_ms(lambda: spmm_csr_cuda(lay, x))
+        if heads:
+            for k, fn in _row_reductions(lay, heads, gen).items():
+                entry[f"{k} H={heads} ms"] = cuda_median_ms(fn)
         out["layouts"][name] = entry
     return out
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
     from dgll_tpu_torch.utils import parse_train_config
 
-    cfg = parse_train_config(SLICE_ARGS)
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--gat", action="store_true", help="profile the GAT slice")
+    gat = p.parse_args(argv).gat
+    cfg = parse_train_config(GAT_SLICE_ARGS if gat else SLICE_ARGS)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     prof, g, n_class = profile_training(cfg, STEPS)
-    probe = hub_probe(g.chunked, (cfg.nhid, n_class), HUB, CAP)
+    if gat:
+        probe = hub_probe(g.chunked, (cfg.nhid * cfg.n_heads, n_class), HUB, CAP,
+                          heads=cfg.n_heads)
+    else:
+        probe = hub_probe(g.chunked, (cfg.nhid, n_class), HUB, CAP)
 
-    print(f"card: {card}")
+    print(f"card: {card}, slice: {cfg.model}")
     for name, p in (("train only", prof["train_only"]),
                     ("with validation", prof["with_validation"])):
         print(f"{STEPS} epochs, {name}: wall {p['wall_ms']:.3f} ms, device busy "
@@ -149,7 +180,7 @@ def main() -> dict:
     for name, entry in probe["layouts"].items():
         print(f"    {name}: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in entry.items()))
-    result = {"card": card, "profile": prof, "hub_probe": probe}
+    result = {"card": card, "model": cfg.model, "profile": prof, "hub_probe": probe}
     print(json.dumps(result))
     return result
 

@@ -102,7 +102,7 @@ def test_cli_prints_the_jax_cli_keys(capsys):
     ["--samp_type", "neighbor"],
     ["--samp_type", "fastgcn"],
     ["--samp_type", "ladies"],
-    ["--samp_type", "full", "--Model", "GAT"],
+    ["--samp_type", "neighbor", "--Model", "GAT"],
     ["--samp_type", "full", "--Model", "GraphSAGE"],
     ["--samp_type", "full", "--Model", "GIN"],
     ["--samp_type", "full", "--n_devices", "2"],
