@@ -4,16 +4,23 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout and drives the
-port's two slices, each through the port's CLI (``dgll_tpu_torch.run.main``) on a
-200k-node power-law graph:
+port's three slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
+200k-node power-law graph, the third through the full-graph bench
+(``dgll_tpu_torch.bench``) on a 200k-node clustered graph:
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
   on a power-law test graph and, through the autograd wrapper, at the slice's
-  shapes; both timed there; 20 epochs of training;
+  shapes; both timed there; 20 epochs of training, in which the CLI tries the
+  windowed layout and declines it;
 * full-batch GAT, 8 heads x 8 features (phases 6-9): the attention kernels K3-K7
   and K1 with runtime columns against their plain versions on the test graph; the
   fused layer's forward and backward against the plain composition at the slice's
-  shapes; each kernel and its plain version timed there; 20 epochs of training.
+  shapes; each kernel and its plain version timed there; 20 epochs of training;
+* full-batch GCN on the clustered graph (phases 10-12): the windowed kernel K2
+  against its plain version on a clustered test graph and one with an empty row
+  block; the hybrid op (K2 plus K1 on the residual edges) forward and backward at
+  the bench's shapes; K2, the hybrid op and K1 over the whole graph timed there; the
+  bench's 14 train steps through K2, and again through K1 alone.
 
 Each slice's launch counters are set to 0 just before its training run and read
 just after. It needs one CUDA device and ``nvcc`` (``CUDA_HOME`` or ``PATH``), and
@@ -56,6 +63,10 @@ GAT_KERNELS = (
      "dgll_tpu/ops/pallas/expand_rows.py:20"),
 )
 K1_GAT = "spmm_csr (K1) with runtime columns and unit weights: GAT aggregation and scatter"
+WINDOWED_SOURCE = "dgll_tpu_torch/csrc/spmm_windowed.cu"
+WINDOWED_REPLACES = "dgll_tpu/ops/pallas/spmm_windowed.py:42"
+# windowed_fraction of A on the bench's clustered graph, as the JAX builder gives it
+BENCH_FRACTION = 0.9068
 
 
 def check(ok: bool, what: str) -> None:
@@ -260,12 +271,18 @@ def phase_slice() -> dict:
 
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    from dgll_tpu_torch.ops.cuda import spmm_windowed as sw
+
     sm.launches_fwd = 0
     sm.launches_bwd = 0
+    sw.launches_fwd = sw.launches_bwd = 0
     with contextlib.redirect_stdout(io.StringIO()):  # the CLI's own JSON line
         out = run.main([*SLICE_ARGS, "--n_epochs", str(EPOCHS)])
     fwd, bwd = sm.launches_fwd, sm.launches_bwd
     trial = out["trials"][0]
+    # the CLI graph lacks the locality: the windowed layout declines, K1 runs
+    check("locality_reordered" not in trial, "the CLI graph was not relabelled")
+    check(sw.launches_fwd == sw.launches_bwd == 0, "no K2 launch in the GCN slice")
     losses, secs = trial["epoch_loss"], trial["epoch_s"]
     epochs = trial["epochs"]
     check(epochs == EPOCHS, f"{EPOCHS} epochs ran")
@@ -469,6 +486,201 @@ def phase_gat_slice() -> dict:
     return counts
 
 
+@functools.cache
+def clustered_layouts(n=50_000, empty_block=False):
+    """The hybrid layouts of A and A^T on the card for the bench's clustered
+    generator at ``n`` nodes; with ``empty_block``, the edges into and out of one
+    128-row block in the middle removed."""
+    from dgll_tpu_torch.bench import clustered_graph
+    from dgll_tpu_torch.data import gcn_normalize
+    from dgll_tpu_torch.ops.windowed import build_hybrid_pair
+
+    g = gcn_normalize(clustered_graph(n, 16))
+    src, dst, w = g.src.numpy(), g.dst.numpy(), g.edge_weight.numpy()
+    if empty_block:
+        lo = n // 2 // 128 * 128
+        keep = ~(((dst >= lo) & (dst < lo + 128)) | ((src >= lo) & (src < lo + 128)))
+        src, dst, w = src[keep], dst[keep], w[keep]
+    h, ht = build_hybrid_pair(src, dst, n, n, w)
+    return h.to("cuda"), ht.to("cuda"), n
+
+
+def _windowed_case(c, f, dtype, activation, gen):
+    """K2 against its plain version on the same (quantised) inputs: returns the max
+    abs error, its ratio to the case's bound (f32 sums: 1e-5 * max|ref|; bf16
+    output: |err| / max(|ref|, 1) against 1e-2) and whether two runs were bitwise
+    equal. bf16 input without activation is stored in f32, as the hybrid op does."""
+    from dgll_tpu_torch.ops.cuda.spmm_windowed import spmm_windowed_cuda
+    from dgll_tpu_torch.ops.windowed import spmm_windowed_reference
+
+    x = torch.randn(c.n_cols, f, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(f, generator=gen, device="cuda") if activation else None
+    out_dtype = torch.float32 if dtype == torch.bfloat16 and activation is None else dtype
+    out = spmm_windowed_cuda(c, x, b, activation, out_dtype)
+    again = spmm_windowed_cuda(c, x, b, activation, out_dtype)
+    ref = spmm_windowed_reference(c, x.float(), b, activation)
+    torch.cuda.synchronize()
+    check(out.shape == (c.n_rows, f) and out.dtype == out_dtype, "K2's output shape, dtype")
+    diff = (out.float() - ref).abs()
+    if out_dtype == torch.float32:
+        ratio = (diff.max() / (1e-5 * ref.abs().max())).item()
+    else:
+        ratio = ((diff / ref.abs().clamp_min(1.0)).max() / 1e-2).item()
+    return diff.max().item(), ratio, torch.equal(out, again), out, b
+
+
+def phase_windowed_check() -> float:
+    """Phase 10: K2 against ``spmm_windowed_reference`` on the clustered test graph
+    (A: F in {16, 128, 256}, f32 and bf16, with and without bias + ReLU; A^T at
+    F=128) and on one with an empty row block, whose rows must come out as
+    act(bias) exactly. Returns the max abs error of the f32 cases."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, ht, n = clustered_layouts()
+    worst = 0.0
+    cases = [("A", h.win, f, dt, act) for f in (16, 128, 256)
+             for dt in (torch.float32, torch.bfloat16) for act in (None, "relu")]
+    cases.append(("A^T", ht.win, 128, torch.float32, "relu"))
+    for name, c, f, dt, act in cases:
+        err, ratio, same, _, _ = _windowed_case(c, f, dt, act, gen)
+        print(f"[10 check] {name} F={f} {str(dt)[6:]} act={act}: max abs err {err:.3e}; "
+              f"{ratio:.3f} of tolerance; bitwise repeatable {same}")
+        check(ratio <= 1.0, f"K2 within tolerance ({name}, F={f}, {dt}, {act})")
+        check(same, f"K2: two runs bitwise equal ({name}, F={f}, {dt}, {act})")
+        if dt == torch.float32:
+            worst = max(worst, err)
+    print(f"[10 check] {h.win.src.numel()} windowed "
+          f"edges in {h.win.n_sub} sub-chunks over {n} rows, windowed fraction "
+          f"{h.windowed_fraction:.4f}: {len(cases)} cases pass")
+
+    eh, _, _ = clustered_layouts(empty_block=True)
+    blk_ptr = eh.win.blk_ptr.cpu()
+    lo = n // 2 // 128
+    check(bool(blk_ptr[lo] == blk_ptr[lo + 1]), "the empty row block has no sub-chunk")
+    err, ratio, same, out, b = _windowed_case(eh.win, 128, torch.float32, "relu", gen)
+    rows = out[lo * 128:(lo + 1) * 128]
+    exact = torch.equal(rows, torch.relu(b).expand_as(rows))
+    print(f"[10 check] empty row block: max abs err {err:.3e}; {ratio:.3f} of tolerance; "
+          f"bitwise repeatable {same}; its rows equal relu(bias) {exact}")
+    check(ratio <= 1.0 and same and exact, "K2 on the graph with an empty row block")
+    return max(worst, err)
+
+
+def _bench_graph():
+    """The bench's clustered graph at 200k nodes, with both layouts on the card."""
+    from dgll_tpu_torch.bench import clustered_graph
+    from dgll_tpu_torch.data import gcn_normalize
+
+    return gcn_normalize(clustered_graph(200_000, 16)).with_windowed().with_chunked().to("cuda")
+
+
+def phase_hybrid() -> dict:
+    """Phase 11: ``spmm_hybrid`` forward and backward through autograd at the
+    bench's shapes (F=128; without bias, as the GCN layer calls it, and with bias +
+    ReLU) against the plain composition, f32 within 1e-5 * max|ref| on out, dx, db;
+    then K2 and its plain version, the hybrid op's forward and K1 over the whole
+    graph (its chunked layout) and its plain version, timed with CUDA events on A
+    and A^T. Returns the times and the max abs error."""
+    from dgll_tpu_torch.ops import spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+    from dgll_tpu_torch.ops.cuda.spmm_windowed import (
+        hybrid_forward,
+        spmm_hybrid,
+        spmm_windowed_cuda,
+    )
+    from dgll_tpu_torch.ops.windowed import spmm_windowed_reference
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    g = _bench_graph()
+    h, ht, n, f = g.hybrid, g.hybrid_t, g.n_node, 128
+    check(h is not None and h.res is not None, "the bench graph carries the hybrid layout")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for act in (None, "relu"):
+        x0 = torch.randn(n, f, generator=gen, device="cuda")
+        b0 = torch.randn(f, generator=gen, device="cuda") if act else None
+        cot = torch.randn(h.win.n_rows, f, generator=gen, device="cuda")
+        x = x0.clone().requires_grad_(True)
+        b = None if b0 is None else b0.clone().requires_grad_(True)
+        out = spmm_hybrid(h, ht, x, b, act)
+        (out * cot).sum().backward()
+        xr = x0.clone().requires_grad_(True)
+        br = None if b0 is None else b0.clone().requires_grad_(True)
+        pre = (spmm_windowed_reference(h.win, xr)
+               + spmm_chunked_reference(h.res, xr, out_dtype=torch.float32))
+        if br is not None:
+            pre = pre + br
+        ref = torch.relu(pre) if act else pre
+        # the ReLU gate of the backward is the op's own forward
+        gated = torch.where(out > 0, pre, 0.0) if act else pre
+        (gated * cot).sum().backward()
+        pairs = [("out", out.detach(), ref.detach()), ("dx", x.grad, xr.grad)]
+        if b is not None:
+            pairs.append(("db", b.grad, br.grad))
+        for name, got, want in pairs:
+            err, bound = (got - want).abs().max().item(), 1e-5 * want.abs().max().item()
+            print(f"[11 hybrid] act={act} {name} {tuple(got.shape)}: max abs err "
+                  f"{err:.3e}, tolerance {bound:.3e}")
+            check(err <= bound, f"spmm_hybrid within tolerance (act={act}, {name})")
+            worst = max(worst, err)
+
+    times = {}
+    for name, hy, c in (("A", h, g.chunked), ("A^T", ht, g.chunked_t)):
+        x = torch.randn(c.n_cols, f, generator=gen, device="cuda")
+        times[name] = {
+            "K2": cuda_median_ms(lambda: spmm_windowed_cuda(hy.win, x)),
+            "K2 plain": cuda_median_ms(lambda: spmm_windowed_reference(hy.win, x)),
+            "hybrid": cuda_median_ms(lambda: hybrid_forward(hy, x, None, None, torch.float32)),
+            "hybrid plain": cuda_median_ms(lambda: (
+                spmm_windowed_reference(hy.win, x)
+                + spmm_chunked_reference(hy.res, x, out_dtype=torch.float32))),
+            "K1 whole graph": cuda_median_ms(lambda: spmm_csr_cuda(c, x)),
+            "K1 plain": cuda_median_ms(lambda: spmm_chunked_reference(c, x)),
+        }
+        staged = int(hy.win.sub_nx.sum())
+        print(f"[11 time] F={f} {name}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in times[name].items())
+            + f"; {hy.win.src.numel()} windowed edges in {hy.win.n_sub} sub-chunks "
+            f"staging {staged} rows, {hy.res.src.numel()} residual edges, "
+            f"windowed fraction {hy.windowed_fraction:.4f}")
+    del g
+    return {"times": times, "err": worst}
+
+
+def phase_bench() -> dict:
+    """Phase 12: the bench's full-graph GCN step (``dgll_tpu_torch.bench``) on the
+    clustered graph at 200k nodes, through K2 and K1 on the residual, then through
+    K1 alone. Returns the two results."""
+    from dgll_tpu_torch import bench
+
+    res = {}
+    for layout in ("auto", "chunked"):
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = bench.fullgraph_step("cuda", layout)
+        steps, k = r["steps"], r["launches"]
+        losses = r["losses"]
+        check(steps == 14 and all(np.isfinite(losses)), "14 steps, every loss finite")
+        check(losses[-1] < losses[0], "the last loss is below the first")
+        check(k["k1_fwd"] == k["k1_bwd"] == 2 * steps, "2 K1 launches a step each way")
+        if layout == "auto":
+            check(r["kernel"] == "windowed_hybrid", "the bench ran the windowed layout")
+            check(abs(r["windowed_fraction"] - BENCH_FRACTION) <= 1e-3,
+                  f"windowed_fraction within 1e-3 of {BENCH_FRACTION}")
+            check(k["k2_fwd"] == k["k2_bwd"] == 2 * steps, "2 K2 launches a step each way")
+        else:
+            check(r["kernel"] == "classic_chunked", "the bench ran K1 alone")
+            check(k["k2_fwd"] == k["k2_bwd"] == 0, "no K2 launch with the chunked layout")
+        print(f"[12 bench] layout {layout}: kernel {r['kernel']}, step_ms "
+              f"{r['step_ms']:.4f}, windowed_fraction {r['windowed_fraction']:.4f}, "
+              f"pad_factor {r['pad_factor']:.4f}, roofline_fraction "
+              f"{r['roofline_fraction']:.4f} of {r['roofline_gbps']} GB/s, "
+              f"edges/s/layer pass {r['edges_per_s_per_layerpass']}, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, layout_preprocess_s "
+              f"{r['layout_preprocess_s']:.3f}, {_peak_memory(held)}, launches {k}")
+        res[layout] = r
+    return res
+
+
 def main() -> int:
     smi = phase_env()
     phase_build()
@@ -480,6 +692,9 @@ def main() -> int:
     phase_gat_layer()
     gat_times = phase_gat_time(gat_errs)
     gat_counts = phase_gat_slice()
+    win_err = phase_windowed_check()
+    hyb = phase_hybrid()
+    bench = phase_bench()
     k_ms, p_ms, err = times[(128, "A")]
     kernels = [{
         "name": "spmm_csr (K1: weighted SpMM, fused bias + ReLU)",
@@ -499,6 +714,15 @@ def main() -> int:
             "replaces": replaces, "launches": gat_counts[key],
             "max_abs_err": gat_errs[key], "ms": k_ms, "plain_ms": p_ms,
         })
+    k2 = bench["auto"]["launches"]
+    kernels.append({
+        "name": "spmm_windowed (K2: windowed SpMM, fused bias + ReLU)", "route": "cuda",
+        "source": WINDOWED_SOURCE, "replaces": WINDOWED_REPLACES,
+        "launches": k2["k2_fwd"] + k2["k2_bwd"], "max_abs_err": max(win_err, hyb["err"]),
+        "ms": hyb["times"]["A"]["K2"], "plain_ms": hyb["times"]["A"]["K2 plain"],
+    })
+    print(f"[12 bench] step_ms windowed {bench['auto']['step_ms']:.4f}, "
+          f"K1 alone {bench['chunked']['step_ms']:.4f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,14 @@ class Graph:
     # Kernel layouts (ops/chunked.py), attached by ``with_chunked``.
     chunked: Optional[Any] = None     # ChunkedCSR of A (dst-major)
     chunked_t: Optional[Any] = None   # ChunkedCSR of A^T (drives backward)
+    # Windowed layouts (ops/windowed.py), attached by ``with_windowed``.
+    hybrid: Optional[Any] = None      # HybridCSR of A (windowed + residual)
+    hybrid_t: Optional[Any] = None    # HybridCSR of A^T
+    # Set when the graph was relabelled for locality (parallel/reorder.py):
+    # node_perm[new_id] == original id. Features, labels and masks are permuted
+    # with the nodes, so training needs no mapping; per-node outputs in the original
+    # id space are out[argsort(node_perm)].
+    node_perm: Optional[torch.Tensor] = None   # [n_real_node] int64
 
     n_node: int = 0
     n_edge: int = 0
@@ -136,6 +144,53 @@ class Graph:
         c, ct = build_chunked_pair(src, dst, self.n_real_node, self.n_real_node, w)
         return self.replace(chunked=c.to(self.src.device),
                             chunked_t=ct.to(self.src.device))
+
+    def with_windowed(self, min_fill: float = 0.25, min_fraction: float = 0.5,
+                      reorder: bool = False) -> "Graph":
+        """Attach the windowed SpMM layouts of A and A^T (``ops/windowed.py``), which
+        route GCN aggregation through K2 and the residual edges through K1.
+
+        The call declines, returning the caller's graph unchanged, where fewer than
+        ``min_fraction`` of the edges of A or of A^T land on the windowed path.
+        ``reorder=True`` first relabels the nodes for locality when the cheap capture
+        estimate is below ``min_fraction`` (``parallel/reorder.py``); the graph
+        returned is then the permuted one, ``node_perm`` mapping back, unless no
+        ordering reaches ``min_fraction`` either, when the call declines without
+        building the layouts. The decline points are those of the JAX package's
+        ``Graph.with_windowed``. The classic layouts are not attached: chain
+        ``.with_chunked()`` for them."""
+        from dgll_tpu_torch.ops.windowed import build_hybrid
+
+        g = self
+        if reorder:
+            from dgll_tpu_torch.parallel.reorder import (
+                estimate_windowed_fraction,
+                reorder_for_locality,
+            )
+
+            e = g.n_real_edge
+            if estimate_windowed_fraction(_np(g.src)[:e], _np(g.dst)[:e],
+                                          min_fill) < min_fraction:
+                g, info = reorder_for_locality(g, min_fill=min_fill,
+                                               min_fraction=min_fraction)
+                if info.get("declined"):
+                    return self
+        e, n = g.n_real_edge, g.n_real_node
+        src, dst = _np(g.src)[:e], _np(g.dst)[:e]
+        w = None if g.edge_weight is None else _np(g.edge_weight)[:e]
+        # A first: where it declines, A^T's build would be wasted host time
+        h = build_hybrid(src, dst, n, n, w, min_fill)
+        if h.windowed_fraction < min_fraction:
+            return self  # keep the caller's graph, in its own id space
+        ht = build_hybrid(dst, src, n, n, w, min_fill)
+        if ht.windowed_fraction < min_fraction:
+            return self
+        dev = g.src.device
+        return g.replace(hybrid=h.to(dev), hybrid_t=ht.to(dev))
+
+    def out_degrees_np(self) -> np.ndarray:
+        """Out-degree of every node (padded edges included), as int64 numpy."""
+        return np.bincount(_np(self.src), minlength=self.n_node).astype(np.int64)
 
     def to(self, device) -> "Graph":
         """Move every tensor, and the kernel layouts, to ``device``."""

@@ -2,7 +2,8 @@
 
 Counterpart of ``dgll_tpu/nn/conv.py``; the port holds ``GCNConv`` and ``GATConv``
 on a full ``Graph``, which carries the kernel layouts ``chunked``/``chunked_t`` when
-``Graph.with_chunked`` attached them.
+``Graph.with_chunked`` attached them, and ``hybrid``/``hybrid_t`` (GCN only) when
+``Graph.with_windowed`` did.
 """
 from __future__ import annotations
 
@@ -58,13 +59,20 @@ def kernel_layouts(g, n_dst: int, device: torch.device):
 
 
 def _weighted_aggregate(g, h: torch.Tensor, n_dst: int) -> torch.Tensor:
-    """Weighted-sum aggregation: through the SpMM kernel when the graph carries its
-    layout (``Graph.with_chunked``), else, on the CPU, through ``spmm_coo``.
+    """Weighted-sum aggregation: through the windowed kernel K2 and K1 on the
+    residual edges when the graph carries the windowed layouts
+    (``Graph.with_windowed``), else through K1 when it carries the chunked ones
+    (``Graph.with_chunked``), else, on the CPU, through ``spmm_coo``.
 
-    Unlike the JAX package, every feature width goes through the kernel: the
+    Unlike the JAX package, every feature width goes through the kernels: the
     ``F % 128`` condition there is the TPU matrix unit's tiling rule, and the GPU
-    kernel masks a ragged column tile instead. The math is the same.
+    kernels mask a ragged column tile instead. The math is the same.
     """
+    hy = g.hybrid
+    if hy is not None and hy.win.n_rows >= n_dst:
+        from dgll_tpu_torch.ops.cuda.spmm_windowed import spmm_hybrid
+
+        return spmm_hybrid(hy, g.hybrid_t, h)[:n_dst]
     layouts = kernel_layouts(g, n_dst, h.device)
     if layouts is not None:
         from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked

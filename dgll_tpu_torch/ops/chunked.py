@@ -137,9 +137,20 @@ def spmm_chunked_reference(
     """
     cols = c.src if cols is None else cols
     weights = c.weight if weights is None else weights
+    return edge_sum_reference(c.rows, cols, weights, c.n_rows, x, bias, activation,
+                              out_dtype)
+
+
+def edge_sum_reference(rows: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor,
+                       n_rows: int, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                       activation: Optional[str] = None,
+                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``act(sum_e weights[e] * x[cols[e]] into row rows[e] + bias)`` over ``n_rows``
+    rows, summed in f32 and stored in ``out_dtype`` (default ``x.dtype``): the plain
+    version of every SpMM kernel of the package."""
     msg = x.index_select(0, cols).float() * weights[:, None]
-    out = torch.zeros((c.n_rows, x.shape[-1]), dtype=torch.float32, device=x.device)
-    out = out.index_add(0, c.rows, msg)
+    out = torch.zeros((n_rows, x.shape[-1]), dtype=torch.float32, device=x.device)
+    out = out.index_add(0, rows, msg)
     if bias is not None:
         out = out + bias.float()
     if activation == "relu":

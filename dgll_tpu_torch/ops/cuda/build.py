@@ -94,6 +94,7 @@ def load_library() -> ctypes.CDLL:
     f, ll = ctypes.c_float, ctypes.c_longlong
     signatures = {
         "dgll_spmm_csr": [p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "dgll_spmm_windowed": [p] * 10 + [i] * 6 + [p],
         "dgll_gat_stats": [p, p, p, p, p, i, i, f, p],
         "dgll_gat_alpha": [p, p, p, p, p, p, p, ll, i, f, p],
         "dgll_edges_to_rows_sum": [p, p, p, i, i, p],

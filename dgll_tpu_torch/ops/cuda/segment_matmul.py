@@ -39,11 +39,11 @@ def _uses_kernel(x: torch.Tensor) -> bool:
     raise ValueError(f"the kernels run on cpu or cuda tensors, not {x.device}")
 
 
-def _vector_width(x: torch.Tensor, f: int) -> int:
-    """Columns per lane: the widest load (up to 16 bytes) that divides F, fits the
-    pointer's alignment and still gives a warp 32 busy lanes; else 1."""
+def _vector_width(x: torch.Tensor, f: int, max_bytes: int = 16) -> int:
+    """Columns per lane: the widest load (up to ``max_bytes``) that divides F, fits
+    the pointer's alignment and still gives a warp 32 busy lanes; else 1."""
     size = x.element_size()
-    vec = 16 // size
+    vec = max_bytes // size
     while vec > 1 and (f % vec or x.data_ptr() % (vec * size) or f // vec < 32):
         vec //= 2
     return vec

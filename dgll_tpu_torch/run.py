@@ -5,11 +5,14 @@ full-batch GCN and GAT training on the synthetic dataset, on one device. It prin
 the same JSON keys. Everything else raises ``NotImplementedError`` naming the
 ROADMAP.md item that will port it.
 
-On a CUDA device the graph gets the kernel layouts (``Graph.with_chunked``),
-whatever its size: both GCN layers aggregate through the SpMM kernel, and every GAT
-layer runs the fused attention op (K3-K7 and K1). The JAX package's 100k-edge
-threshold is the TPU's launch-overhead rule; the port's layers have no plain
-version on the card.
+On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN run
+attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does: where
+the graph has source locality, or a relabelling gives it some, both GCN layers
+aggregate through the windowed kernel K2 and K1 on the residual edges; where it
+declines, through K1 alone. Every GAT layer runs the fused attention op (K3-K7 and
+K1) on ``with_chunked()`` only, since GAT never reads the windowed layout. The JAX
+package's 100k-edge threshold is the TPU's launch-overhead rule; the port's layers
+have no plain version on the card.
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ import time
 import numpy as np
 import torch
 
-# The port's names for its SpMM kernel and its fused GAT op, reported as
-# ``spmm_kernel`` and ``gat_kernel``.
+# The port's names for its SpMM kernels (K1, and K2 composed with K1 on the
+# residual) and its fused GAT op, reported as ``spmm_kernel`` and ``gat_kernel``.
 SPMM_KERNEL = "spmm_csr_cuda"
+WINDOWED_KERNEL = "spmm_windowed_cuda"
 GAT_KERNEL = "gat_attention_fused"
 
 
@@ -121,6 +125,25 @@ def _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
     }
 
 
+def attach_kernel_layouts(cfg, g):
+    """The graph with the kernel layouts of ``cfg``'s model attached, and what the
+    CLI reports of them: GCN tries the windowed layouts (relabelling for locality
+    where needed) and keeps the chunked ones for a decline; GAT takes the chunked
+    ones only."""
+    t_pre = time.perf_counter()
+    extra: dict = {}
+    if cfg.model.upper() == "GAT":
+        g = g.with_chunked()
+        extra["gat_kernel"] = GAT_KERNEL
+    else:
+        g = g.with_windowed(reorder=True).with_chunked()
+    extra["spmm_kernel"] = SPMM_KERNEL if g.hybrid is None else WINDOWED_KERNEL
+    extra["layout_preprocess_s"] = time.perf_counter() - t_pre
+    if g.node_perm is not None:
+        extra["locality_reordered"] = True
+    return g, extra
+
+
 def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     """One trial of a configuration ``main`` has checked, on the device it resolved."""
     from dgll_tpu_torch.train import FullBatchTrainer, accuracy, micro_f1
@@ -135,12 +158,7 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     t_start = time.perf_counter()
     extra: dict = {}
     if dev.type == "cuda":
-        t_pre = time.perf_counter()
-        g = g.with_chunked()
-        extra["spmm_kernel"] = SPMM_KERNEL
-        if cfg.model.upper() == "GAT":
-            extra["gat_kernel"] = GAT_KERNEL
-        extra["layout_preprocess_s"] = time.perf_counter() - t_pre
+        g, extra = attach_kernel_layouts(cfg, g)
     g = g.to(dev)
 
     tr = FullBatchTrainer(model, opt, seed=trial_seed, device=dev)

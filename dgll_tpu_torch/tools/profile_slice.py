@@ -1,6 +1,6 @@
 """Where the time of a full-batch slice goes on a CUDA device.
 
-    python -m dgll_tpu_torch.tools.profile_slice [--gat]
+    python -m dgll_tpu_torch.tools.profile_slice [--gat | --clustered]
 
 It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph with
 16 classes: a 2-layer GCN of width 128 (``SLICE_ARGS``), or with ``--gat`` the
@@ -15,6 +15,11 @@ It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph w
   rows with more than ``HUB`` in-edges, and with every row cut to its first ``CAP``
   edges: the SpMM kernel at each width of the model and, for GAT, the row
   reductions K3, K5 and K6 at the hidden layer's head count.
+
+With ``--clustered`` it profiles the full-graph bench's GCN step instead
+(``dgll_tpu_torch.bench``, 200k-node clustered graph, widths 128): ``STEPS`` train
+steps through the windowed layout (K2 and K1 on the residual edges) and through K1
+alone, without the hub-row probe (the graph has no hubs).
 
 Each result is a line; the last line is one JSON object with every number.
 """
@@ -151,16 +156,47 @@ def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int, heads: int = 0) -> dict
     return out
 
 
+def _print_profile(name: str, p: dict) -> None:
+    print(f"{STEPS} epochs, {name}: wall {p['wall_ms']:.3f} ms, device busy "
+          f"{p['busy_ms']:.3f} ms, idle {100 * p['idle_share']:.2f}%")
+    for k, v in p["kernels"].items():
+        print(f"    {100 * v['share']:6.2f}%  {v['ms']:10.3f} ms  x{v['count']:<4d} {k}")
+
+
+def profile_clustered(card: str) -> dict:
+    """Profiles of ``STEPS`` bench steps on the clustered graph, per layout."""
+    from dgll_tpu_torch import bench
+
+    result = {"card": card, "model": "GCN, clustered full-graph bench", "profile": {}}
+    print(f"card: {card}, slice: clustered full-graph GCN (dgll_tpu_torch.bench)")
+    for layout in ("auto", "chunked"):
+        b = bench.setup("cuda", layout)
+        losses: list = []
+        b.run(2, losses)  # warm-up: cuBLAS handles, the allocator, the kernels
+        prof = profile(lambda: b.run(STEPS, losses))
+        _print_profile(f"layout {layout}", prof)
+        result["profile"][layout] = prof
+        del b
+    print(json.dumps(result))
+    return result
+
+
 def main(argv=None) -> dict:
     from dgll_tpu_torch.utils import parse_train_config
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--gat", action="store_true", help="profile the GAT slice")
-    gat = p.parse_args(argv).gat
-    cfg = parse_train_config(GAT_SLICE_ARGS if gat else SLICE_ARGS)
+    which = p.add_mutually_exclusive_group()
+    which.add_argument("--gat", action="store_true", help="profile the GAT slice")
+    which.add_argument("--clustered", action="store_true",
+                       help="profile the full-graph bench's step on the clustered graph")
+    args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if args.clustered:
+        return profile_clustered(card)
+    gat = args.gat
+    cfg = parse_train_config(GAT_SLICE_ARGS if gat else SLICE_ARGS)
     prof, g, n_class = profile_training(cfg, STEPS)
     if gat:
         probe = hub_probe(g.chunked, (cfg.nhid * cfg.n_heads, n_class), HUB, CAP,
@@ -171,10 +207,7 @@ def main(argv=None) -> dict:
     print(f"card: {card}, slice: {cfg.model}")
     for name, p in (("train only", prof["train_only"]),
                     ("with validation", prof["with_validation"])):
-        print(f"{STEPS} epochs, {name}: wall {p['wall_ms']:.3f} ms, device busy "
-              f"{p['busy_ms']:.3f} ms, idle {100 * p['idle_share']:.2f}%")
-        for k, v in p["kernels"].items():
-            print(f"    {100 * v['share']:6.2f}%  {v['ms']:10.3f} ms  x{v['count']:<4d} {k}")
+        _print_profile(name, p)
     print(f"hub probe: {probe['hub_rows']} rows above {HUB} edges, "
           f"max in-degree {probe['max_degree']}")
     for name, entry in probe["layouts"].items():

@@ -1,8 +1,10 @@
 """The port runs without JAX: the machine with the GPU has none.
 
 A subprocess in which ``jax``, ``flax``, ``optax`` and the JAX package cannot be
-imported imports every module of ``dgll_tpu_torch`` and trains a few full-batch
-epochs through the CLI. No source file of the package imports them either.
+imported imports every module of ``dgll_tpu_torch``, trains a few full-batch epochs
+through the CLI, runs the full-graph bench on a small clustered graph through the
+windowed layout, and runs the community pipeline through the shared C++ host
+kernels. No source file of the package imports them either.
 ``chip_smoke.py`` refuses to run, and prints no result, without a CUDA device.
 """
 import os
@@ -28,6 +30,16 @@ from dgll_tpu_torch.run import main
 out = main(["--samp_type", "full", "--device", "cpu", "--n_node", "300",
             "--n_epochs", "2", "--nhid", "16", "--feat_dim", "8"])
 assert out["trials"][0]["epochs"] == 2
+import os
+os.environ["BENCH_FG_NODES"] = "4096"
+from dgll_tpu_torch.bench import clustered_graph, fullgraph_step
+r = fullgraph_step("cpu")
+assert r["kernel"] == "windowed_hybrid" and r["steps"] == 14, r
+from dgll_tpu_torch import native
+from dgll_tpu_torch.parallel.community import run_cog
+assert native.native_available()
+g, book, _ = run_cog(clustered_graph(8192, 4), batch_size=512)
+assert g.node_perm is not None and len(book) > 1
 print("NOJAX_OK")
 """
 
