@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout and drives the
-port's three slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
+port's four slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
 200k-node power-law graph, the third through the full-graph bench
-(``dgll_tpu_torch.bench``) on a 200k-node clustered graph:
+(``dgll_tpu_torch.bench``) on a 200k-node clustered graph, the fourth through the
+round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph:
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
   on a power-law test graph and, through the autograd wrapper, at the slice's
@@ -20,11 +21,20 @@ port's three slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on
   against its plain version on a clustered test graph and one with an empty row
   block; the hybrid op (K2 plus K1 on the residual edges) forward and backward at
   the bench's shapes; K2, the hybrid op and K1 over the whole graph timed there; the
-  bench's 14 train steps through K2, and again through K1 alone.
+  bench's 14 train steps through K2, and again through K1 alone;
+* the round-4 GAT attention layers (phases 13-15): K6 in its max mode, K9, and K6′
+  and K10 (served by K7's and K6's kernels through counted wrappers) against their
+  plain versions on the test graph; ``gat_attention_chunked_multihead`` (8 heads x
+  8 features) and ``gat_attention_chunked`` (one head, F=16 and F=64) forward and
+  backward against the fused op at the slice's shapes, with every launch counted;
+  each kernel and both layers timed.
 
-Each slice's launch counters are set to 0 just before its training run and read
-just after. It needs one CUDA device and ``nvcc`` (``CUDA_HOME`` or ``PATH``), and
-no JAX.
+Each slice's launch counters are set to 0 just before its run and read just after.
+Each kernel is timed beside its plain version, one PyTorch library call computing
+the same function where there is one (``library_ms``; the port never calls it), and
+its bound: the larger of its bytes (each input read once, each output written once)
+over the H100's 3.35 TB/s and its float32 operations over 67 TFLOP/s. It needs one
+CUDA device and ``nvcc`` (``CUDA_HOME`` or ``PATH``), and no JAX.
 
 Each phase prints its lines; a failed check raises and the script exits non-zero.
 Before the last line it prints the card's name and power limit, as ``nvidia-smi``
@@ -33,6 +43,7 @@ gives them, and one JSON line describing the kernels. The last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import io
@@ -41,6 +52,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -67,11 +79,75 @@ WINDOWED_SOURCE = "dgll_tpu_torch/csrc/spmm_windowed.cu"
 WINDOWED_REPLACES = "dgll_tpu/ops/pallas/spmm_windowed.py:42"
 # windowed_fraction of A on the bench's clustered graph, as the JAX builder gives it
 BENCH_FRACTION = 0.9068
+EDGE_OPS = "dgll_tpu/ops/pallas/edge_ops.py"
+# the kernels of the round-4 attention path: (JSON name, counter, the TPU kernel it
+# replaces); the counters are phase 14's (see _counters)
+R4_KERNELS = (
+    ("edges_to_rows_max (K6, max mode)", "edges_to_rows_max", f"{EDGE_OPS}:293"),
+    ("edges_to_rows_sum (K6, sum_all mode: the sum kernel)", "sum_all", f"{EDGE_OPS}:293"),
+    ("rows_to_edges_multi (K6': K7's kernel at width H)", "rows_to_edges_multi",
+     f"{EDGE_OPS}:249"),
+    ("rows_to_edges (K10 rows to edges: K7's kernel at width 1)", "rows_to_edges",
+     f"{EDGE_OPS}:39"),
+    ("edges_to_rows, sum (K10 reduce, sum and sum_all: K6's sum kernel at H=1)",
+     "edges_to_rows:sum", f"{EDGE_OPS}:77"),
+    ("edges_to_rows, max (K10 reduce, max: K6's max kernel at H=1)", "edges_to_rows:max",
+     f"{EDGE_OPS}:77"),
+    ("sddmm_edges (K9: per-edge dot products)", "sddmm_edges",
+     "dgll_tpu/ops/pallas/sddmm.py:27"),
+)
+# the H100 SXM's peak rates (NVIDIA's data sheet): device memory and float32 outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# a kernel case: its launch, its plain version, one library call computing the same
+# function (or None), the tensors it reads and its float32 operations
+Case = collections.namedtuple("Case", "kernel plain library reads ops")
+
+warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
+warnings.filterwarnings("ignore", "Sparse invariant checks are implicitly disabled")
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: int) -> tuple:
+    """``(bound_ms, bound_by)``: the least time the card could take to move
+    ``moved`` bytes and do ``ops`` float32 operations at its peak rates."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr(indptr, cols, values, shape):
+    """A layout's edges as a torch sparse CSR matrix, the input of a library call."""
+    return torch.sparse_csr_tensor(indptr, cols, values, size=shape,
+                                   check_invariants=False)
+
+
+def timed(case: Case, outs) -> dict:
+    """A case's kernel, plain and library times (CUDA events, median of 15 after 3
+    warm-ups) and bound, for the outputs ``outs`` of its kernel."""
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    b_ms, b_by = bound(nbytes(*case.reads, *outs), case.ops)
+    return {"ms": cuda_median_ms(case.kernel), "plain_ms": cuda_median_ms(case.plain),
+            "library_ms": None if case.library is None else cuda_median_ms(case.library),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def describe(t: dict) -> str:
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    return (f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
+            f"({t['plain_ms'] / t['ms']:.2f}x"
+            f"{'; kernel SLOWER than plain' if t['ms'] > t['plain_ms'] else ''}), "
+            f"library {lib}, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms']:.1%} of it)")
 
 
 def phase_env() -> str:
@@ -211,10 +287,10 @@ def _slice_check(c, ct, n_in, f, gen) -> float:
     worst = 0.0
     for name, got, want in (("out", out.detach(), ref.detach()), ("dx", x.grad, xr.grad)):
         err = (got - want).abs().max().item()
-        bound = 1e-4 * want.abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
         print(f"[4 check] F={f} {name} {tuple(got.shape)}: max abs err {err:.3e}, "
-              f"tolerance {bound:.3e}")
-        check(err <= bound, f"wrapper within tolerance at the slice's shapes (F={f}, {name})")
+              f"tolerance {tol:.3e}")
+        check(err <= tol, f"wrapper within tolerance at the slice's shapes (F={f}, {name})")
         worst = max(worst, err)
     return worst
 
@@ -232,9 +308,12 @@ def slice_graph():
 
 
 def phase_time() -> dict:
+    """Phase 4: the wrapper at the slice's shapes, then K1 on A and A^T timed beside
+    its plain version, ``torch.sparse.mm`` on the layout's CSR (the same sum; like
+    the timed launch, without bias and ReLU) and its bound. Returns {(F, layout):
+    times}."""
     from dgll_tpu_torch.ops import spmm_chunked_reference
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
-    from dgll_tpu_torch.utils.profiling import cuda_median_ms
 
     c, ct, n_node = slice_graph()
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -243,16 +322,18 @@ def phase_time() -> dict:
         err = _slice_check(c, ct, n_node, f, gen)
         for name, lay in (("A", c), ("A^T", ct)):
             x = torch.randn(lay.n_cols, f, generator=gen, device="cuda")
-            k_ms = cuda_median_ms(lambda: spmm_csr_cuda(lay, x))
-            p_ms = cuda_median_ms(lambda: spmm_chunked_reference(lay, x))
+            mat = csr(lay.indptr, lay.src, lay.weight, (lay.n_rows, lay.n_cols))
+            case = Case(lambda: spmm_csr_cuda(lay, x),
+                        lambda: spmm_chunked_reference(lay, x),
+                        lambda: torch.sparse.mm(mat, x),
+                        (lay.indptr, lay.src, lay.weight, x), 2 * lay.src.numel() * f)
+            t = timed(case, (spmm_csr_cuda(lay, x),))
             nnz = lay.src.numel()
-            gbs = (nnz * (f * 4 + 8) + lay.n_rows * f * 4) / (k_ms * 1e-3) / 1e9
+            gbs = (nnz * (f * 4 + 8) + lay.n_rows * f * 4) / (t["ms"] * 1e-3) / 1e9
             deg = int((lay.indptr[1:] - lay.indptr[:-1]).max())
-            print(f"[4 time] F={f} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-                  f"({p_ms / k_ms:.2f}x{'; kernel SLOWER than plain' if k_ms > p_ms else ''}),"
-                  f" {gbs:.1f} GB/s of gathered rows + indices, {nnz} edges, "
-                  f"max in-degree {deg}")
-            result[(f, name)] = (k_ms, p_ms, err)
+            print(f"[4 time] F={f} {name}: {describe(t)}; {gbs:.1f} GB/s of gathered "
+                  f"rows + indices, {nnz} edges, max in-degree {deg}")
+            result[(f, name)] = {**t, "err": err}
     return result
 
 
@@ -305,9 +386,11 @@ def phase_slice() -> dict:
 
 def _gat_cases(c, ct, heads, width, gen) -> dict:
     """Each GAT kernel, and K1 with runtime columns and weights, on ``heads`` heads
-    and ``width`` features: ``{name: (kernel call, plain call)}``, each call
-    returning a tuple of tensors. The inputs of K4 and K5 are the plain versions'
-    own outputs, so that each kernel is checked alone."""
+    and ``width`` features: ``{name: Case}``, each call returning a tuple of tensors.
+    The inputs of K4 and K5 are the plain versions' own outputs, so that each kernel
+    is checked alone. Operations count 8 per edge and head for K3 and K4 (adds,
+    LeakyReLU, max or min, exp, divide), 4 for K5, 1 for K6, 2 per edge and feature
+    for K1; K7 only moves bytes."""
     from dgll_tpu_torch.ops import gat_csr, spmm_chunked_reference
     from dgll_tpu_torch.ops.cuda import gat_fused as gf
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
@@ -323,54 +406,73 @@ def _gat_cases(c, ct, heads, width, gen) -> dict:
     dalpha, s_row, g = r(nnz, heads), r(c.n_rows, heads), r(c.n_rows, width)
     prod = alpha * dalpha
     msg, w = r(nnz, width), torch.rand(nnz, generator=gen, device="cuda")
-    ids, ones = c.edge_ids, ct.unit_weight
+    ids, ones, perm, offsets = c.edge_ids, ct.unit_weight, c.t_slot_perm, c.indptr.long()
+    a_mat = csr(c.indptr, ids, w, (c.n_rows, nnz))
+    t_mat = csr(ct.indptr, perm, ones, (ct.n_rows, nnz))
     return {
-        "gat_stats": (lambda: gf.gat_stats_cuda(c, sc, sd),
-                      lambda: gat_csr.gat_stats_reference(c, sc, sd)),
-        "gat_alpha": (lambda: gf.gat_alpha_cuda(c, sc, sd, m, den),
-                      lambda: gat_csr.gat_alpha_reference(c, sc, sd, m, den)),
-        "gat_bwd_softmax": (
+        "gat_stats": Case(lambda: gf.gat_stats_cuda(c, sc, sd),
+                          lambda: gat_csr.gat_stats_reference(c, sc, sd),
+                          None, (c.indptr, sc, sd), 8 * nnz * heads),
+        "gat_alpha": Case(lambda: gf.gat_alpha_cuda(c, sc, sd, m, den),
+                          lambda: gat_csr.gat_alpha_reference(c, sc, sd, m, den),
+                          None, (c.rows, sc, sd, m, den), 8 * nnz * heads),
+        "gat_bwd_softmax": Case(
             lambda: gf.gat_bwd_softmax_cuda(c, alpha, dalpha, lgrad, s_row),
-            lambda: gat_csr.gat_bwd_softmax_reference(c, alpha, dalpha, lgrad, s_row)),
-        "edges_to_rows_sum": (lambda: (gf.edges_to_rows_sum_cuda(c, prod),),
-                              lambda: (gat_csr.edges_to_rows_sum_reference(c, prod),)),
-        "expand_rows": (lambda: (gf.expand_rows_cuda(c, g),),
-                        lambda: (gat_csr.expand_rows_reference(c, g),)),
-        "K1 identity columns, runtime weights, on A": (
+            lambda: gat_csr.gat_bwd_softmax_reference(c, alpha, dalpha, lgrad, s_row),
+            None, (c.indptr, alpha, dalpha, lgrad, s_row), 4 * nnz * heads),
+        "edges_to_rows_sum": Case(
+            lambda: (gf.edges_to_rows_sum_cuda(c, prod),),
+            lambda: (gat_csr.edges_to_rows_sum_reference(c, prod),),
+            lambda: torch.segment_reduce(prod, "sum", offsets=offsets),
+            (c.indptr, prod), nnz * heads),
+        "expand_rows": Case(lambda: (gf.expand_rows_cuda(c, g),),
+                            lambda: (gat_csr.expand_rows_reference(c, g),),
+                            lambda: g.index_select(0, c.rows), (c.rows, g), 0),
+        "K1 identity columns, runtime weights, on A": Case(
             lambda: (spmm_csr_cuda(c, msg, cols=ids, weights=w),),
-            lambda: (spmm_chunked_reference(c, msg, cols=ids, weights=w),)),
-        "K1 t_slot_perm columns, unit weights, on A^T": (
-            lambda: (spmm_csr_cuda(ct, msg, cols=c.t_slot_perm, weights=ones),),
-            lambda: (spmm_chunked_reference(ct, msg, cols=c.t_slot_perm, weights=ones),)),
+            lambda: (spmm_chunked_reference(c, msg, cols=ids, weights=w),),
+            lambda: torch.sparse.mm(a_mat, msg), (c.indptr, ids, w, msg),
+            2 * nnz * width),
+        "K1 t_slot_perm columns, unit weights, on A^T": Case(
+            lambda: (spmm_csr_cuda(ct, msg, cols=perm, weights=ones),),
+            lambda: (spmm_chunked_reference(ct, msg, cols=perm, weights=ones),),
+            lambda: torch.sparse.mm(t_mat, msg), (ct.indptr, perm, ones, msg),
+            2 * nnz * width),
     }
 
 
-def _max_err(got, want) -> tuple:
-    """(max abs error, 1e-4 * max|ref|). Rows without edges carry the row max
-    NEG = -3e38 in K3's m: they must match exactly and are left out of the bound."""
+def _max_err(got, want, scale=1e-4) -> tuple:
+    """(max abs error, scale * max|ref|). Rows without edges carry the row max
+    NEG = -3e38 (K3's m, K6's max): they must match exactly and are left out of the
+    bound."""
     from dgll_tpu_torch.ops.gat_csr import NEG
 
     edgeless = want == NEG
-    check(torch.equal(got == NEG, edgeless), "rows without edges give m = NEG")
+    check(torch.equal(got == NEG, edgeless), "rows without edges give NEG")
     got, want = torch.where(edgeless, 0.0, got), torch.where(edgeless, 0.0, want)
-    return (got - want).abs().max().item(), 1e-4 * want.abs().max().item()
+    return (got - want).abs().max().item(), scale * want.abs().max().item()
 
 
-def _gat_compare(tag, name, kernel, plain, worst) -> str:
-    """Check one case of ``_gat_cases`` (f32, bound 1e-4 * max|ref| on every
-    output; none of the kernels uses atomics, so two runs must be bitwise equal),
-    keep its max abs error in ``worst`` under the kernel's JSON key, and return
-    the printed summary."""
-    got, again, want = kernel(), kernel(), plain()
+def _compare(tag, name, case, worst, scale=1e-4, exact=False) -> tuple:
+    """Check one case (f32: every output within ``scale`` * max|ref| of the plain
+    version's, or equal to it with ``exact``; none of the kernels uses atomics, so
+    two runs must be bitwise equal), keep its max abs error in ``worst`` under the
+    kernel's JSON key, and return the printed summary and the kernel's outputs."""
+    got, again, want = case.kernel(), case.kernel(), case.plain()
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
-    errs = [_max_err(a, b) for a, b in zip(got, want)]
-    check(all(x <= b for x, b in errs), f"{name} within tolerance ({tag})")
+    errs = [_max_err(a, b, scale) for a, b in zip(got, want)]
+    if exact:
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} equals its plain version ({tag})")
+    check(all(x <= b for x, b in errs),
+          f"{name} within tolerance ({tag}): (max abs err, tolerance) {errs}")
     check(same, f"{name}: two runs bitwise equal ({tag})")
     key = K1_GAT if name.startswith("K1") else name
     worst[key] = max(worst.get(key, 0.0), *(x for x, _ in errs))
-    return ("max abs err " + ", ".join(f"{x:.3e} (tolerance {b:.3e})" for x, b in errs)
-            + f"; bitwise repeatable {same}")
+    line = ("exactly equal" if exact else "max abs err " + ", ".join(
+        f"{x:.3e} (tolerance {b:.3e})" for x, b in errs))
+    return f"{line}; bitwise repeatable {same}", got
 
 
 def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
@@ -379,8 +481,8 @@ def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
     c, ct, n = power_law_layouts(n, e)
     gen = torch.Generator(device="cuda").manual_seed(2)
     for heads, width in ((1, 16), (8, 64)):
-        for name, (kernel, plain) in _gat_cases(c, ct, heads, width, gen).items():
-            line = _gat_compare(f"H={heads}", name, kernel, plain, worst)
+        for name, case in _gat_cases(c, ct, heads, width, gen).items():
+            line, _ = _compare(f"H={heads}", name, case, worst)
             print(f"[6 check] H={heads} width={width} {name}: {line}")
     print(f"[6 check] {c.src.numel()} edges over {n} rows, max in-degree "
           f"{int((c.indptr[1:] - c.indptr[:-1]).max())}: all cases pass")
@@ -415,31 +517,26 @@ def phase_gat_layer() -> None:
         want = grads(lambda h, s, d: gat_attention_coo(c.src, c.rows, h, s, d, c.n_rows,
                                                        0.2, mask))
         for name, a, b in zip(("out", "dh", "da_src", "da_dst"), got, want):
-            err, bound = (a - b).abs().max().item(), 1e-4 * b.abs().max().item()
+            err, tol = (a - b).abs().max().item(), 1e-4 * b.abs().max().item()
             print(f"[7 layer] H={heads} F={f} dropout {p} {name} {tuple(a.shape)}: "
-                  f"max abs err {err:.3e}, tolerance {bound:.3e}")
-            check(err <= bound, f"fused layer within tolerance (H={heads}, {name})")
+                  f"max abs err {err:.3e}, tolerance {tol:.3e}")
+            check(err <= tol, f"fused layer within tolerance (H={heads}, {name})")
 
 
 def phase_gat_time(worst: dict) -> dict:
     """Phase 8: each GAT kernel against its plain version at the slice's shapes,
-    checked as in phase 6 and then timed (CUDA events, median of 15 after 3
-    warm-ups). Returns {name: (kernel ms, plain ms)} at layer 1's shapes (8 heads,
-    width 64)."""
-    from dgll_tpu_torch.utils.profiling import cuda_median_ms
-
+    checked as in phase 6 and then timed beside its plain version, its library call
+    and its bound. Returns {name: times} at layer 1's shapes (8 heads, width 64)."""
     c, ct, _ = slice_graph()
     gen = torch.Generator(device="cuda").manual_seed(4)
     result = {}
     for heads, width in ((8, 64), (1, 16)):
-        for name, (kernel, plain) in _gat_cases(c, ct, heads, width, gen).items():
-            line = _gat_compare(f"slice, H={heads}", name, kernel, plain, worst)
-            k_ms, p_ms = cuda_median_ms(kernel), cuda_median_ms(plain)
-            print(f"[8 time] H={heads} width={width} {name}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms ({p_ms / k_ms:.2f}x"
-                  f"{'; kernel SLOWER than plain' if k_ms > p_ms else ''}); {line}")
+        for name, case in _gat_cases(c, ct, heads, width, gen).items():
+            line, outs = _compare(f"slice, H={heads}", name, case, worst)
+            t = timed(case, outs)
+            print(f"[8 time] H={heads} width={width} {name}: {describe(t)}; {line}")
             if heads == 8 and name != "K1 t_slot_perm columns, unit weights, on A^T":
-                result[K1_GAT if name.startswith("K1") else name] = (k_ms, p_ms)
+                result[K1_GAT if name.startswith("K1") else name] = t
     return result
 
 
@@ -617,18 +714,27 @@ def phase_hybrid() -> dict:
         if b is not None:
             pairs.append(("db", b.grad, br.grad))
         for name, got, want in pairs:
-            err, bound = (got - want).abs().max().item(), 1e-5 * want.abs().max().item()
+            err, tol = (got - want).abs().max().item(), 1e-5 * want.abs().max().item()
             print(f"[11 hybrid] act={act} {name} {tuple(got.shape)}: max abs err "
-                  f"{err:.3e}, tolerance {bound:.3e}")
-            check(err <= bound, f"spmm_hybrid within tolerance (act={act}, {name})")
+                  f"{err:.3e}, tolerance {tol:.3e}")
+            check(err <= tol, f"spmm_hybrid within tolerance (act={act}, {name})")
             worst = max(worst, err)
 
     times = {}
     for name, hy, c in (("A", h, g.chunked), ("A^T", ht, g.chunked_t)):
         x = torch.randn(c.n_cols, f, generator=gen, device="cuda")
+        w = hy.win
+        # the library call: torch.sparse.mm over the windowed edges' matrix
+        w_mat = torch.sparse_coo_tensor(torch.stack([w.rows.long(), w.src.long()]),
+                                        w.weight, (w.n_rows, w.n_cols)).coalesce()
+        w_mat = w_mat.to_sparse_csr()
+        k2_bound = bound(nbytes(w.blk_ptr, w.sub_ptr, w.sub_x0, w.sub_nx, w.src, w.rows,
+                                w.weight, x) + w.n_rows * f * 4, 2 * w.src.numel() * f)
         times[name] = {
             "K2": cuda_median_ms(lambda: spmm_windowed_cuda(hy.win, x)),
             "K2 plain": cuda_median_ms(lambda: spmm_windowed_reference(hy.win, x)),
+            "K2 library": cuda_median_ms(lambda: torch.sparse.mm(w_mat, x)),
+            "K2 bound": k2_bound[0],
             "hybrid": cuda_median_ms(lambda: hybrid_forward(hy, x, None, None, torch.float32)),
             "hybrid plain": cuda_median_ms(lambda: (
                 spmm_windowed_reference(hy.win, x)
@@ -637,8 +743,10 @@ def phase_hybrid() -> dict:
             "K1 plain": cuda_median_ms(lambda: spmm_chunked_reference(c, x)),
         }
         staged = int(hy.win.sub_nx.sum())
+        times[name]["K2 bound_by"] = k2_bound[1]
         print(f"[11 time] F={f} {name}: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in times[name].items())
+            f"{k} {v:.4f} ms" if isinstance(v, float) else f"{k} {v}"
+            for k, v in times[name].items())
             + f"; {hy.win.src.numel()} windowed edges in {hy.win.n_sub} sub-chunks "
             f"staging {staged} rows, {hy.res.src.numel()} residual edges, "
             f"windowed fraction {hy.windowed_fraction:.4f}")
@@ -681,6 +789,267 @@ def phase_bench() -> dict:
     return res
 
 
+def _r4_cases(c, heads, width, gen) -> dict:
+    """The round-4 path's kernels on ``heads`` heads and ``width`` features, keyed by
+    their JSON counters: ``{name: (Case, scale)}``: 0 for the maxima and the copies,
+    which must equal their plain versions; 1e-5 * max|ref| for K9; 1e-4 * max|ref|
+    for the sums, the bar phase 6 holds K6's sum kernel to (the plain version's
+    ``index_add`` sums in another order, and a hub row has tens of thousands of
+    edges). At one head the single-head K10 launchers are added. K9 reads ``msg =
+    x[src]``, as both its callers have it, so that its library call is
+    ``sampled_addmm`` over A's pattern with ``x``. Operations count 1 per edge and
+    head for the reductions and 2 per edge and feature for K9; the copies only move
+    bytes."""
+    from dgll_tpu_torch.ops import gat_csr
+    from dgll_tpu_torch.ops.cuda import edge_ops as tk
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+
+    nnz = c.src.numel()
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    v, s = r(nnz, heads), r(c.n_rows, heads)
+    a, x = r(c.n_rows, width), r(c.n_cols, width)
+    msg, xt, offsets = x.index_select(0, c.src), x.t().contiguous(), c.indptr.long()
+    pattern = csr(c.indptr, c.src, torch.zeros(nnz, device="cuda"), (c.n_rows, c.n_cols))
+    cases = {
+        "edges_to_rows_max": (Case(
+            lambda: (tk.edges_to_rows_max_cuda(c, v),),
+            lambda: (gat_csr.edges_to_rows_max_reference(c, v),),
+            lambda: torch.segment_reduce(v, "max", offsets=offsets),
+            (c.indptr, v), nnz * heads), 0),
+        "sum_all": (Case(
+            lambda: (gf.edges_to_rows_sum_cuda(c, v),),
+            lambda: (gat_csr.edges_to_rows_sum_reference(c, v),),
+            lambda: torch.segment_reduce(v, "sum", offsets=offsets),
+            (c.indptr, v), nnz * heads), 1e-4),
+        "rows_to_edges_multi": (Case(
+            lambda: (gf.expand_rows_cuda(c, s),),
+            lambda: (gat_csr.rows_to_edges_reference(c, s),),
+            lambda: s.index_select(0, c.rows), (c.rows, s), 0), 0),
+        "sddmm_edges": (Case(
+            lambda: (tk.sddmm_cuda(c, a, msg),),
+            lambda: (gat_csr.sddmm_reference(c, a, msg),),
+            lambda: torch.sparse.sampled_addmm(pattern, a, xt, beta=0.0),
+            (c.rows, a, msg), 2 * nnz * width), 1e-5),
+    }
+    if heads == 1:
+        v1, s1 = v[:, 0].contiguous(), s[:, 0].contiguous()
+        cases["rows_to_edges"] = (Case(
+            lambda: (tk.rows_to_edges_cuda(c, s1),),
+            lambda: (gat_csr.rows_to_edges_reference(c, s1),),
+            lambda: s1.index_select(0, c.rows), (c.rows, s1), 0), 0)
+        cases["edges_to_rows:sum"] = (Case(
+            lambda: (tk.edges_to_rows_cuda(c, v1, "sum"),),
+            lambda: (gat_csr.edges_to_rows_sum_reference(c, v1),),
+            lambda: torch.segment_reduce(v1, "sum", offsets=offsets),
+            (c.indptr, v1), nnz), 1e-4)
+        cases["edges_to_rows:max"] = (Case(
+            lambda: (tk.edges_to_rows_cuda(c, v1, "max"),),
+            lambda: (gat_csr.edges_to_rows_max_reference(c, v1),),
+            lambda: torch.segment_reduce(v1, "max", offsets=offsets),
+            (c.indptr, v1), nnz), 0)
+    return cases
+
+
+def phase_r4_check(worst: dict, n=50_000, e=800_000) -> None:
+    """Phase 13: the round-4 path's kernels against their plain versions on the
+    power-law test graph (hub rows, an edgeless 128-row block), H in {1, 8} and F in
+    {16, 64}: maxima and copies exactly equal, K9 within 1e-5 and the sums within
+    1e-4 of max|ref|, and every kernel bitwise repeatable."""
+    c, ct, n = power_law_layouts(n, e)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for heads, width in ((1, 16), (8, 64)):
+        for name, (case, scale) in _r4_cases(c, heads, width, gen).items():
+            line, _ = _compare(f"H={heads}", name, case, worst, scale, scale == 0)
+            print(f"[13 check] H={heads} F={width} {name}: {line}")
+    print(f"[13 check] {c.src.numel()} edges over {n} rows, max in-degree "
+          f"{int((c.indptr[1:] - c.indptr[:-1]).max())}: all cases pass")
+
+
+def _counters() -> dict:
+    """Every launch counter of the attention paths: ``edge_ops.launches``,
+    ``gat_fused.launches`` (K6's sum kernel at H heads is its ``edges_to_rows_sum``)
+    and K1's, as "K1 fwd" and "K1 bwd"."""
+    from dgll_tpu_torch.ops.cuda import edge_ops as tk
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+    from dgll_tpu_torch.ops.cuda import segment_matmul as sm
+
+    return {**tk.launches, **gf.launches, "K1 fwd": sm.launches_fwd,
+            "K1 bwd": sm.launches_bwd}
+
+
+def _zero_counters() -> None:
+    from dgll_tpu_torch.ops.cuda import edge_ops as tk
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+    from dgll_tpu_torch.ops.cuda import segment_matmul as sm
+
+    for counts in (tk.launches, gf.launches):
+        for k in counts:
+            counts[k] = 0
+    sm.launches_fwd = sm.launches_bwd = 0
+
+
+# the launches of one forward and one backward of each round-4 layer; every other
+# counter stays at 0 (the max passes no gradient, so its broadcast has no VJP)
+R4_LAUNCHES = {
+    "multihead": ({"rows_to_edges_multi": 3, "edges_to_rows_max": 1,
+                   "edges_to_rows_sum": 1, "K1 fwd": 1},
+                  {"edges_to_rows_sum": 2, "rows_to_edges_multi": 1, "expand_rows": 1,
+                   "K1 bwd": 1}),
+    "single": ({"rows_to_edges": 3, "edges_to_rows:max": 1, "edges_to_rows:sum": 1,
+                "K1 fwd": 1},
+               {"edges_to_rows:sum": 2, "rows_to_edges": 1, "expand_rows": 1,
+                "sddmm_edges": 1, "K1 bwd": 1}),
+}
+
+
+def _layer_inputs(n, c, heads, f, gen):
+    shape = (heads, f) if heads > 1 else (f,)
+    h = torch.randn(n, heads * f, generator=gen, device="cuda")
+    a = [0.3 * torch.randn(*shape, generator=gen, device="cuda") for _ in range(2)]
+    cot = torch.randn(c.n_rows, heads, f, generator=gen, device="cuda")
+    return h, a[0], a[1], cot
+
+
+def _round4(c, ct, heads, f):
+    """The round-4 layer of ``heads`` heads as a function of (h, a_src, a_dst) with
+    the fused op's output shape, and the fused op itself."""
+    from dgll_tpu_torch.ops import (
+        gat_attention_chunked,
+        gat_attention_chunked_fused,
+        gat_attention_chunked_multihead,
+    )
+
+    layer = gat_attention_chunked_multihead if heads > 1 else gat_attention_chunked
+    return (lambda h, s, d: layer(c, ct, h, s, d, 0.2).view(c.n_rows, heads, f),
+            lambda h, s, d: gat_attention_chunked_fused(c, ct, h, s.view(heads, f),
+                                                        d.view(heads, f), 0.2))
+
+
+def phase_r4_layers() -> dict:
+    """Phase 14: the round-4 layers at the GAT slice's widths on its 200k-node graph:
+    ``gat_attention_chunked_multihead`` (8 heads x 8 features) and
+    ``gat_attention_chunked`` (one head, F=16 and F=64), forward and backward in h,
+    a_src and a_dst, each run with the counters set to 0 just before it and checked
+    against ``R4_LAUNCHES`` just after; then the fused op at the same inputs (the
+    same function): out within 1e-5 * max|ref|, gradients within 1e-4 * max|ref|.
+    Returns the launches per JSON counter over the three runs ("sum_all": K6's sum
+    kernel in the multi-head backward)."""
+    c, ct, n = slice_graph()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    launches = collections.Counter()
+    for heads, f in ((8, 8), (1, 16), (1, 64)):
+        kind = "multihead" if heads > 1 else "single"
+        h0, s0, d0, cot = _layer_inputs(n, c, heads, f, gen)
+        round4, fused = _round4(c, ct, heads, f)
+        runs = []
+        for fn in (round4, fused):
+            h, a_src, a_dst = (t.clone().requires_grad_(True) for t in (h0, s0, d0))
+            _zero_counters()
+            out = fn(h, a_src, a_dst)
+            fwd = _counters()
+            (out * cot).sum().backward()
+            total = _counters()
+            runs.append(((out.detach(), h.grad, a_src.grad, a_dst.grad), fwd, total))
+        (got, fwd, total), (want, _, _) = runs
+        bwd = {k: total[k] - fwd[k] for k in total}
+        for step, counts, expected in zip(("forward", "backward"), (fwd, bwd),
+                                          R4_LAUNCHES[kind]):
+            check(counts == {k: expected.get(k, 0) for k in counts},
+                  f"{kind} {step} launches {expected}, got "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+        launches.update({k: total[k] for k in R4_LAUNCH_KEYS})
+        launches["sum_all"] += bwd["edges_to_rows_sum"]
+        for name, a, b in zip(("out", "dh", "da_src", "da_dst"), got, want):
+            scale = 1e-5 if name == "out" else 1e-4
+            err, tol = (a - b).abs().max().item(), scale * b.abs().max().item()
+            print(f"[14 layers] {kind} H={heads} F={f} {name} {tuple(a.shape)}: max abs "
+                  f"err {err:.3e} against the fused op, tolerance {tol:.3e}")
+            check(err <= tol, f"round-4 {kind} layer within tolerance (F={f}, {name})")
+        print(f"[14 layers] {kind} H={heads} F={f}: launches forward "
+              f"{ {k: v for k, v in fwd.items() if v} }, backward "
+              f"{ {k: v for k, v in bwd.items() if v} }")
+    return dict(launches)
+
+
+# the JSON counters that phase 14 reads from edge_ops.launches
+R4_LAUNCH_KEYS = ("edges_to_rows_max", "rows_to_edges_multi", "rows_to_edges",
+                  "edges_to_rows:sum", "edges_to_rows:max", "sddmm_edges")
+# the shapes of the main path at which each round-4 kernel's JSON times are taken:
+# (heads, width) of the multi-head layer or of the single-head output layer
+R4_SHAPES = {"edges_to_rows_max": (8, 64), "sum_all": (8, 64),
+             "rows_to_edges_multi": (8, 64), "rows_to_edges": (1, 16),
+             "edges_to_rows:sum": (1, 16), "edges_to_rows:max": (1, 16),
+             "sddmm_edges": (1, 16)}
+
+
+def phase_r4_time(worst: dict) -> dict:
+    """Phase 15: the round-4 kernels at the slice's shapes (checked as in phase 13,
+    then timed beside their plain versions, library calls and bounds; K9 also at
+    F=64), and both layers against the fused op: forward and forward + backward
+    (median of 15 CUDA-event timings after 3 warm-ups, in the order round-4, fused,
+    fused, round-4, each version's two medians averaged) and the peak memory of a
+    forward + backward. Returns {"kernels": {name: times}, "layers": [...]}."""
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    c, ct, n = slice_graph()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    kernels = {}
+    for heads, width in ((8, 64), (1, 16), (1, 64)):
+        for name, (case, scale) in _r4_cases(c, heads, width, gen).items():
+            if (heads, width) == (1, 64) and name != "sddmm_edges":
+                continue
+            line, outs = _compare(f"slice, H={heads}", name, case, worst, scale, scale == 0)
+            t = timed(case, outs)
+            print(f"[15 time] H={heads} F={width} {name}: {describe(t)}; {line}")
+            if R4_SHAPES[name] == (heads, width):
+                kernels[name] = t
+
+    layers = []
+    for heads, f in ((8, 8), (1, 16)):
+        h0, s0, d0, cot = _layer_inputs(n, c, heads, f, gen)
+        h, a_src, a_dst = (t.requires_grad_(True) for t in (h0, s0, d0))
+        row = {"heads": heads, "F": f}
+        for label, fn in zip(("round4", "fused"), _round4(c, ct, heads, f)):
+            def fwd(fn=fn):
+                with torch.no_grad():
+                    return fn(h, a_src, a_dst)
+
+            def fwd_bwd(fn=fn):
+                return torch.autograd.grad((fn(h, a_src, a_dst) * cot).sum(),
+                                           (h, a_src, a_dst))
+
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_bwd()
+            torch.cuda.synchronize()
+            row[f"{label}_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            row[label] = (fwd, fwd_bwd)
+        for key in ("fwd_ms", "fwd_bwd_ms"):
+            i = key == "fwd_bwd_ms"
+            ms = [cuda_median_ms(row[label][i])
+                  for label in ("round4", "fused", "fused", "round4")]
+            row[f"round4_{key}"] = (ms[0] + ms[3]) / 2
+            row[f"fused_{key}"] = (ms[1] + ms[2]) / 2
+        del row["round4"], row["fused"]
+        print(f"[15 layers] H={heads} F={f}: round-4 fwd {row['round4_fwd_ms']:.4f} ms, "
+              f"fwd+bwd {row['round4_fwd_bwd_ms']:.4f} ms, peak "
+              f"{row['round4_peak_gib']:.2f} GiB; fused fwd {row['fused_fwd_ms']:.4f} ms, "
+              f"fwd+bwd {row['fused_fwd_bwd_ms']:.4f} ms, peak "
+              f"{row['fused_peak_gib']:.2f} GiB (peaks above the script's held memory)")
+        layers.append(row)
+    return {"kernels": kernels, "layers": layers}
+
+
+def kernel_row(name, source, replaces, launches, err, t) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+
 def main() -> int:
     smi = phase_env()
     phase_build()
@@ -695,34 +1064,29 @@ def main() -> int:
     win_err = phase_windowed_check()
     hyb = phase_hybrid()
     bench = phase_bench()
-    k_ms, p_ms, err = times[(128, "A")]
-    kernels = [{
-        "name": "spmm_csr (K1: weighted SpMM, fused bias + ReLU)",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": sl["launches"],
-        "max_abs_err": max(worst, err),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]
+    r4_errs = {}  # max abs error per round-4 kernel, test graph and slice's shapes
+    phase_r4_check(r4_errs)
+    r4_counts = phase_r4_layers()
+    r4 = phase_r4_time(r4_errs)
+    t = times[(128, "A")]
+    kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
+                          REPLACES, sl["launches"], max(worst, t["err"]), t)]
     for name, key, replaces in (*GAT_KERNELS, (K1_GAT, K1_GAT, REPLACES)):
-        k_ms, p_ms = gat_times[key]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": KERNEL_SOURCE if key == K1_GAT else GAT_SOURCE,
-            "replaces": replaces, "launches": gat_counts[key],
-            "max_abs_err": gat_errs[key], "ms": k_ms, "plain_ms": p_ms,
-        })
-    k2 = bench["auto"]["launches"]
-    kernels.append({
-        "name": "spmm_windowed (K2: windowed SpMM, fused bias + ReLU)", "route": "cuda",
-        "source": WINDOWED_SOURCE, "replaces": WINDOWED_REPLACES,
-        "launches": k2["k2_fwd"] + k2["k2_bwd"], "max_abs_err": max(win_err, hyb["err"]),
-        "ms": hyb["times"]["A"]["K2"], "plain_ms": hyb["times"]["A"]["K2 plain"],
-    })
+        kernels.append(kernel_row(name, KERNEL_SOURCE if key == K1_GAT else GAT_SOURCE,
+                                  replaces, gat_counts[key], gat_errs[key], gat_times[key]))
+    k2, k2_times = bench["auto"]["launches"], hyb["times"]["A"]
+    kernels.append(kernel_row(
+        "spmm_windowed (K2: windowed SpMM, fused bias + ReLU)", WINDOWED_SOURCE,
+        WINDOWED_REPLACES, k2["k2_fwd"] + k2["k2_bwd"], max(win_err, hyb["err"]),
+        {"ms": k2_times["K2"], "plain_ms": k2_times["K2 plain"],
+         "library_ms": k2_times["K2 library"], "bound_ms": k2_times["K2 bound"],
+         "bound_by": k2_times["K2 bound_by"]}))
+    for name, key, replaces in R4_KERNELS:
+        kernels.append(kernel_row(name, GAT_SOURCE, replaces, r4_counts[key], r4_errs[key],
+                                  r4["kernels"][key]))
     print(f"[12 bench] step_ms windowed {bench['auto']['step_ms']:.4f}, "
           f"K1 alone {bench['chunked']['step_ms']:.4f}")
+    print(f"[15 layers] {json.dumps(r4['layers'])}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 // GAT attention kernels over the dst-major CSR, for Hopper (sm_90a).
 //
-// Five kernels of the fused GAT layer (ops/cuda/gat_fused.py), all float32. Per-edge
-// arrays are [nnz, H] in the CSR's edge order (the edges of row r are
-// indptr[r]..indptr[r+1]); per-row arrays are [n_rows, H].
+// The kernels of the fused GAT layer (ops/cuda/gat_fused.py) and of the round-4
+// attention path (ops/gat.py, ops/edge_ops.py), all float32. Per-edge arrays are
+// [nnz, H] in the CSR's edge order (the edges of row r are indptr[r]..indptr[r+1]);
+// per-row arrays are [n_rows, H].
 //
 //   K3 gat_stats:        m[r,h] = max_e e_{e,h},  den[r,h] = sum_e exp(e_{e,h} - m[r,h]),
 //                        e = LeakyReLU(sc_src[e,h] + s_dst[r,h]); a row without edges
@@ -10,31 +11,46 @@
 //   K4 gat_alpha:        alpha[e,h] = exp(min(e - m[r,h], 0)) * (1 / max(den[r,h], 1e-16)),
 //                        lgrad[e,h] = 1 if the score is positive, else the slope.
 //   K5 gat_bwd_softmax:  dz[e,h] = alpha * (dalpha - S[r,h]) * lgrad,  dsd[r,h] = sum_e dz.
-//   K6 edges_to_rows_sum: out[r,h] = sum_e v[e,h].
+//   K6 edges_to_rows:    out[r,h] = sum_e v[e,h] (sum mode), or max_e v[e,h] with -3e38
+//                        on a row without edges (max mode).
 //   K7 expand_rows:      out[e,:] = a[r,:].
+//   K9 sddmm:            out[e] = <a[r,:], msg[e,:]>.
 //
 // They replace the TPU kernels _stats_kernel, _alpha_kernel and _bwd_sm_kernel
-// (dgll_tpu/ops/pallas/gat_fused.py), the sum mode of _e2r_multi_kernel
-// (dgll_tpu/ops/pallas/edge_ops.py) and _expand_kernel
-// (dgll_tpu/ops/pallas/expand_rows.py). Those walk 128-row blocks of edge chunks in
-// grid order, carry running sums from chunk to chunk in scratch memory, and move
-// values between rows and edges with one-hot matrix products (the TPU has no
-// gather or atomics). Here each row is one warp's, so nothing carries between
-// blocks, and rows and edges meet through the CSR's indptr and row ids.
+// (dgll_tpu/ops/pallas/gat_fused.py), _e2r_multi_kernel (dgll_tpu/ops/pallas/
+// edge_ops.py; its sum, sum_all and max modes), _expand_kernel
+// (dgll_tpu/ops/pallas/expand_rows.py) and _sddmm_kernel (dgll_tpu/ops/pallas/
+// sddmm.py). Those walk 128-row blocks of edge chunks in grid order, carry running
+// sums from chunk to chunk in scratch memory, and move values between rows and edges
+// with one-hot matrix products (the TPU has no gather or atomics). Here each row is
+// one warp's, so nothing carries between blocks, and rows and edges meet through the
+// CSR's indptr and row ids.
+//
+// Three more TPU kernels need no kernel of their own: _r2e_multi_kernel (K6') and
+// the single-head _rows_to_edges_kernel (K10, edge_ops.py) compute what K7 computes
+// at width H and at width 1, and the single-head _reduce_kernel (K10) computes what
+// K6 computes at H = 1. Its sum_all mode, which also sums the TPU layout's padding
+// slots, is the sum mode here: this layout has no padding slots. Their wrappers
+// (ops/cuda/edge_ops.py) launch K7 and K6 and count the launches apart.
 //
 // Design. The row reductions (K3, K5, K6) give each destination row one warp, with
 // the head loop inside: the lanes stride over the row's edges, and a shuffle
 // reduction across the warp finishes each head. Every row's outputs are written,
 // rows without edges included, and no atomics are used, so results are bitwise
 // repeatable. K3 takes two passes per head, the max and then the sum of exponentials,
-// so that m is exact and den is the JAX package's sum, not an online rescaling. The
-// per-edge passes (K4, K7) are grid-stride loops over the flat [nnz * H] or
-// [nnz * F] index.
+// so that m is exact and den is the JAX package's sum, not an online rescaling. K6
+// is one kernel templated on its reduction; the max is exact. The per-edge passes
+// (K4, K7) are grid-stride loops over the flat [nnz * H] or [nnz * F] index. K9 is
+// per edge too: every edge's dot product is independent, so a group of a few lanes
+// (a power of two, up to 32, no more than the row's float4 count) owns one edge,
+// reads its msg row and a[r] (through the read-only cache: a is small and its rows
+// repeat along a row's edges) in float4 units, and finishes with a shuffle
+// reduction inside the group. Parallel over edges, it has no hub-row tail.
 //
-// What bounds them: memory bytes, a few float32 values per edge and head. K4 and
-// K7 stream their arrays once. The row reductions read per-edge values with a
-// stride of H floats per head pass, so for H > 1 each sector is fetched once and
-// then found in L1/L2 by the next heads. A hub row is walked by one warp alone
+// What bounds them: memory bytes, a few float32 values per edge and head. K4, K7
+// and K9 stream their per-edge arrays once. The row reductions read per-edge values
+// with a stride of H floats per head pass, so for H > 1 each sector is fetched once
+// and then found in L1/L2 by the next heads. A hub row is walked by one warp alone
 // (the tail that K1, csrc/segment_matmul.cu, shows): on a power-law graph the
 // largest in-degree sets a floor under K3, K5 and K6. Splitting hub rows is left
 // for a later change.
@@ -109,18 +125,32 @@ gat_alpha_kernel(const int* __restrict__ rows, const float* __restrict__ sc_src,
   }
 }
 
+// The reductions of K6: an identity, a combine, and the warp's shuffle reduction.
+struct SumOp {
+  static __device__ __forceinline__ float init() { return 0.f; }
+  static __device__ __forceinline__ float combine(float a, float b) { return a + b; }
+  static __device__ __forceinline__ float warp(float v) { return warp_sum(v); }
+};
+
+struct MaxOp {
+  static __device__ __forceinline__ float init() { return kNeg; }
+  static __device__ __forceinline__ float combine(float a, float b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ float warp(float v) { return warp_max(v); }
+};
+
+template <typename Op>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-edges_to_rows_sum_kernel(const int* __restrict__ indptr, const float* __restrict__ v,
-                         float* __restrict__ out, int n_rows, int heads) {
+edges_to_rows_kernel(const int* __restrict__ indptr, const float* __restrict__ v,
+                     float* __restrict__ out, int n_rows, int heads) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const int beg = indptr[row];
   const int end = indptr[row + 1];
   for (int h = 0; h < heads; ++h) {
-    float s = 0.f;
-    for (int e = beg + lane; e < end; e += 32) s += v[(int64_t)e * heads + h];
-    s = warp_sum(s);
+    float s = Op::init();
+    for (int e = beg + lane; e < end; e += 32) s = Op::combine(s, v[(int64_t)e * heads + h]);
+    s = Op::warp(s);
     if (lane == 0) out[(int64_t)row * heads + h] = s;
   }
 }
@@ -161,11 +191,57 @@ expand_rows_kernel(const int* __restrict__ rows, const T* __restrict__ a,
   }
 }
 
+__device__ __forceinline__ float fma_dot(float x, float y, float s) { return fmaf(x, y, s); }
+
+__device__ __forceinline__ float fma_dot(float4 x, float4 y, float s) {
+  s = fmaf(x.x, y.x, s);
+  s = fmaf(x.y, y.y, s);
+  s = fmaf(x.z, y.z, s);
+  return fmaf(x.w, y.w, s);
+}
+
+// T is float or float4: fv = F / (sizeof(T) / 4) units per row. A group of `lanes`
+// lanes (a power of two, 32 at most, fv at least) owns one edge; the loop bound
+// depends on the warp only, so every lane reaches every shuffle.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sddmm_kernel(const int* __restrict__ rows, const T* __restrict__ a,
+             const T* __restrict__ msg, float* __restrict__ out, int64_t nnz, int fv,
+             int lanes) {
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (lanes - 1);
+  const int per_warp = 32 / lanes;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t stride = (((int64_t)gridDim.x * blockDim.x) >> 5) * per_warp;
+  for (int64_t base = warp * per_warp; base < nnz; base += stride) {
+    const int64_t e = base + lane / lanes;
+    float s = 0.f;
+    if (e < nnz) {
+      const T* ar = a + (int64_t)__ldg(rows + e) * fv;
+      const T* mr = msg + e * fv;
+      for (int u = sub; u < fv; u += lanes) s = fma_dot(__ldg(ar + u), mr[u], s);
+    }
+    for (int o = lanes >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (e < nnz && sub == 0) out[e] = s;
+  }
+}
+
 int row_blocks(int n_rows) { return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 int stride_blocks(int64_t n) {
   const int64_t b = (n + kThreads - 1) / kThreads;
   return (int)(b < kMaxStrideBlocks ? b : kMaxStrideBlocks);
+}
+
+template <typename Op>
+int edges_to_rows(const void* indptr, const void* v, void* out, int n_rows, int heads,
+                  void* stream) {
+  if (n_rows <= 0 || heads <= 0) return cudaErrorInvalidValue;
+  edges_to_rows_kernel<Op><<<row_blocks(n_rows), kWarpsPerBlock * 32, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(indptr), static_cast<const float*>(v),
+      static_cast<float*>(out), n_rows, heads);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -202,12 +278,12 @@ int dgll_gat_alpha(const void* rows, const void* sc_src, const void* s_dst, cons
 
 int dgll_edges_to_rows_sum(const void* indptr, const void* v, void* out, int n_rows,
                            int heads, void* stream) {
-  if (n_rows <= 0 || heads <= 0) return cudaErrorInvalidValue;
-  edges_to_rows_sum_kernel<<<row_blocks(n_rows), kWarpsPerBlock * 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indptr), static_cast<const float*>(v),
-      static_cast<float*>(out), n_rows, heads);
-  return cudaGetLastError();
+  return edges_to_rows<SumOp>(indptr, v, out, n_rows, heads, stream);
+}
+
+int dgll_edges_to_rows_max(const void* indptr, const void* v, void* out, int n_rows,
+                           int heads, void* stream) {
+  return edges_to_rows<MaxOp>(indptr, v, out, n_rows, heads, stream);
 }
 
 int dgll_gat_bwd_softmax(const void* indptr, const void* alpha, const void* dalpha,
@@ -240,6 +316,30 @@ int dgll_expand_rows(const void* rows, const void* a, void* out, long long nnz, 
     expand_rows_kernel<float><<<stride_blocks(n), kThreads, 0, s>>>(
         static_cast<const int*>(rows), static_cast<const float*>(a),
         static_cast<float*>(out), n, fv);
+  return cudaGetLastError();
+}
+
+// vec = 4 moves float4 units (F % 4 == 0 and 16-byte aligned pointers), else 1;
+// lanes per edge: a power of two, at most 32 and at most F / vec.
+int dgll_sddmm(const void* rows, const void* a, const void* msg, void* out, long long nnz,
+               int f, int vec, int lanes, void* stream) {
+  if (nnz < 0 || f <= 0 || (vec != 1 && vec != 4) || f % vec != 0) return cudaErrorInvalidValue;
+  const int fv = f / vec;
+  if (lanes <= 0 || lanes > 32 || (lanes & (lanes - 1)) != 0 || lanes > fv)
+    return cudaErrorInvalidValue;
+  if (nnz == 0) return cudaSuccess;
+  const int64_t warps = (nnz + 32 / lanes - 1) / (32 / lanes);
+  const int64_t blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
+  const int grid = (int)(blocks < kMaxStrideBlocks ? blocks : kMaxStrideBlocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    sddmm_kernel<float4><<<grid, kThreads, 0, s>>>(
+        static_cast<const int*>(rows), static_cast<const float4*>(a),
+        static_cast<const float4*>(msg), static_cast<float*>(out), nnz, fv, lanes);
+  else
+    sddmm_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const int*>(rows), static_cast<const float*>(a),
+        static_cast<const float*>(msg), static_cast<float*>(out), nnz, fv, lanes);
   return cudaGetLastError();
 }
 

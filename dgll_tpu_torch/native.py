@@ -1,11 +1,11 @@
-"""ctypes loader for the shared host graph kernels (``dgll_tpu/csrc/graph_kernels.cpp``).
+"""ctypes loader for the host graph kernels (``csrc/graph_kernels.cpp``).
 
-The C++ source is the JAX package's, read by path: it is framework-free, and
-importing ``dgll_tpu.native`` would import JAX. ``g++`` compiles it on first use into
+The C++ source is the port's own copy of the JAX package's host library (ABI 3):
+the port reads no file of the JAX package. ``g++`` compiles it on first use into
 ``build/dgll_tpu_torch/`` at the root of the checkout, under a name that carries a
-hash of the source, so the JAX package's own build beside the source is never
-touched. Each entry point has the numpy fallback the JAX loader has, taken when no
-compiler is there or the build fails; ``native_available()`` says which path runs.
+hash of the source. Each entry point has the numpy fallback the JAX loader has,
+taken when no compiler is there or the build fails; ``native_available()`` says
+which path runs.
 """
 from __future__ import annotations
 
@@ -19,9 +19,9 @@ from typing import Optional
 
 import numpy as np
 
-REPO_DIR = Path(__file__).resolve().parents[1]
-SOURCE = REPO_DIR / "dgll_tpu" / "csrc" / "graph_kernels.cpp"
-BUILD_DIR = REPO_DIR / "build" / "dgll_tpu_torch"
+PACKAGE_DIR = Path(__file__).resolve().parent
+SOURCE = PACKAGE_DIR / "csrc" / "graph_kernels.cpp"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "dgll_tpu_torch"
 ABI_VERSION = 3  # dgll_abi_version() of the source this loader binds
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
 

@@ -98,8 +98,10 @@ def load_library() -> ctypes.CDLL:
         "dgll_gat_stats": [p, p, p, p, p, i, i, f, p],
         "dgll_gat_alpha": [p, p, p, p, p, p, p, ll, i, f, p],
         "dgll_edges_to_rows_sum": [p, p, p, i, i, p],
+        "dgll_edges_to_rows_max": [p, p, p, i, i, p],
         "dgll_gat_bwd_softmax": [p, p, p, p, p, p, p, i, i, p],
         "dgll_expand_rows": [p, p, p, ll, i, i, p],
+        "dgll_sddmm": [p, p, p, p, ll, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -137,42 +137,44 @@ def expand_rows_cuda(c: ChunkedCSR, a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _dispatch(name: str, kernel, reference, x: torch.Tensor, *args):
+def _dispatch(counts: dict, name: str, kernel, reference, x: torch.Tensor, *args):
+    """``kernel(*args)`` counted in ``counts[name]`` if ``x`` is a CUDA tensor, else
+    the plain ``reference(*args)``."""
     if _uses_kernel(x):
         out = kernel(*args)
-        launches[name] += 1
+        counts[name] += 1
         return out
     return reference(*args)
 
 
 def gat_stats(c, sc_src, s_dst, negative_slope=0.2):
     """K3 (see ``ops/gat_csr.py:gat_stats_reference``)."""
-    return _dispatch("gat_stats", gat_stats_cuda, gat_csr.gat_stats_reference, sc_src,
-                     c, sc_src, s_dst, negative_slope)
+    return _dispatch(launches, "gat_stats", gat_stats_cuda, gat_csr.gat_stats_reference,
+                     sc_src, c, sc_src, s_dst, negative_slope)
 
 
 def gat_alpha(c, sc_src, s_dst, m, den, negative_slope=0.2):
     """K4 (see ``ops/gat_csr.py:gat_alpha_reference``)."""
-    return _dispatch("gat_alpha", gat_alpha_cuda, gat_csr.gat_alpha_reference, sc_src,
-                     c, sc_src, s_dst, m, den, negative_slope)
+    return _dispatch(launches, "gat_alpha", gat_alpha_cuda, gat_csr.gat_alpha_reference,
+                     sc_src, c, sc_src, s_dst, m, den, negative_slope)
 
 
 def edges_to_rows_sum(c, v):
     """K6, sum mode (see ``ops/gat_csr.py:edges_to_rows_sum_reference``)."""
-    return _dispatch("edges_to_rows_sum", edges_to_rows_sum_cuda,
+    return _dispatch(launches, "edges_to_rows_sum", edges_to_rows_sum_cuda,
                      gat_csr.edges_to_rows_sum_reference, v, c, v)
 
 
 def gat_bwd_softmax(c, alpha, dalpha, lgrad, s):
     """K5 (see ``ops/gat_csr.py:gat_bwd_softmax_reference``)."""
-    return _dispatch("gat_bwd_softmax", gat_bwd_softmax_cuda,
+    return _dispatch(launches, "gat_bwd_softmax", gat_bwd_softmax_cuda,
                      gat_csr.gat_bwd_softmax_reference, alpha, c, alpha, dalpha, lgrad, s)
 
 
 def expand_rows(c, a):
     """K7 (see ``ops/gat_csr.py:expand_rows_reference``)."""
-    return _dispatch("expand_rows", expand_rows_cuda, gat_csr.expand_rows_reference, a,
-                     c, a)
+    return _dispatch(launches, "expand_rows", expand_rows_cuda,
+                     gat_csr.expand_rows_reference, a, c, a)
 
 
 class _GatFused(torch.autograd.Function):

@@ -149,17 +149,21 @@ class _SpmmChunked(torch.autograd.Function):
 
 
 def spmm_edges(c: ChunkedCSR, msg: torch.Tensor, cols: Optional[torch.Tensor] = None,
-               backward: bool = False) -> torch.Tensor:
-    """Unit-weight sum of per-edge messages, ``[c.n_rows, F]``: ``out[r]`` is the sum
-    of ``msg[cols[e]]`` over the edges e of row r. ``cols`` defaults to the identity
-    (``msg`` in the layout's edge order, the GAT forward); the GAT backward passes
-    A^T's layout and ``t_slot_perm``. Not differentiable; the launch counts in
-    ``launches_bwd`` when ``backward``, else in ``launches_fwd``."""
+               backward: bool = False,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum of per-edge messages, ``[c.n_rows, F]``: ``out[r]`` is the sum of
+    ``weights[e] * msg[cols[e]]`` over the edges e of row r. ``cols`` defaults to the
+    identity (``msg`` in the layout's edge order, the GAT forward); the GAT backward
+    passes A^T's layout and ``t_slot_perm``. ``weights`` ([nnz] float32, in the
+    layout's edge order) default to 1; the round-4 path's ``spmm_dyn`` passes its
+    attention. Not differentiable; the launch counts in ``launches_bwd`` when
+    ``backward``, else in ``launches_fwd``."""
     global launches_fwd, launches_bwd
     cols = c.edge_ids if cols is None else cols
+    weights = c.unit_weight if weights is None else weights
     if not _uses_kernel(msg):
-        return spmm_chunked_reference(c, msg, cols=cols, weights=c.unit_weight)
-    out = spmm_csr_cuda(c, msg, cols=cols, weights=c.unit_weight)
+        return spmm_chunked_reference(c, msg, cols=cols, weights=weights)
+    out = spmm_csr_cuda(c, msg, cols=cols, weights=weights)
     if backward:
         launches_bwd += 1
     else:

@@ -2,19 +2,26 @@
 
 Each function computes what one kernel computes, on the layout of
 ``ops/chunked.py`` (a dst-major CSR of real edges; ``c.rows`` holds each edge's
-destination row). Per-edge arrays are ``[nnz, H]`` (``[nnz, F]`` for K7) in the
-layout's edge order; per-row arrays are ``[c.n_rows, H]``. All math is float32.
+destination row). Per-edge arrays are ``[nnz, H]`` (``[nnz, F]`` for K7 and K9) in
+the layout's edge order, or ``[nnz]`` for the single-head kernels; per-row arrays
+are ``[c.n_rows, H]`` or ``[c.n_rows]``. All math is float32.
 
 | Kernel | TPU original | Function here |
 | --- | --- | --- |
 | K3 | ``gat_fused.py:_stats_kernel`` (``gat_stats``) | ``gat_stats_reference`` |
 | K4 | ``gat_fused.py:_alpha_kernel`` (``gat_alpha``) | ``gat_alpha_reference`` |
 | K5 | ``gat_fused.py:_bwd_sm_kernel`` (``gat_bwd_softmax``) | ``gat_bwd_softmax_reference`` |
-| K6 | ``edge_ops.py:_e2r_multi_kernel``, sum mode | ``edges_to_rows_sum_reference`` |
+| K6 | ``edge_ops.py:_e2r_multi_kernel``, sum and sum_all modes | ``edges_to_rows_sum_reference`` |
+| K6 | the same, max mode | ``edges_to_rows_max_reference`` |
+| K6′ | ``edge_ops.py:_r2e_multi_kernel`` | ``rows_to_edges_reference`` |
 | K7 | ``expand_rows.py:_expand_kernel`` | ``expand_rows_reference`` |
+| K9 | ``sddmm.py:_sddmm_kernel`` | ``sddmm_reference`` |
+| K10 | ``edge_ops.py:_rows_to_edges_kernel``, ``_reduce_kernel`` | the K6′ and K6 functions on ``[nnz]`` and ``[n_rows]`` |
 
 The TPU layouts carry padding slots (weight 0) that every kernel masks; these
-layouts hold none, so nothing is masked.
+layouts hold none, so nothing is masked. So K6's ``sum_all`` mode, which differs
+from ``sum`` only in also summing padding slots (``edge_ops.py:89,307``), is the sum
+here. K6′ and K10's rows-to-edges compute what K7 computes, at width H and 1.
 
 ``gat_attention_coo`` is the plain composition of the whole attention layer over a
 COO edge list, differentiable through autograd: ``GATConv``'s branch for graphs
@@ -71,9 +78,24 @@ def gat_alpha_reference(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor
 
 
 def edges_to_rows_sum_reference(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
-    """K6, sum mode: ``out[row, h] = sum of v[e, h] over the row's edges``,
-    ``[n_rows, H]``."""
-    return v.new_zeros((c.n_rows, v.shape[1])).index_add(0, c.rows, v)
+    """K6, sum (and sum_all) mode: ``out[row, h] = sum of v[e, h] over the row's
+    edges``, ``[n_rows, H]`` (``[n_rows]`` for ``v [nnz]``)."""
+    return v.new_zeros((c.n_rows, *v.shape[1:])).index_add(0, c.rows, v)
+
+
+def edges_to_rows_max_reference(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
+    """K6, max mode: ``out[row, h] = max of v[e, h] over the row's edges``, ``NEG``
+    on a row without edges (``edge_ops.py:156``), ``[n_rows, H]`` (``[n_rows]`` for
+    ``v [nnz]``)."""
+    index = c.rows.long().view(-1, *([1] * (v.dim() - 1))).expand_as(v)
+    out = v.new_full((c.n_rows, *v.shape[1:]), NEG)
+    return out.scatter_reduce(0, index, v, "amax")
+
+
+def sddmm_reference(c: ChunkedCSR, a: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
+    """K9: ``out[e] = <a[row of e], msg[e]>``, ``[nnz]``, for ``a [n_rows, F]`` and
+    ``msg [nnz, F]``."""
+    return (a.index_select(0, c.rows) * msg).sum(-1)
 
 
 def gat_bwd_softmax_reference(c: ChunkedCSR, alpha: torch.Tensor,
@@ -87,8 +109,12 @@ def gat_bwd_softmax_reference(c: ChunkedCSR, alpha: torch.Tensor,
 
 
 def expand_rows_reference(c: ChunkedCSR, a: torch.Tensor) -> torch.Tensor:
-    """K7: ``out[e] = a[row of e]``, ``[nnz, F]``."""
+    """K7: ``out[e] = a[row of e]``, ``[nnz, F]`` (``[nnz]`` for ``a [n_rows]``)."""
     return a.index_select(0, c.rows)
+
+
+# K6′ and K10's rows-to-edges: K7's function at width H, and on v [n_rows]
+rows_to_edges_reference = expand_rows_reference
 
 
 def gat_attention_coo(src: torch.Tensor, dst: torch.Tensor, h: torch.Tensor,

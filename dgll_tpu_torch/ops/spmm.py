@@ -1,9 +1,9 @@
-"""Sparse(A) x Dense(X) aggregation over a COO edge list.
+"""Sparse(A) x Dense(X) aggregation and per-edge dot products over a COO edge list.
 
-Counterpart of ``dgll_tpu/ops/spmm.py:spmm_coo``: a gather of source rows, a
-per-edge weight and a scatter-add into the destinations. It is the aggregation for
-graphs that carry no kernel layout, and it is differentiable in ``x`` and
-``edge_weight`` through autograd.
+Counterpart of ``dgll_tpu/ops/spmm.py``: ``spmm_coo`` is a gather of source rows, a
+per-edge weight and a scatter-add into the destinations, the aggregation for graphs
+that carry no kernel layout; ``sddmm_coo`` the per-edge scores. Both are
+differentiable through autograd.
 """
 from __future__ import annotations
 
@@ -48,3 +48,10 @@ def spmm_coo(
             dim=-1,
         )
     return _aggregate(src, dst, x, n_dst, edge_weight)
+
+
+def sddmm_coo(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense matmul: per-edge ``e_k = <a[dst_k], b[src_k]>``, ``[E]``
+    (counterpart of ``dgll_tpu/ops/spmm.py:sddmm_coo``; the COO oracle of K9)."""
+    return (a.index_select(0, dst) * b.index_select(0, src)).sum(-1)

@@ -3,10 +3,13 @@
 A subprocess in which ``jax``, ``flax``, ``optax`` and the JAX package cannot be
 imported imports every module of ``dgll_tpu_torch``, trains a few full-batch epochs
 through the CLI, runs the full-graph bench on a small clustered graph through the
-windowed layout, and runs the community pipeline through the shared C++ host
-kernels. No source file of the package imports them either.
-``chip_smoke.py`` refuses to run, and prints no result, without a CUDA device.
+windowed layout, runs the community pipeline through the port's own copy of the
+C++ host kernels, and runs both round-4 GAT attention layers. No source file of the
+package imports them either, and none names a path inside the JAX package: the port
+reads no file of it. ``chip_smoke.py`` refuses to run, and prints no result, without a
+CUDA device.
 """
+import ast
 import os
 import re
 import subprocess
@@ -14,6 +17,7 @@ import sys
 from pathlib import Path
 
 import dgll_tpu_torch
+from dgll_tpu_torch import native
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = Path(dgll_tpu_torch.__file__).resolve().parent
@@ -40,6 +44,15 @@ from dgll_tpu_torch.parallel.community import run_cog
 assert native.native_available()
 g, book, _ = run_cog(clustered_graph(8192, 4), batch_size=512)
 assert g.node_perm is not None and len(book) > 1
+import torch
+from dgll_tpu_torch.ops import (build_chunked_pair, gat_attention_chunked,
+                                gat_attention_chunked_multihead)
+c, ct = build_chunked_pair([0, 1, 2, 2], [1, 2, 0, 1], 3, 3)
+h = torch.randn(3, 16, requires_grad=True)
+a = torch.ones(2, 8)
+gat_attention_chunked_multihead(c, ct, h, a, a).sum().backward()
+gat_attention_chunked(c, ct, h, torch.ones(16), torch.ones(16)).sum().backward()
+assert torch.isfinite(h.grad).all()
 print("NOJAX_OK")
 """
 
@@ -63,6 +76,37 @@ def test_no_source_imports_jax():
                  if pattern.search(p.read_text())]
     assert offenders == []
     assert not pattern.search((REPO / "chip_smoke.py").read_text())
+
+
+def _code_strings(path: Path):
+    """The string constants of a Python file that are not docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_no_file_of_the_port_names_a_path_in_the_jax_package():
+    """No code string of the package names ``dgll_tpu`` as a path or a path part
+    (``Path(...) / "dgll_tpu"``, ``"dgll_tpu/csrc/..."``), no C or C++ source
+    includes a file from it, and the host library is built from the package's own
+    ``csrc/graph_kernels.cpp``. Docstrings and comments may cite the JAX files."""
+    jax_path = re.compile(r"(^|[/\\])dgll_tpu([/\\]|$)")
+    offenders = [f"{p.relative_to(REPO)}: {s!r}" for p in PACKAGE.rglob("*.py")
+                 for s in _code_strings(p) if jax_path.search(s)]
+    include = re.compile(r"^\s*#\s*include\s*[\"<][^\">]*dgll_tpu[/\\]", re.MULTILINE)
+    offenders += [str(p.relative_to(REPO)) for p in (PACKAGE / "csrc").iterdir()
+                  if include.search(p.read_text())]
+    assert offenders == []
+    assert native.SOURCE == PACKAGE / "csrc" / "graph_kernels.cpp"
+    assert native.SOURCE.exists() and native.BUILD_DIR.parent.parent == REPO
+    assert jax_path.search(str(Path("dgll_tpu") / "csrc"))   # the pattern bites
+    assert not jax_path.search("dgll_tpu_torch/csrc")
 
 
 def test_chip_smoke_fails_without_a_card():
