@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout and drives the
-port's four slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
+port's five slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
 200k-node power-law graph, the third through the full-graph bench
 (``dgll_tpu_torch.bench``) on a 200k-node clustered graph, the fourth through the
-round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph:
+round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph, the fifth
+through the CLI's host minibatch path and the library's feature cache:
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
   on a power-law test graph and, through the autograd wrapper, at the slice's
@@ -27,7 +28,16 @@ round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph:
   plain versions on the test graph; ``gat_attention_chunked_multihead`` (8 heads x
   8 features) and ``gat_attention_chunked`` (one head, F=16 and F=64) forward and
   backward against the fused op at the slice's shapes, with every launch counted;
-  each kernel and both layers timed.
+  each kernel and both layers timed;
+* the host minibatch path (phases 16-18): the int8 quantizer K8 against its plain
+  version, exactly, in both rounding modes, without noise, with supplied noise and
+  with its in-kernel Philox noise, at the int8 cache's shape, and timed there; the
+  CLI's minibatch GraphSAGE (with the feature cache on 25% of the rows) and GCN
+  runs, 3 epochs each, with each batch's time split into sampling, copies, feature
+  fetch and the device step, and the device's idle share over an epoch; the feature
+  cache's scenario (``benchmarks/cache_bench.py``): a device-resident run, float32
+  caches on 0, 25 and 100% of the rows, and float32 against int8 at one byte budget,
+  with the int8 fill's K8 launch counted.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -96,6 +106,16 @@ R4_KERNELS = (
     ("sddmm_edges (K9: per-edge dot products)", "sddmm_edges",
      "dgll_tpu/ops/pallas/sddmm.py:27"),
 )
+QUANTIZE_SOURCE = "dgll_tpu_torch/csrc/quantize.cu"
+QUANTIZE_REPLACES = "dgll_tpu/ops/quantize.py:89"
+# the CLI's host minibatch runs (phase 17): the slices' graph, the JAX CLI's default
+# fanouts and batch, hidden width 256
+MINIBATCH_ARGS = ["--samp_type", "neighbor", "--n_node", "200000", "--avg_degree", "16",
+                  "--feat_dim", "128", "--n_class", "16", "--nhid", "256",
+                  "--n_stops", "0", "--device", "cuda"]
+MINIBATCH_RUNS = (("GraphSAGE, cache 25%", ["--Model", "GraphSAGE", "--cached_nPercent", "25"]),
+                  ("GCN, no cache", ["--Model", "GCN"]))
+MINIBATCH_EPOCHS = 3
 # the H100 SXM's peak rates (NVIDIA's data sheet): device memory and float32 outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1043,6 +1063,343 @@ def phase_r4_time(worst: dict) -> dict:
     return {"kernels": kernels, "layers": layers}
 
 
+def _quantize_inputs(n, d, gen, aligned=True):
+    """``x [n, d]`` (normal, std 2, column 3 all zero), on the card; unaligned: a view
+    4 bytes into its buffer, so that K8 takes its scalar path."""
+    buf = torch.empty(n * d + (0 if aligned else 1), device="cuda")
+    x = buf[(0 if aligned else 1):].view(n, d)
+    x.copy_(2.0 * torch.randn(n, d, generator=gen, device="cuda"))
+    if d > 3:
+        x[:, 3] = 0.0
+    return x
+
+
+def phase_quantize_check() -> float:
+    """Phase 16: K8 against its plain version, exact int8 equality, in both modes,
+    without noise, with supplied noise and with its Philox noise (the plain version
+    reads ``philox_uniform``'s host bits); the scale bit-equal to the CPU's; at the
+    tests' shapes, a scalar-path case and the int8 cache's 50,000 x 256. Then the
+    Philox properties at 50,000 x 256. Returns the largest difference (0)."""
+    from dgll_tpu_torch.ops import quantize as q
+    from dgll_tpu_torch.ops.cuda.quantize import quantize_int8_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst = 0
+    cases = [(300, 64, True), (257, 100, True), (1, 1, True), (40, 7, True),
+             (333, 64, False), (50_000, 256, True)]
+    for n, d, aligned in cases:
+        x = _quantize_inputs(n, d, gen, aligned)
+        scale = q.column_scale(x)
+        check(torch.equal(scale.cpu().view(torch.int32),
+                          q.column_scale(x.cpu()).view(torch.int32)), "scale bit-equal")
+        noise = torch.rand(n, d, generator=gen, device="cuda") - 0.5
+        philox = torch.from_numpy(q.philox_uniform(n, d, 5)).cuda()
+        for mode in q.MODES:
+            for label, kw, u in (("none", {}, None), ("supplied", {"noise": noise}, noise),
+                                 ("philox", {"seed": 5}, philox)):
+                got = quantize_int8_cuda(x, scale, mode, **kw)
+                want = q.quantize_int8_reference(x, scale, mode, u)
+                diff = int((got.int() - want.int()).abs().max())
+                worst = max(worst, diff)
+                check(diff == 0, f"K8 equals its plain version ({n}x{d}, aligned "
+                                 f"{aligned}, {mode}, noise {label})")
+        print(f"[16 check] {n}x{d} aligned={aligned}: K8 equals its plain version "
+              f"exactly in both modes, without noise, with supplied and Philox noise; "
+              f"scale bit-equal to the CPU's")
+    torch.cuda.synchronize()
+    # Philox: seeded, unbiased, within one step of round-to-nearest
+    x = _quantize_inputs(50_000, 256, gen)
+    det = q.quantize_int8(x)
+    for make in (q.quantize_int8_stochastic,
+                 lambda v, seed: q.quantize_int8(v, stochastic=True, seed=seed)):
+        a, b, c = make(x, seed=11), make(x, seed=11), make(x, seed=12)
+        check(torch.equal(a.values, b.values), "Philox repeats bitwise for one seed")
+        check(not torch.equal(a.values, c.values), "Philox differs for another seed")
+        step = int((a.values.int() - det.values.int()).abs().max())
+        check(step <= 1, "Philox within 1 of round to nearest")
+        bias = ((a.dequantize() - x).mean() / x.abs().mean()).abs().item()
+        err = q.quantization_error(x, a)
+        check(bias < 1e-3, f"relative mean bias {bias:.3e} below 1e-3")
+        check(err < 0.02, f"quantization_error {err:.4f} below 0.02")
+        print(f"[16 check] Philox at 50000x256 ({x.numel()} values): repeatable, "
+              f"seed-dependent, max step {step} from round to nearest, relative mean "
+              f"bias {bias:.3e}, quantization_error {err:.5f}")
+    return float(worst)
+
+
+def phase_quantize_time() -> dict:
+    """Phase 16: K8 at the int8 cache's fill shape (50,000 x 256, no noise, "xla"
+    mode, what ``HBMFeatureCache.fill`` runs), beside its plain version,
+    ``torch.fake_quantize_per_channel_affine`` over [-127, 127] (the same rounding to
+    a float result; the port never calls it) and its bound: x read, q written and
+    the scales, 4 float32 operations per value. Also with supplied noise."""
+    from dgll_tpu_torch.ops import quantize as q
+    from dgll_tpu_torch.ops.cuda.quantize import quantize_int8_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = _quantize_inputs(50_000, 256, gen)
+    scale = q.column_scale(x)
+    zero = torch.zeros(256, dtype=torch.int32, device="cuda")
+    noise = torch.rand(x.shape, generator=gen, device="cuda") - 0.5
+    result = {}
+    for label, u in (("fill", None), ("supplied noise", noise)):
+        kw = {} if u is None else {"noise": u}
+        reads = (x, scale) if u is None else (x, scale, u)
+        case = Case(lambda: quantize_int8_cuda(x, scale, "xla", **kw),
+                    lambda: q.quantize_int8_reference(x, scale, "xla", u),
+                    lambda: torch.fake_quantize_per_channel_affine(x, scale, zero, 1,
+                                                                   -127, 127),
+                    reads, 4 * x.numel())
+        t = timed(case, (quantize_int8_cuda(x, scale, "xla", **kw),))
+        gbs = (nbytes(*reads) + x.numel()) / (t["ms"] * 1e-3) / 1e9
+        print(f"[16 time] 50000x256 {label}: {describe(t)}; {gbs:.1f} GB/s moved")
+        result[label] = t
+    return result
+
+
+def _all_counters() -> dict:
+    from dgll_tpu_torch.ops.cuda import quantize as k8
+    from dgll_tpu_torch.ops.cuda import spmm_windowed as sw
+
+    return {**_counters(), "K2 fwd": sw.launches_fwd, "K2 bwd": sw.launches_bwd,
+            "K8": k8.launches}
+
+
+def _zero_all_counters() -> None:
+    from dgll_tpu_torch.ops.cuda import quantize as k8
+    from dgll_tpu_torch.ops.cuda import spmm_windowed as sw
+
+    _zero_counters()
+    sw.launches_fwd = sw.launches_bwd = 0
+    k8.launches = 0
+
+
+def minibatch_split(args, batches: int = 10) -> dict:
+    """One batch of the CLI's minibatch path taken apart, ``batches`` times, each part
+    ending in a synchronise: sampling on the host, the blocks' copies to the card, the
+    feature fetch (the cache's, or the gather from the card-resident features) and
+    the train step; then a whole overlapped epoch (``run_epoch`` with the loader's
+    producer thread and the fetch worker) traced for the device's idle share. Means in
+    ms per batch."""
+    from dgll_tpu_torch import run
+    from dgll_tpu_torch.dataloader import DataLoader
+    from dgll_tpu_torch.sampling import HostGraph
+    from dgll_tpu_torch.tools.profile_slice import profile
+    from dgll_tpu_torch.train import MiniBatchTrainer
+    from dgll_tpu_torch.utils import PhaseTimer, get_logger, parse_train_config
+
+    cfg = parse_train_config(args)
+    dev = torch.device("cuda")
+    g = run.build_dataset(cfg)
+    g, _, cache, fetch = run.prepare_pipeline(cfg, g, PhaseTimer(), {}, dev, get_logger())
+    n_class = int(g.labels[: g.n_real_node].max()) + 1
+    model = run.build_model(cfg, n_class, g.node_feat.shape[1],
+                            generator=torch.Generator().manual_seed(0))
+    tr = MiniBatchTrainer(model, run.make_optimizer(cfg), device=dev)
+    state = tr.init_state()
+    feats = None if fetch is not None else g.node_feat.to(dev)
+    labels = g.labels.to(dev)
+    sampler, hg, seeds, b = run.build_sampler(cfg), HostGraph.from_graph(g), \
+        g.get_train_nodes(), cfg.batch_size
+    timer = PhaseTimer()
+    for i in range(batches + 1):
+        if i == 1:
+            timer = PhaseTimer()  # the first batch warms the allocator and cuBLAS
+        with timer.phase("sample"):
+            inp, _, blocks = sampler.sample(hg, seeds[i * b:(i + 1) * b], pad_to=b)
+        with timer.phase("copy"):
+            blocks = [blk.to(dev) for blk in blocks]
+            torch.cuda.synchronize()
+        with timer.phase("fetch"):
+            x = fetch(inp) if fetch is not None else feats.index_select(0, blocks[0].src_ids)
+            torch.cuda.synchronize()
+        with timer.phase("step"):
+            blocks, x, y, m = tr.batch_inputs(blocks, feats, labels, x)
+            state, loss = tr.step(state, blocks, x, y, m, tr.generator)
+            torch.cuda.synchronize()
+    split = {k: 1e3 * timer.mean(k) for k in ("sample", "copy", "fetch", "step")}
+    loader = DataLoader(g, seeds, sampler, b, seed=0, device=dev)
+    prof = profile(lambda: tr.run_epoch(state, loader, feats, labels, fetch_fn=fetch))
+    split.update(n_batches=len(loader), epoch_ms_per_batch=prof["wall_ms"] / len(loader),
+                 busy_ms_per_batch=prof["busy_ms"] / len(loader),
+                 idle_share=prof["idle_share"],
+                 top_kernels={k: v["share"] for k, v in list(prof["kernels"].items())[:4]})
+    return split
+
+
+def phase_minibatch_cli() -> dict:
+    """Phase 17: the CLI's host minibatch path at full width, ``MINIBATCH_EPOCHS``
+    epochs each of GraphSAGE with the feature cache on 25% of the rows and of GCN
+    without it (the JAX CLI's default model), with every launch counter set to 0
+    just before each run and read just after (the path launches none of the port's
+    kernels: its aggregations are plain PyTorch, as XLA in the JAX package); then
+    each run's split (``minibatch_split``)."""
+    from dgll_tpu_torch import run
+
+    result = {}
+    for name, extra in MINIBATCH_RUNS:
+        args = [*MINIBATCH_ARGS, *extra]
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_all_counters()
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLI's own JSON line
+            out = run.main([*args, "--n_epochs", str(MINIBATCH_EPOCHS)])
+        counts = {k: v for k, v in _all_counters().items() if v}
+        peak = _peak_memory(held)
+        trial = out["trials"][0]
+        losses, secs = trial["epoch_loss"], trial["epoch_s"]
+        check(trial["epochs"] == MINIBATCH_EPOCHS, f"{MINIBATCH_EPOCHS} epochs ran")
+        check(all(np.isfinite(losses)), "every loss is finite")
+        check(trial["test_acc"] > 2 / 16, f"{name}: test_acc above 2/16")
+        check(not counts, f"{name}: no kernel launch on the path, got {counts}")
+        cache = ""
+        if "--cached_nPercent" in extra:
+            check(trial["cached_rows"] == 50_000, "the cache holds 25% of the rows")
+            cache = (f", cache_miss_rate {trial['cache_miss_rate']:.4f}, cached_rows "
+                     f"{trial['cached_rows']}, cache_lookups {trial['cache_lookups']}")
+        split = minibatch_split(args)
+        n_batches = split["n_batches"]
+        print(f"[17 cli] {name}: loss {' -> '.join(f'{v:.4f}' for v in losses)}, test_acc "
+              f"{trial['test_acc']:.4f}, epoch s {[round(v, 3) for v in secs]} "
+              f"({n_batches} train batches an epoch: "
+              f"{1e3 * np.mean(secs[1:]) / n_batches:.2f} ms per batch after the first "
+              f"epoch), train_s {trial['train_s']:.3f}, total_s {trial['total_s']:.3f}"
+              f"{cache}, {peak}")
+        print(f"[17 split] {name}: per batch, each part alone: sample "
+              f"{split['sample']:.3f} ms, copies {split['copy']:.3f} ms, fetch "
+              f"{split['fetch']:.3f} ms, step {split['step']:.3f} ms; overlapped epoch "
+              f"{split['epoch_ms_per_batch']:.3f} ms per batch, device busy "
+              f"{split['busy_ms_per_batch']:.3f} ms per batch, idle "
+              f"{100 * split['idle_share']:.2f}%; top kernels "
+              + ", ".join(f"{100 * v:.1f}% {k}" for k, v in split["top_kernels"].items()))
+        result[name] = {"trial": {k: trial[k] for k in (
+            "test_acc", "epoch_loss", "epoch_s", "train_s", "total_s",
+            *(("cache_miss_rate", "cached_rows", "cache_lookups") if cache else ()))},
+            "split": split}
+    return result
+
+
+def _cache_scenario(seed: int = 0):
+    """``benchmarks/cache_bench.py``'s scenario: 200,000 nodes, 256 features on the
+    host, 32 random classes, average degree 12 on its power-law access graph (hub
+    nodes dominate as neighbours), fanouts [10, 5], batch 1024, a pool of 12 batches.
+    Returns (host features, labels on the card, host graph, out-degrees, pool)."""
+    from dgll_tpu_torch.sampling import HostGraph, NeighborSampler
+
+    n, d, deg, batch, n_class = 200_000, 256, 12, 1024, 32
+    rng = np.random.default_rng(seed)
+    host_feats = rng.standard_normal((n, d), dtype=np.float32)
+    labels = torch.from_numpy(rng.integers(0, n_class, n).astype(np.int32)).cuda()
+    w = (np.arange(n, dtype=np.float64) + 1.0) ** -1.0
+    cdf = np.cumsum(w)
+    cdf /= cdf[-1]
+    src = np.searchsorted(cdf, rng.random(n * deg)).astype(np.int64)
+    dst = np.sort(rng.integers(0, n, n * deg))
+    indptr = np.zeros(n + 1, np.int64)
+    np.add.at(indptr, dst + 1, 1)
+    hg = HostGraph(np.cumsum(indptr), src, n)
+    sampler = NeighborSampler([10, 5], seed=0)
+    pool = []
+    for _ in range(12):
+        inp, _, blocks = sampler.sample(hg, rng.integers(0, n, batch), pad_to=batch)
+        pool.append((inp, [b.to("cuda") for b in blocks]))
+    return host_feats, labels, np.bincount(src, minlength=n), pool
+
+
+def phase_cache() -> dict:
+    """Phase 18: the feature cache's scenario through ``MiniBatchTrainer``'s step
+    (GraphSAGE, hidden 256, 32 classes, dropout 0, Adam 1e-3), each run from the same
+    parameters over the same 12 batches: the device-resident features (a gather on
+    the card), float32 caches on 0, 25 and 100% of the top out-degree rows, and
+    float32 against int8 at a budget of 6.25% of the rows in float32. Each run's
+    first pass gives its losses, ms per batch is the best of 3 passes (one warm-up
+    step first). The 100% cache's losses equal the device-resident run's within
+    1e-5; the int8 run counts exactly one K8 launch (its one fill)."""
+    import copy
+    import functools as ft
+
+    from dgll_tpu_torch.cache import HBMFeatureCache
+    from dgll_tpu_torch.nn import GraphSAGE
+    from dgll_tpu_torch.ops.cuda import quantize as k8
+    from dgll_tpu_torch.ops.quantize import quantization_error, quantize_int8
+    from dgll_tpu_torch.train import MiniBatchTrainer
+
+    host_feats, labels, out_degree, pool = _cache_scenario()
+    n, d = host_feats.shape
+    model0 = GraphSAGE(d, 256, 32, dropout=0.0, generator=torch.Generator().manual_seed(0))
+
+    def run(fetch):
+        tr = MiniBatchTrainer(copy.deepcopy(model0), ft.partial(torch.optim.Adam, lr=1e-3))
+        state = tr.init_state()
+
+        def one(inp, blocks):
+            nonlocal state
+            blocks, x, y, m = tr.batch_inputs(blocks, None, labels, fetch(inp))
+            state, loss = tr.step(state, blocks, x, y, m, tr.generator)
+            return loss
+
+        losses = [one(*b) for b in pool]
+        first = [float(v) for v in losses]
+        one(*pool[0])  # warm-up
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in pool:
+                loss = one(*b)
+            float(loss)
+            best = min(best, time.perf_counter() - t0)
+        return first, best / len(pool) * 1e3
+
+    rows = {}
+    feats_dev = torch.from_numpy(host_feats).cuda()
+    rows["device_resident"] = dict(zip(("losses", "ms_per_batch"), run(
+        lambda ids: feats_dev.index_select(0, torch.from_numpy(ids).cuda()))))
+    del feats_dev
+    for frac in (0.0, 0.25, 1.0):
+        cache = HBMFeatureCache(host_feats)
+        if frac > 0:
+            k = int(frac * n)
+            cache.fill(np.argpartition(-out_degree, k - 1)[:k])
+        cache.reset_counters()
+        losses, ms = run(cache.fetch)
+        rows[f"f32_{int(frac * 100)}pct"] = {"losses": losses, "ms_per_batch": ms,
+                                             "miss_rate": cache.miss_rate()[0],
+                                             "cached_rows": cache.k}
+        del cache
+    budget = int(0.0625 * n) * d * 4
+    for quantize in (False, True):
+        _zero_all_counters()
+        cache = HBMFeatureCache(host_feats, quantize=quantize)
+        k = cache.auto_cache(out_degree, budget)
+        launches = k8.launches
+        losses, ms = run(cache.fetch)
+        check(k8.launches == launches, "fetch launches no K8")
+        row = {"losses": losses, "ms_per_batch": ms, "miss_rate": cache.miss_rate()[0],
+               "cached_rows": k, "byte_budget_mb": budget / 1e6, "k8_launches": launches}
+        if quantize:
+            check(launches == 1, f"one K8 launch for the int8 fill, got {launches}")
+            check(k == 4 * int(0.0625 * n), "int8 holds four times the rows")
+            row["dequant_rel_err"] = quantization_error(
+                host_feats[:4096], quantize_int8(torch.from_numpy(host_feats[:4096]).cuda()))
+        rows[f"budget_6.25pct_{'int8' if quantize else 'f32'}"] = row
+        del cache
+    ref = rows["device_resident"]["losses"]
+    full = rows["f32_100pct"]["losses"]
+    diff = max(abs(a - b) for a, b in zip(full, ref))
+    check(diff <= 1e-5, f"the 100% cache's losses equal the device-resident run's "
+                        f"(max diff {diff:.3e})")
+    check(all(np.isfinite(r["losses"]).all() for r in rows.values()), "finite losses")
+    for name, r in rows.items():
+        extra = ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in r.items() if k not in ("losses", "ms_per_batch"))
+        print(f"[18 cache] {name}: {r['ms_per_batch']:.3f} ms per batch, loss "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}" + (f", {extra}" if extra else ""))
+    print(f"[18 cache] the 100% cache's losses against the device-resident run's: max "
+          f"diff {diff:.3e}")
+    return {name: {k: v for k, v in r.items() if k != "losses"} for name, r in rows.items()}
+
+
 def kernel_row(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
@@ -1068,6 +1425,10 @@ def main() -> int:
     phase_r4_check(r4_errs)
     r4_counts = phase_r4_layers()
     r4 = phase_r4_time(r4_errs)
+    k8_err = phase_quantize_check()
+    k8_times = phase_quantize_time()
+    minibatch = phase_minibatch_cli()
+    cache = phase_cache()
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -1086,7 +1447,13 @@ def main() -> int:
                                   r4["kernels"][key]))
     print(f"[12 bench] step_ms windowed {bench['auto']['step_ms']:.4f}, "
           f"K1 alone {bench['chunked']['step_ms']:.4f}")
+    kernels.append(kernel_row(
+        "quantize_int8 (K8: per-column int8, the int8 cache's fill)", QUANTIZE_SOURCE,
+        QUANTIZE_REPLACES, cache["budget_6.25pct_int8"]["k8_launches"], k8_err,
+        k8_times["fill"]))
     print(f"[15 layers] {json.dumps(r4['layers'])}")
+    print(f"[17 cli] {json.dumps(minibatch)}")
+    print(f"[18 cache] {json.dumps(cache)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

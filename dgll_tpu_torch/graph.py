@@ -188,6 +188,21 @@ class Graph:
         dev = g.src.device
         return g.replace(hybrid=h.to(dev), hybrid_t=ht.to(dev))
 
+    def _mask_nodes(self, mask: Optional[torch.Tensor]) -> np.ndarray:
+        if mask is None:
+            return np.zeros((0,), np.int32)
+        return np.nonzero(_np(mask))[0].astype(np.int32)
+
+    def get_train_nodes(self) -> np.ndarray:
+        """Train split node ids, int32 numpy."""
+        return self._mask_nodes(self.train_mask)
+
+    def get_validation_nodes(self) -> np.ndarray:
+        return self._mask_nodes(self.val_mask)
+
+    def get_test_nodes(self) -> np.ndarray:
+        return self._mask_nodes(self.test_mask)
+
     def out_degrees_np(self) -> np.ndarray:
         """Out-degree of every node (padded edges included), as int64 numpy."""
         return np.bincount(_np(self.src), minlength=self.n_node).astype(np.int64)

@@ -15,7 +15,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -60,8 +60,12 @@ def get_lib() -> Optional[ctypes.CDLL]:
     except (OSError, AttributeError):
         return None
     i64p, i64 = ctypes.POINTER(ctypes.c_int64), ctypes.c_int64
+    u8p, i32p, u64 = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32), ctypes.c_uint64
     lib.dgll_remap.argtypes = [i64p, i64p, i64, i64p]
     lib.dgll_label_propagation.argtypes = [i64p, i64p, i64, i64, i64p]
+    lib.dgll_sample_neighbors.argtypes = [i64p, i64p, i64p, u8p, i64, i64, u64, i64p, u8p]
+    lib.dgll_sample_block_fused.argtypes = [i64p, i64p, i64p, i64, i64, i64, i64, u64,
+                                            i32p, u8p]
     return lib
 
 
@@ -71,6 +75,90 @@ def native_available() -> bool:
 
 def _p64(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _pu8(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def sample_neighbors(indptr: np.ndarray, nbrs: np.ndarray, nodes: np.ndarray,
+                     mask: np.ndarray, fanout: int, seed: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """``[b, fanout]`` with-replacement neighbour sample and its validity mask.
+    Zero-degree or masked rows give the node's own id with mask 0. The library seeds
+    its generator per worker chunk, so its draws depend on the core count; the numpy
+    fallback (``_np_sample``) draws from ``default_rng(seed)``."""
+    lib = get_lib()
+    b = len(nodes)
+    if lib is None:
+        return _np_sample(indptr, nbrs, nodes, mask, fanout, seed)
+    nodes = np.ascontiguousarray(nodes, np.int64)
+    mask8 = np.ascontiguousarray(mask, np.uint8)
+    out = np.empty(b * fanout, np.int64)
+    om = np.empty(b * fanout, np.uint8)
+    lib.dgll_sample_neighbors(
+        _p64(np.ascontiguousarray(indptr, np.int64)),
+        _p64(np.ascontiguousarray(nbrs, np.int64)),
+        _p64(nodes), _pu8(mask8), b, fanout, seed & 0xFFFFFFFFFFFFFFFF,
+        _p64(out), _pu8(om),
+    )
+    return out.reshape(b, fanout), om.reshape(b, fanout).astype(bool)
+
+
+def _np_sample(indptr, nbrs, nodes, mask, fanout, seed):
+    rng = np.random.default_rng(seed)
+    nodes = np.asarray(nodes, np.int64)
+    deg = indptr[nodes + 1] - indptr[nodes]
+    start = indptr[nodes]
+    valid = (deg > 0) & np.asarray(mask, bool)
+    off = (rng.random((len(nodes), fanout)) * np.maximum(deg, 1)[:, None]).astype(np.int64)
+    idx = np.minimum(start[:, None] + off, max(len(nbrs) - 1, 0))
+    sampled = nbrs[idx] if len(nbrs) else np.zeros_like(idx)
+    m = np.broadcast_to(valid[:, None], (len(nodes), fanout))
+    return np.where(m, sampled, nodes[:, None]), m.copy()
+
+
+def sample_block_fused(indptr: np.ndarray, nbrs: np.ndarray, seeds: np.ndarray,
+                       seed_mask: np.ndarray, fanouts_innermost_first, seed: int,
+                       lo: int = 0, hi: Optional[int] = None,
+                       out_ids: Optional[np.ndarray] = None,
+                       out_mask: Optional[np.ndarray] = None):
+    """Every layer of a minibatch in one call, in the frontier-growth layout.
+
+    ``fanouts_innermost_first`` is the order the frontier grows in, i.e.
+    ``reversed(model_fanouts)``. Returns ``(ids int32 [n_final], mask uint8
+    [n_final], sizes)``, where ``sizes[k]`` is the frontier length after k layers
+    (``sizes[0] == len(seeds)``); layer k's block is a view of slices of ``ids`` and
+    ``mask``. Neighbours outside ``[lo, hi)`` alias their destination with mask 0.
+    Each row's generator is seeded from ``seed``, the layer and the row alone, so the
+    draws are the same on every core count. ``out_ids``/``out_mask`` may be reused
+    across batches. None where the library is missing.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    b = len(seeds)
+    fo = np.ascontiguousarray(list(fanouts_innermost_first), np.int64)
+    sizes = [b]
+    for f in fo:
+        sizes.append(sizes[-1] * (1 + int(f)))
+    n_final = sizes[-1]
+    ids = (out_ids if out_ids is not None and len(out_ids) >= n_final
+           else np.empty(n_final, np.int32))
+    mask = (out_mask if out_mask is not None and len(out_mask) >= n_final
+            else np.empty(n_final, np.uint8))
+    ids[:b] = seeds
+    mask[:b] = seed_mask
+    lib.dgll_sample_block_fused(
+        _p64(np.ascontiguousarray(indptr, np.int64)),
+        _p64(np.ascontiguousarray(nbrs, np.int64)),
+        _p64(fo), len(fo), b,
+        int(lo), int(np.iinfo(np.int64).max if hi is None else hi),
+        seed & 0xFFFFFFFFFFFFFFFF,
+        ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), _pu8(mask),
+    )
+    # views of exactly n_final entries, whatever the size of a reused buffer
+    return ids[:n_final], mask[:n_final], sizes
 
 
 def remap(mapping: np.ndarray, idx: np.ndarray) -> np.ndarray:

@@ -1,9 +1,11 @@
 """Graph convolution layers.
 
-Counterpart of ``dgll_tpu/nn/conv.py``; the port holds ``GCNConv`` and ``GATConv``
-on a full ``Graph``, which carries the kernel layouts ``chunked``/``chunked_t`` when
-``Graph.with_chunked`` attached them, and ``hybrid``/``hybrid_t`` (GCN only) when
-``Graph.with_windowed`` did.
+Counterpart of ``dgll_tpu/nn/conv.py``; the port holds ``GCNConv``, ``GATConv`` and
+``SAGEConv``. A layer takes a *message structure* ``g``: a full ``Graph``, which
+carries the kernel layouts ``chunked``/``chunked_t`` when ``Graph.with_chunked``
+attached them, and ``hybrid``/``hybrid_t`` (GCN only) when ``Graph.with_windowed``
+did; or a sampled fanout-dense ``Block`` (``GCNConv`` and ``SAGEConv``), whose first
+``n_dst`` source rows are the destinations themselves.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 from torch import nn
 
 from dgll_tpu_torch.ops.gat_csr import gat_attention_coo
-from dgll_tpu_torch.ops.spmm import spmm_coo
+from dgll_tpu_torch.ops.spmm import block_aggregate, spmm_coo, spmm_max_coo, spmm_mean_coo
 
 
 def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None):
@@ -44,6 +46,35 @@ def glorot_uniform_(w: torch.Tensor, generator: Optional[torch.Generator] = None
     return w
 
 
+def _dense(linear: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``linear(x)`` computed in ``dtype`` (flax's ``Dense(dtype=...)``: the input,
+    the weight and the bias cast to it), or as it is where ``dtype`` is None."""
+    if dtype is None:
+        return linear(x)
+    bias = None if linear.bias is None else linear.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), linear.weight.to(dtype), bias)
+
+
+def _is_dense_block(g) -> bool:
+    """A fanout-dense sampled ``Block``: aggregation is a reshape and a reduction."""
+    return getattr(g, "neigh_mask", None) is not None and getattr(g, "fanout", 0) > 0
+
+
+def _n_dst(g) -> int:
+    return g.n_dst if hasattr(g, "n_dst") else g.n_node
+
+
+def _require_self_at_head(g, layer: str) -> None:
+    """Layers that read ``x[:n_dst]`` as the destinations' own features reject blocks
+    that break the protocol (source slot i < n_dst is destination i itself)."""
+    if not getattr(g, "self_at_head", True):
+        raise ValueError(
+            f"{layer} needs self features (source slot i < n_dst must be destination "
+            "i itself); this block was sampled with include_seeds=False. Use GCNConv, "
+            "or sample with include_seeds=True."
+        )
+
+
 def kernel_layouts(g, n_dst: int, device: torch.device):
     """The graph's kernel layouts ``(A, A^T)`` (``Graph.with_chunked``), or None
     where the layer runs its plain COO version instead, which it does only on the
@@ -62,17 +93,22 @@ def _weighted_aggregate(g, h: torch.Tensor, n_dst: int) -> torch.Tensor:
     """Weighted-sum aggregation: through the windowed kernel K2 and K1 on the
     residual edges when the graph carries the windowed layouts
     (``Graph.with_windowed``), else through K1 when it carries the chunked ones
-    (``Graph.with_chunked``), else, on the CPU, through ``spmm_coo``.
+    (``Graph.with_chunked``), else on a ``Block`` through ``block_aggregate``'s
+    "sum" (the mask-weighted mean, on any device), else, on the CPU, through
+    ``spmm_coo``. This is the JAX package's order of the branches.
 
     Unlike the JAX package, every feature width goes through the kernels: the
     ``F % 128`` condition there is the TPU matrix unit's tiling rule, and the GPU
     kernels mask a ragged column tile instead. The math is the same.
     """
-    hy = g.hybrid
+    hy = getattr(g, "hybrid", None)
     if hy is not None and hy.win.n_rows >= n_dst:
         from dgll_tpu_torch.ops.cuda.spmm_windowed import spmm_hybrid
 
         return spmm_hybrid(hy, g.hybrid_t, h)[:n_dst]
+    c = getattr(g, "chunked", None)
+    if (c is None or c.n_rows < n_dst) and _is_dense_block(g):
+        return block_aggregate(h, n_dst, g.fanout, g.neigh_mask, "sum")
     layouts = kernel_layouts(g, n_dst, h.device)
     if layouts is not None:
         from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
@@ -100,14 +136,57 @@ class GCNConv(nn.Module):
         lecun_normal_(self.linear.weight, generator)
 
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype is None:
-            h = self.linear(x)
-        else:
-            h = nn.functional.linear(x.to(self.dtype), self.linear.weight.to(self.dtype))
-        out = _weighted_aggregate(g, h, g.n_node)
+        h = _dense(self.linear, x, self.dtype)
+        out = _weighted_aggregate(g, h, _n_dst(g))
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
+
+
+class SAGEConv(nn.Module):
+    """GraphSAGE: aggregate the neighbours (``mean``, ``sum`` or ``max``), transform
+    the aggregate (``neigh``, no bias) and the destinations' own rows ``x[:n_dst]``
+    (``self``, with the bias), and concatenate (``[self | neigh]``) or add them.
+
+    On a ``Block`` the aggregation is ``block_aggregate`` (its ``sum`` is the
+    mask-weighted mean); on a full graph ``spmm_mean_coo``, ``spmm_coo`` with the
+    graph's edge weights, or ``spmm_max_coo``. All of them are plain PyTorch on every
+    device, as the JAX package computes them in XLA.
+    """
+
+    def __init__(self, in_features: int, features: int, aggregator: str = "mean",
+                 combine: str = "concat", use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if aggregator not in ("mean", "sum", "max"):
+            raise ValueError(f"unknown aggregator {aggregator!r}")
+        if combine not in ("concat", "sum"):
+            raise ValueError(f"unknown combine {combine!r}")
+        self.aggregator, self.combine, self.dtype = aggregator, combine, dtype
+        self.neigh = nn.Linear(in_features, features, bias=False, device=device)
+        self.self = nn.Linear(in_features, features, bias=use_bias, device=device)
+        lecun_normal_(self.neigh.weight, generator)
+        lecun_normal_(self.self.weight, generator)
+        if use_bias:
+            nn.init.zeros_(self.self.bias)
+
+    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+        n_dst = _n_dst(g)
+        _require_self_at_head(g, "SAGEConv")
+        if _is_dense_block(g):
+            agg = block_aggregate(x, n_dst, g.fanout, g.neigh_mask, self.aggregator)
+        elif self.aggregator == "mean":
+            agg = spmm_mean_coo(g.src, g.dst, x, n_dst)
+        elif self.aggregator == "sum":
+            agg = spmm_coo(g.src, g.dst, x, n_dst, g.edge_weight)
+        else:
+            agg = spmm_max_coo(g.src, g.dst, x, n_dst)
+        h_neigh = _dense(self.neigh, agg, self.dtype)
+        h_self = _dense(self.self, x[:n_dst], self.dtype)
+        if self.combine == "concat":
+            return torch.cat([h_self, h_neigh], dim=-1)
+        return h_self + h_neigh
 
 
 class GATConv(nn.Module):

@@ -1,13 +1,17 @@
 """End-to-end models. Counterpart of ``dgll_tpu/nn/models.py``; the port holds
-``GCN`` and ``GAT`` on a full graph (sampled blocks come with the minibatch path)."""
+``GCN``, ``GAT`` and ``GraphSAGE``.
+
+A model's ``forward`` takes one message graph for every layer (full batch) or a list
+of sampled ``Block``s, one per layer, outermost first (minibatch; ``GCN`` and
+``GraphSAGE``), as the neighbour sampler emits them."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
 
-from dgll_tpu_torch.nn.conv import GATConv, GCNConv
+from dgll_tpu_torch.nn.conv import GATConv, GCNConv, SAGEConv, _dense, lecun_normal_
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
@@ -20,6 +24,15 @@ def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator])
         return torch.zeros_like(x)
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+def _layer_inputs(g, n_layers: int) -> List:
+    """A per-layer sequence from one graph or a list of blocks."""
+    if isinstance(g, (list, tuple)):
+        if len(g) != n_layers:
+            raise ValueError(f"need {n_layers} blocks, got {len(g)}")
+        return list(g)
+    return [g] * n_layers
 
 
 class GCN(nn.Module):
@@ -41,11 +54,12 @@ class GCN(nn.Module):
 
     def forward(self, g, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        for conv in self.convs[:-1]:
-            x = torch.relu(conv(g, x))
+        gs = _layer_inputs(g, len(self.convs))
+        for conv, gi in zip(self.convs[:-1], gs):
+            x = torch.relu(conv(gi, x))
             if self.training:
                 x = _dropout(x, self.dropout, generator)
-        x = self.convs[-1](g, x)
+        x = self.convs[-1](gs[-1], x)
         return torch.log_softmax(x, dim=-1)
 
 
@@ -82,4 +96,43 @@ class GAT(nn.Module):
         if self.training:
             x = _dropout(x, self.dropout, generator)
         x = self.convs[-1](g, x, generator)
+        return torch.log_softmax(x, dim=-1)
+
+
+class GraphSAGE(nn.Module):
+    """``n_layers`` SAGEConvs with ReLU and dropout between them; with ``combine``
+    "concat" each layer doubles its width, and a last ``out_proj`` Dense maps the
+    output layer's ``2 * n_class`` columns to ``n_class``. ``log_softmax`` ends it
+    (the reference's GraphSAGE, ``sageconv.py:86-114``)."""
+
+    def __init__(self, in_features: int, hidden: int, n_class: int, n_layers: int = 2,
+                 aggregator: str = "mean", combine: str = "concat",
+                 dropout: float = 0.5, dtype: Optional[torch.dtype] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        grow = 2 if combine == "concat" else 1
+        convs = []
+        for i in range(n_layers):
+            feats = n_class if i == n_layers - 1 else hidden
+            convs.append(SAGEConv(in_features, feats, aggregator, combine, dtype=dtype,
+                                  device=device, generator=generator))
+            in_features = feats * grow
+        self.convs = nn.ModuleList(convs)
+        self.out_proj = None
+        if combine == "concat":
+            self.out_proj = nn.Linear(in_features, n_class, device=device)
+            lecun_normal_(self.out_proj.weight, generator)
+            nn.init.zeros_(self.out_proj.bias)
+        self.dropout, self.dtype = dropout, dtype
+
+    def forward(self, g, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        gs = _layer_inputs(g, len(self.convs))
+        for conv, gi in zip(self.convs[:-1], gs):
+            x = torch.relu(conv(gi, x))
+            if self.training:
+                x = _dropout(x, self.dropout, generator)
+        x = self.convs[-1](gs[-1], x)
+        if self.out_proj is not None:
+            x = _dense(self.out_proj, x, self.dtype)
         return torch.log_softmax(x, dim=-1)

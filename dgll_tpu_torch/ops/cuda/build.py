@@ -91,8 +91,9 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C interface of every kernel."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    f, ll = ctypes.c_float, ctypes.c_longlong
+    f, ll, ull = ctypes.c_float, ctypes.c_longlong, ctypes.c_ulonglong
     signatures = {
+        "dgll_quantize_int8": [p, p, p, p, ll, i, i, i, i, ull, p],
         "dgll_spmm_csr": [p, p, p, p, p, p, i, i, i, i, i, i, p],
         "dgll_spmm_windowed": [p] * 10 + [i] * 6 + [p],
         "dgll_gat_stats": [p, p, p, p, p, i, i, f, p],

@@ -2,8 +2,11 @@
 
 Counterpart of ``dgll_tpu/ops/spmm.py``: ``spmm_coo`` is a gather of source rows, a
 per-edge weight and a scatter-add into the destinations, the aggregation for graphs
-that carry no kernel layout; ``sddmm_coo`` the per-edge scores. Both are
-differentiable through autograd.
+that carry no kernel layout; ``spmm_mean_coo`` and ``spmm_max_coo`` are SAGE's mean
+and max over a COO edge list; ``block_aggregate`` is the fanout-dense reduction over
+a sampled ``Block``; ``sddmm_coo`` the per-edge scores. All are differentiable
+through autograd. The JAX package computes these in XLA, outside any Pallas kernel,
+so they stay plain PyTorch on every device.
 """
 from __future__ import annotations
 
@@ -48,6 +51,61 @@ def spmm_coo(
             dim=-1,
         )
     return _aggregate(src, dst, x, n_dst, edge_weight)
+
+
+def _in_degrees(dst: torch.Tensor, n_dst: int, dtype) -> torch.Tensor:
+    ones = torch.ones(dst.shape[0], dtype=dtype, device=dst.device)
+    return torch.zeros(n_dst, dtype=dtype, device=dst.device).index_add(0, dst, ones)
+
+
+def spmm_mean_coo(src, dst, x: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """Mean over in-neighbours (SAGE "mean"); rows without in-edges give 0."""
+    tot = spmm_coo(src, dst, x, n_dst)
+    return tot / torch.clamp_min(_in_degrees(dst, n_dst, x.dtype), 1)[:, None]
+
+
+def _segment_amax(src, dst, x, n_dst):
+    msg = x.index_select(0, src)
+    out = torch.zeros((n_dst, x.shape[-1]), dtype=x.dtype, device=x.device)
+    return out.scatter_reduce(0, dst.long()[:, None].expand_as(msg), msg, "amax",
+                              include_self=False)
+
+
+def spmm_max_coo(src, dst, x: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """Max over in-neighbours (SAGE "max"); rows without in-edges give 0. Where
+    several messages tie for a row's max, the gradient is split among them, as in
+    the JAX package's ``segment_max``."""
+    tiles = _msg_f_tiles(src, x.shape[-1], x.element_size())
+    if tiles is not None:
+        return torch.cat([_segment_amax(src, dst, x[:, lo:lo + 128], n_dst)
+                          for lo in tiles], dim=-1)
+    return _segment_amax(src, dst, x, n_dst)
+
+
+def block_aggregate(x: torch.Tensor, n_dst: int, fanout: int, neigh_mask: torch.Tensor,
+                    kind: str = "mean") -> torch.Tensor:
+    """Fanout-dense aggregation for sampled ``Block``s: no gather, no scatter.
+
+    A block's source rows are ``[dst | sampled.flatten()]``, so the sampled slab
+    ``x[n_dst : n_dst * (1 + fanout)]`` reshapes to ``[n_dst, fanout, F]`` and the
+    aggregation is a reduction over the fanout axis, with the conventions of the
+    JAX package's ``block_aggregate``:
+
+    * ``mean``: plain mean over all slots (masked slots alias the destination's own
+      row by construction, as ``spmm_mean_coo`` over the block's COO view);
+    * ``sum``: the mask-weighted sum divided by ``fanout`` (``spmm_coo`` with
+      ``Block.edge_weight``), not a raw sum;
+    * ``max``: max over all slots (ties split the gradient).
+    """
+    neigh = x[n_dst: n_dst * (1 + fanout)].reshape(n_dst, fanout, x.shape[-1])
+    if kind == "mean":
+        return neigh.mean(dim=1)
+    if kind == "sum":
+        w = neigh_mask.to(neigh.dtype)[..., None]
+        return (neigh * w).sum(dim=1) / float(max(fanout, 1))
+    if kind == "max":
+        return neigh.amax(dim=1)
+    raise ValueError(f"unknown aggregation {kind!r}")
 
 
 def sddmm_coo(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,

@@ -1,9 +1,13 @@
-"""Training CLI: ``python -m dgll_tpu_torch.run --Model GCN|GAT --samp_type full ...``
+"""Training CLI: ``python -m dgll_tpu_torch.run --Model GCN|GAT|GraphSAGE ...``
 
-Counterpart of ``dgll_tpu/run.py``, for the part of it this package has ported:
-full-batch GCN and GAT training on the synthetic dataset, on one device. It prints
-the same JSON keys. Everything else raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port it.
+Counterpart of ``dgll_tpu/run.py``, for the part of it this package has ported, on
+the synthetic dataset and one device: full-batch GCN, GAT and GraphSAGE
+(``--samp_type full``), and the host minibatch path (``--samp_type neighbor``, the
+default) for GCN and GraphSAGE: the neighbour sampler on the host, a prefetching
+``DataLoader`` that moves each batch's blocks to the device, and
+``MiniBatchTrainer``, with the device feature cache (``--cached_nPercent``) and the
+community pipeline (``--n_parts``). It prints the same JSON keys. Everything else
+raises ``NotImplementedError`` naming the ROADMAP.md item that will port it.
 
 On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN run
 attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does: where
@@ -12,7 +16,12 @@ aggregate through the windowed kernel K2 and K1 on the residual edges; where it
 declines, through K1 alone. Every GAT layer runs the fused attention op (K3-K7 and
 K1) on ``with_chunked()`` only, since GAT never reads the windowed layout. The JAX
 package's 100k-edge threshold is the TPU's launch-overhead rule; the port's layers
-have no plain version on the card.
+have no plain version on the card. GraphSAGE's aggregations are plain PyTorch (XLA
+in the JAX package), so a full-batch GraphSAGE run attaches no layout.
+
+On the minibatch path the graph stays on the host for the sampler, and the features
+and labels live on the device; with the cache only the cached rows do, and the
+misses come from the host store.
 """
 from __future__ import annotations
 
@@ -31,25 +40,35 @@ GAT_KERNEL = "gat_attention_fused"
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a configuration outside the ported slice."""
+    """Raise ``NotImplementedError`` for a configuration outside the ported slices."""
     todo = "see ROADMAP.md, Queue 1, item"
     model = cfg.model.upper()
-    if model in ("GRAPHSAGE", "SAGE"):
-        raise NotImplementedError(f"--Model {cfg.model}: {todo} 1 (minibatch GraphSAGE)")
     if model == "GIN":
         raise NotImplementedError(f"--Model {cfg.model}: {todo} 4 (GIN layers and pooling)")
-    if model not in ("GCN", "GAT"):
+    if model not in ("GCN", "GAT", "GRAPHSAGE", "SAGE"):
         raise ValueError(f"unknown model {cfg.model!r}")
     if model == "GAT" and _dtype(cfg) is not None:
         raise NotImplementedError(f"--dtype {cfg.dtype} with --Model GAT: {todo} 2 "
                                   "(GAT's bf16 path)")
-    if cfg.sampler != "full":
-        item = {"neighbor": "1 (device neighbour sampling) and 5 (host minibatch path)",
-                "fastgcn": "6 (layer-wise samplers)",
-                "ladies": "6 (layer-wise samplers)"}.get(cfg.sampler)
-        if item is None:
-            raise ValueError(f"unknown sampler {cfg.sampler!r}")
-        raise NotImplementedError(f"--samp_type {cfg.sampler}: {todo} {item}")
+    if cfg.sampler in ("fastgcn", "ladies"):
+        raise NotImplementedError(f"--samp_type {cfg.sampler}: {todo} 6 (layer-wise "
+                                  "samplers)")
+    if cfg.sampler not in ("full", "neighbor"):
+        raise ValueError(f"unknown sampler {cfg.sampler!r}")
+    if cfg.sampler == "neighbor":
+        if model == "GAT":
+            raise NotImplementedError(f"--Model GAT --samp_type neighbor: {todo} 1 "
+                                      "(GAT's dense-block branch; the host minibatch "
+                                      "path of items 1 and 5 runs GCN and GraphSAGE)")
+        if cfg.device_sampling:
+            raise NotImplementedError(f"--device_sampling: {todo} 1 (device neighbour "
+                                      "sampling)")
+        if cfg.exact_eval:
+            raise NotImplementedError(f"--exact_eval: {todo} 1 (full-neighbourhood "
+                                      "inference)")
+        if cfg.preprocess:
+            raise NotImplementedError(f"--preprocess: {todo} 5 (host minibatch path: "
+                                      "neighbour-feature preprocessing)")
     if cfg.n_devices > 1:
         raise NotImplementedError(f"--n_devices {cfg.n_devices}: {todo} 8 (parallel)")
     if cfg.checkpoint_dir:
@@ -86,13 +105,24 @@ def _dtype(cfg):
 
 
 def build_model(cfg, n_class: int, in_features: int, generator=None):
-    from dgll_tpu_torch.nn import GAT, GCN
+    from dgll_tpu_torch.nn import GAT, GCN, GraphSAGE
 
     if cfg.model.upper() == "GAT":
         return GAT(in_features, hidden=cfg.nhid, n_class=n_class, num_heads=cfg.n_heads,
                    n_layers=cfg.n_layers, dropout=cfg.dropout, generator=generator)
+    if cfg.model.upper() in ("GRAPHSAGE", "SAGE"):
+        return GraphSAGE(in_features, hidden=cfg.nhid, n_class=n_class,
+                         n_layers=cfg.n_layers, aggregator=cfg.sage_aggregator,
+                         combine=cfg.sage_combine, dropout=cfg.dropout,
+                         dtype=_dtype(cfg), generator=generator)
     return GCN(in_features, hidden=cfg.nhid, n_class=n_class, n_layers=cfg.n_layers,
                dropout=cfg.dropout, dtype=_dtype(cfg), generator=generator)
+
+
+def build_sampler(cfg):
+    from dgll_tpu_torch.sampling import NeighborSampler
+
+    return NeighborSampler(cfg.fanouts, seed=cfg.seed)
 
 
 def make_optimizer(cfg):
@@ -132,6 +162,8 @@ def attach_kernel_layouts(cfg, g):
     ones only."""
     t_pre = time.perf_counter()
     extra: dict = {}
+    if cfg.model.upper() in ("GRAPHSAGE", "SAGE"):
+        return g, extra  # no kernel on its path
     if cfg.model.upper() == "GAT":
         g = g.with_chunked()
         extra["gat_kernel"] = GAT_KERNEL
@@ -144,24 +176,127 @@ def attach_kernel_layouts(cfg, g):
     return g, extra
 
 
+def prepare_pipeline(cfg, g, timer, extra: dict, dev: torch.device, log):
+    """The community relabelling (``--n_parts`` > 1) and the device feature cache
+    (``--cached_nPercent``) of the minibatch path, in the JAX CLI's order. Returns
+    ``(g, book, cache, fetch)``: the (relabelled) graph, the community book or None,
+    and the cache and its fetch function or None."""
+    book = None
+    if cfg.n_parts > 1:
+        from dgll_tpu_torch.parallel.community import run_cog
+
+        cap = -(-g.n_real_node // cfg.n_parts)
+        budget = cap * (int(g.node_feat.shape[1]) * 4 + 4)
+        with timer.phase("cog"):
+            g, book, cog_t = run_cog(g, hbm_budget_bytes=budget,
+                                     batch_size=min(cfg.batch_size, cap), seed=cfg.seed)
+        extra["n_communities"] = len(book)
+        extra["cog_s"] = float(sum(cog_t.values()))
+        log.info(f"COG: {len(book)} communities in {extra['cog_s']:.2f}s")
+
+    cache = fetch = None
+    if cfg.cached_percent > 0:
+        from dgll_tpu_torch.cache import HBMFeatureCache
+
+        host_feats = g.node_feat.cpu().numpy().astype(np.float32)
+        cache = HBMFeatureCache(host_feats, device=dev)
+        k = int(cfg.cached_percent / 100.0 * g.n_real_node)
+        cache.auto_cache(g.out_degrees_np(), k * host_feats.shape[1] * host_feats.itemsize)
+        fetch = cache.fetch
+        log.info(f"cache: {cache.k}/{g.n_real_node} rows resident")
+    return g, book, cache, fetch
+
+
+def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer,
+                        extra: dict, log) -> tuple:
+    """The host minibatch path: ``(test_acc, micro_f1, best_val, epochs run)``, with
+    the per-epoch losses and times and the cache's counters in ``extra``."""
+    from dgll_tpu_torch.dataloader import DataLoader
+    from dgll_tpu_torch.sampling import CommunityNeighborSampler
+    from dgll_tpu_torch.train import MiniBatchTrainer, micro_f1
+
+    g, book, cache, fetch = prepare_pipeline(cfg, g, timer, extra, dev, log)
+    sampler = build_sampler(cfg)
+    train_nodes = g.get_train_nodes()
+    if book is not None:
+        loaders = []
+        for lo, hi in book.values():
+            seeds_c = train_nodes[(train_nodes >= lo) & (train_nodes < hi)]
+            if len(seeds_c) == 0:
+                continue
+            cs = CommunityNeighborSampler(cfg.fanouts, (lo, hi), seed=cfg.seed)
+            loaders.append(DataLoader(g, seeds_c, cs, min(cfg.batch_size, len(seeds_c)),
+                                      seed=trial_seed, device=dev))
+    else:
+        loaders = [DataLoader(g, train_nodes, sampler, cfg.batch_size, seed=trial_seed,
+                              device=dev)]
+
+    tr = MiniBatchTrainer(model, make_optimizer(cfg), seed=trial_seed, device=dev)
+    # the JAX CLI samples a first batch for its model's init; the port's model holds
+    # its parameters already, and the draw keeps the sampler's seed stream the same
+    l0 = loaders[0]
+    l0.sampler.sample(l0.host_g, l0.seeds[: l0.batch_size], pad_to=l0.batch_size)
+    state = tr.init_state()
+    # with the cache, only its rows are on the device: the features stay on the host
+    feats = None if fetch is not None else g.node_feat.to(dev)
+    labels = g.labels.to(dev)
+    val_loader = DataLoader(g, g.get_validation_nodes(), sampler, cfg.batch_size,
+                            shuffle=False, seed=trial_seed + 1, device=dev)
+    best_val, bad, losses, secs = -np.inf, 0, [], []
+    for epoch in range(cfg.n_epochs):
+        with timer.phase("train"):
+            parts, dt = [], 0.0
+            for loader in loaders:
+                state, loss, d = tr.run_epoch(state, loader, feats, labels, fetch_fn=fetch)
+                parts.append(loss)
+                dt += d
+            losses.append(float(np.mean(parts)))
+            secs.append(dt)
+        with timer.phase("validate"):
+            val = tr.evaluate_nodes(state, val_loader, feats, labels, fetch_fn=fetch)
+        if val > best_val:
+            best_val, bad = val, 0
+        else:
+            bad += 1
+        log.info(f"epoch {epoch} loss {losses[-1]:.4f} val {val:.4f} ({dt:.2f}s)")
+        if cfg.n_stops and bad >= cfg.n_stops:
+            break
+    test_loader = DataLoader(g, g.get_test_nodes(), sampler, cfg.batch_size,
+                             shuffle=False, seed=trial_seed + 2, device=dev)
+    pred, y = tr.predict_nodes(state, test_loader, feats, labels, fetch_fn=fetch)
+    test_acc = float((pred == y).mean()) if len(pred) else 0.0
+    if cache is not None:
+        rate, lookups, _ = cache.miss_rate()
+        extra["cache_miss_rate"] = float(rate)
+        extra["cache_lookups"] = int(lookups)
+        extra["cached_rows"] = int(cache.k)
+    extra["epoch_loss"], extra["epoch_s"] = losses, secs
+    return test_acc, micro_f1(pred, y), best_val, len(losses)
+
+
 def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     """One trial of a configuration ``main`` has checked, on the device it resolved."""
     from dgll_tpu_torch.train import FullBatchTrainer, accuracy, micro_f1
-    from dgll_tpu_torch.utils import PhaseTimer
+    from dgll_tpu_torch.utils import PhaseTimer, get_logger
 
+    log = get_logger(cfg.log_file)
     timer = PhaseTimer()
     n_class = int(g.labels[: g.n_real_node].max()) + 1
     model = build_model(cfg, n_class, g.node_feat.shape[1],
                         generator=torch.Generator().manual_seed(trial_seed))
-    opt = make_optimizer(cfg)
 
     t_start = time.perf_counter()
     extra: dict = {}
+    if cfg.sampler != "full":
+        test_acc, f1, best_val, n_epochs = run_minibatch_trial(
+            cfg, g, trial_seed, dev, model, timer, extra, log)
+        return _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
+                               n_epochs)
     if dev.type == "cuda":
         g, extra = attach_kernel_layouts(cfg, g)
     g = g.to(dev)
 
-    tr = FullBatchTrainer(model, opt, seed=trial_seed, device=dev)
+    tr = FullBatchTrainer(model, make_optimizer(cfg), seed=trial_seed, device=dev)
     with timer.phase("train"):
         state, hist = tr.fit(
             g, g.node_feat, g.labels, g.train_mask, g.val_mask,

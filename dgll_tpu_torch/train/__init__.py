@@ -9,8 +9,11 @@ from dgll_tpu_torch.train.trainer import (
     EpochStats,
     FullBatchTrainer,
     History,
+    MiniBatchTrainer,
     TrainState,
     create_train_state,
+    make_block_eval,
+    make_block_step,
     make_full_batch_eval,
     make_full_batch_step,
 )
@@ -24,8 +27,11 @@ __all__ = [
     "EpochStats",
     "FullBatchTrainer",
     "History",
+    "MiniBatchTrainer",
     "TrainState",
     "create_train_state",
+    "make_block_eval",
+    "make_block_step",
     "make_full_batch_eval",
     "make_full_batch_step",
 ]

@@ -4,7 +4,9 @@ A subprocess in which ``jax``, ``flax``, ``optax`` and the JAX package cannot be
 imported imports every module of ``dgll_tpu_torch``, trains a few full-batch epochs
 through the CLI, runs the full-graph bench on a small clustered graph through the
 windowed layout, runs the community pipeline through the port's own copy of the
-C++ host kernels, and runs both round-4 GAT attention layers. No source file of the
+C++ host kernels, runs both round-4 GAT attention layers, trains GraphSAGE for two
+epochs on the CLI's host minibatch path with the feature cache, and fills and
+fetches from the int8 cache. No source file of the
 package imports them either, and none names a path inside the JAX package: the port
 reads no file of it. ``chip_smoke.py`` refuses to run, and prints no result, without a
 CUDA device.
@@ -53,6 +55,18 @@ a = torch.ones(2, 8)
 gat_attention_chunked_multihead(c, ct, h, a, a).sum().backward()
 gat_attention_chunked(c, ct, h, torch.ones(16), torch.ones(16)).sum().backward()
 assert torch.isfinite(h.grad).all()
+out = main(["--Model", "GraphSAGE", "--samp_type", "neighbor", "--device", "cpu",
+            "--n_node", "300", "--n_epochs", "2", "--nhid", "16", "--feat_dim", "8",
+            "--batch_size", "64", "--cached_nPercent", "50"])
+trial = out["trials"][0]
+assert trial["epochs"] == 2 and trial["cached_rows"] == 150, trial
+import numpy as np
+from dgll_tpu_torch.cache import HBMFeatureCache
+feats = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
+cache = HBMFeatureCache(feats, device="cpu", quantize=True)
+cache.fill(np.arange(20))
+rows = cache.fetch(np.array([1, 30, 1]))
+assert rows.dtype == torch.float32 and torch.equal(rows[1], torch.from_numpy(feats[30]))
 print("NOJAX_OK")
 """
 

@@ -75,7 +75,8 @@ def test_fit_validation_and_early_stop():
     g = gcn_normalize(synthetic_classification_graph(**GRAPH))
     m = GCN(GRAPH["feat_dim"], hidden=32, n_class=3, dropout=0.5,
             generator=torch.Generator().manual_seed(0))
-    tr = FullBatchTrainer(m, functools.partial(torch.optim.Adam, lr=1e-2), seed=0)
+    tr = FullBatchTrainer(m, functools.partial(torch.optim.Adam, lr=1e-2), seed=0,
+                          device="cpu")
     _, hist = tr.fit(g, g.node_feat, g.labels, g.train_mask, g.val_mask,
                      epochs=50, patience=2)
     assert 2 < len(hist.epochs) <= 50
@@ -99,11 +100,12 @@ def test_cli_prints_the_jax_cli_keys(capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--samp_type", "neighbor"],
+    ["--samp_type", "neighbor", "--device_sampling"],
     ["--samp_type", "fastgcn"],
     ["--samp_type", "ladies"],
     ["--samp_type", "neighbor", "--Model", "GAT"],
-    ["--samp_type", "full", "--Model", "GraphSAGE"],
+    ["--samp_type", "neighbor", "--preprocess"],
+    ["--samp_type", "neighbor", "--exact_eval"],
     ["--samp_type", "full", "--Model", "GIN"],
     ["--samp_type", "full", "--n_devices", "2"],
     ["--samp_type", "full", "--checkpoint_dir", "ckpt"],
