@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout and drives the
-port's five slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
+port's six slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
 200k-node power-law graph, the third through the full-graph bench
 (``dgll_tpu_torch.bench``) on a 200k-node clustered graph, the fourth through the
 round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph, the fifth
-through the CLI's host minibatch path and the library's feature cache:
+through the CLI's host minibatch path and the library's feature cache, the sixth
+through the primitive probe (``dgll_tpu_torch.tools.probe``):
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
   on a power-law test graph and, through the autograd wrapper, at the slice's
@@ -37,13 +38,22 @@ through the CLI's host minibatch path and the library's feature cache:
   fetch and the device step, and the device's idle share over an epoch; the feature
   cache's scenario (``benchmarks/cache_bench.py``): a device-resident run, float32
   caches on 0, 25 and 100% of the rows, and float32 against int8 at one byte budget,
-  with the int8 fill's K8 launch counted.
+  with the int8 fill's K8 launch counted;
+* the primitive probes P0-P4 (phase 19): each probe's kernel against its plain
+  version on ragged shapes and at the probe script's full sizes (E 2^22 rows of 128
+  floats; P0, P2, P4 exact, P2b within rtol 1e-5, P3 within rtol 1e-4 and 1e-5 x
+  max|ref|), each timed beside its plain version, ``copy_``, ``index_select`` or
+  ``index_add_``, and its bound; P3 again with every row sent to 64 or 1,024
+  destination rows (contended atomics, integer values: exact); then the probe
+  tool's run at those sizes, whose JSON (with ``index_select`` as P1 and P0's
+  achieved bandwidth) it prints.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
 the same function where there is one (``library_ms``; the port never calls it), and
 its bound: the larger of its bytes (each input read once, each output written once)
-over the H100's 3.35 TB/s and its float32 operations over 67 TFLOP/s. It needs one
+over the H100's 3.35 TB/s and its float32 operations over 67 TFLOP/s (P2b's one
+product over TF32's 495 TFLOP/s). It needs one
 CUDA device and ``nvcc`` (``CUDA_HOME`` or ``PATH``), and no JAX.
 
 Each phase prints its lines; a failed check raises and the script exits non-zero.
@@ -120,6 +130,20 @@ MINIBATCH_EPOCHS = 3
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12   # dense, on the tensor cores
+PROBES_SOURCE = "dgll_tpu_torch/csrc/probes.cu"
+PROBE_SCRIPT = "benchmarks/pallas_probe_r4.py"
+# the primitive probes (phase 19): (JSON name, counter, body line of the TPU kernel)
+PROBE_KERNELS = (
+    ("p0_copy (P0: streaming copy)", "p0_copy", 53),
+    ("p2_dynread (P2: window gather from shared memory)", "p2_dynread", 72),
+    ("p2b_onehot (P2b: one-hot product on the tensor cores, TF32 hi + lo)", "p2b_onehot",
+     102),
+    ("p3_dynacc (P3: scatter-add through L2 atomics, zeroing included)", "p3_dynacc", 126),
+    ("p4_dma (P4: row gather by bulk copies, 8 in flight a block)", "p4_dma", 171),
+)
+# P3 under contention (phase 19): all E message rows into this many destination rows
+P3_HUB_ROWS = (64, 1024)
 # a kernel case: its launch, its plain version, one library call computing the same
 # function (or None), the tensors it reads and its float32 operations
 Case = collections.namedtuple("Case", "kernel plain library reads ops")
@@ -137,10 +161,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(moved: int, ops: int) -> tuple:
+def bound(moved: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     """``(bound_ms, bound_by)``: the least time the card could take to move
-    ``moved`` bytes and do ``ops`` float32 operations at its peak rates."""
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    ``moved`` bytes and do ``ops`` operations at its peak rates (float32 outside the
+    tensor cores unless ``ops_per_s`` says otherwise)."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1158,20 +1183,24 @@ def phase_quantize_time() -> dict:
 
 
 def _all_counters() -> dict:
+    from dgll_tpu_torch.ops.cuda import probes
     from dgll_tpu_torch.ops.cuda import quantize as k8
     from dgll_tpu_torch.ops.cuda import spmm_windowed as sw
 
     return {**_counters(), "K2 fwd": sw.launches_fwd, "K2 bwd": sw.launches_bwd,
-            "K8": k8.launches}
+            "K8": k8.launches, **probes.launches}
 
 
 def _zero_all_counters() -> None:
+    from dgll_tpu_torch.ops.cuda import probes
     from dgll_tpu_torch.ops.cuda import quantize as k8
     from dgll_tpu_torch.ops.cuda import spmm_windowed as sw
 
     _zero_counters()
     sw.launches_fwd = sw.launches_bwd = 0
     k8.launches = 0
+    for k in probes.launches:
+        probes.launches[k] = 0
 
 
 def minibatch_split(args, batches: int = 10) -> dict:
@@ -1400,6 +1429,149 @@ def phase_cache() -> dict:
     return {name: {k: v for k, v in r.items() if k != "losses"} for name, r in rows.items()}
 
 
+def _probe_edge_cases() -> None:
+    """Phase 19: the probe kernels on ragged shapes against their plain versions, at
+    the probes' bars: row counts that no tile, chunk or unroll divides, narrow and odd
+    widths, and for P2b an index outside the window (a zero row)."""
+    from dgll_tpu_torch.ops import probes as pp
+    from dgll_tpu_torch.ops.cuda import probes as kp
+    from dgll_tpu_torch.tools import probe
+
+    gen = torch.Generator(device="cuda").manual_seed(191)
+
+    def ids(shape, hi):
+        return torch.randint(0, hi, shape, dtype=torch.int32, generator=gen, device="cuda")
+
+    def rows(n, f):
+        return torch.randn(n, f, generator=gen, device="cuda")
+
+    win32, win128 = rows(256, 32), rows(256, 128)
+    idxv = ids((1000, 1), 256)
+    idxv[7] = 256
+    cases = [("p0_copy", (rows(1001, 4),)),
+             ("p2_dynread", (ids((2, 500), 256), win128)),
+             ("p2b_onehot", (idxv, win32)),
+             ("p2b_onehot", (idxv[:40], win128)),
+             ("p3_dynacc", (ids((2, 500), 100), rows(1000, 36), 100)),
+             ("p4_dma", (ids((2, 500), 3000), rows(3000, 128))),
+             ("p4_dma", (ids((3, 7), 50), rows(50, 4)))]
+    for key, args in cases:
+        probe.max_error(key, kp.KERNELS[key](*args), getattr(pp, f"{key}_reference")(*args))
+    torch.cuda.synchronize()
+    print(f"[19 probes] {len(cases)} ragged cases (rows 21-1001, widths 4-128, an index "
+          f"outside P2b's window) agree with the plain versions")
+
+
+def _probe_p3_contended(msg: torch.Tensor) -> None:
+    """Phase 19: P3 under contention. All of ``msg``'s rows, rounded to integers (so
+    that every order of the f32 sums is exact), go into few destination rows: one
+    atomic row an edge onto a few hub rows. Exact against its plain version, then
+    timed beside ``index_add_``."""
+    from dgll_tpu_torch.ops.cuda import probes as kp
+    from dgll_tpu_torch.ops.probes import p3_dynacc_reference
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(192)
+    ints = torch.round(msg)
+    e, f = ints.shape
+    for rows in P3_HUB_ROWS:
+        idx = torch.randint(0, rows, (e // 512, 512), dtype=torch.int32, generator=gen,
+                            device="cuda")
+        check(torch.equal(kp.p3_dynacc_cuda(idx, ints, rows),
+                          p3_dynacc_reference(idx, ints, rows)), f"P3 into {rows} rows exact")
+        t = cuda_median_ms(lambda: kp.p3_dynacc_cuda(idx, ints, rows))
+        lib = cuda_median_ms(lambda: torch.zeros(rows, f, device="cuda").index_add_(
+            0, idx.view(-1), ints))
+        print(f"[19 probes] p3_dynacc into {rows} rows ({e // rows} message rows a "
+              f"destination): exact; {t:.4f} ms, {t * 1e6 / e:.4f} ns a row; index_add_ "
+              f"{lib:.4f} ms")
+
+
+def phase_probe_kernels() -> dict:
+    """Phase 19: each probe's kernel (``csrc/probes.cu``, uncounted launches) against
+    its plain version at the script's full sizes (``tools/probe.make_data`` and
+    ``probe_calls``): P0, P2 and P4 exactly, P2b elementwise within rtol 1e-5, P3
+    within rtol 1e-4 and 1e-5 x max|ref| (``tools/probe.max_error``); then each timed
+    beside its plain version, one library call (``copy_``, ``index_select``,
+    ``index_add_``) and its bound; then P3 under contention. A gather's bytes count the
+    table rows its ids touch. P2b's bound is the larger of its bytes and the function's
+    one product (2 x E x WIN x F operations) at TF32's 495 TFLOP/s: splitting win
+    into hi + lo is the kernel's way to f32 accuracy, not work the function needs."""
+    from dgll_tpu_torch.ops.cuda import probes as kp
+    from dgll_tpu_torch.tools import probe
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    d = probe.make_data(torch.device("cuda"), seed=19)
+    probe.check_ids(d)
+    idx_c, idx_o, idx_h, msg, win, x = (d[k] for k in ("idx_chunk", "idx_out", "idx_hbm",
+                                                       "msg", "win", "x32"))
+    e, f = msg.shape
+    row = f * 4
+
+    def touched(idx):
+        return int(torch.unique(idx).numel()) * row
+
+    copy_out = torch.empty_like(msg)
+    win_gather = nbytes(idx_c) + touched(idx_c) + e * row
+    cases = {  # library call, bytes moved, operations, their rate
+        "p0_copy": (lambda: copy_out.copy_(msg), 2 * nbytes(msg), 0, F32_OPS_PER_S),
+        "p2_dynread": (lambda: win.index_select(0, idx_c.view(-1)), win_gather, 0,
+                       F32_OPS_PER_S),
+        "p2b_onehot": (lambda: win.index_select(0, idx_c.view(-1)), win_gather,
+                       2 * e * win.shape[0] * f, TF32_OPS_PER_S),
+        "p3_dynacc": (lambda: torch.zeros(probe.OUT_TILE, f, device="cuda").index_add_(
+                          0, idx_o.view(-1), msg),
+                      nbytes(idx_o, msg) + probe.OUT_TILE * row, e * f, F32_OPS_PER_S),
+        "p4_dma": (lambda: x.index_select(0, idx_h.view(-1)),
+                   nbytes(idx_h) + touched(idx_h) + e * row, 0, F32_OPS_PER_S),
+    }
+    _probe_edge_cases()
+    calls = probe.probe_calls(d)
+    result = {}
+    for _, key, _ in PROBE_KERNELS:
+        library, moved, ops, rate = cases[key]
+        _, plain, args = calls[key]
+
+        def kernel():
+            return kp.KERNELS[key](*args)
+
+        err = probe.max_error(key, kernel(), plain(*args))
+        torch.cuda.synchronize()
+        t = {"ms": cuda_median_ms(kernel), "plain_ms": cuda_median_ms(lambda: plain(*args)),
+             "library_ms": cuda_median_ms(library)}
+        t["bound_ms"], t["bound_by"] = bound(moved, ops, rate)
+        result[key] = {"err": err, "times": t}
+        print(f"[19 probes] {key}: max abs err {err:.3e} against its plain version; "
+              f"{describe(t)}; {moved / (t['ms'] * 1e-3) / 1e9:.1f} GB/s moved")
+    _probe_p3_contended(msg)
+    return result
+
+
+def phase_probe_tool() -> tuple:
+    """Phase 19: the probe tool's path (``python -m dgll_tpu_torch.tools.probe``) at
+    the script's sizes, with every launch counter set to 0 just before it and read
+    just after; each probe must have launched its kernel and no other kernel may
+    have run. Returns (its JSON, the counters)."""
+    from dgll_tpu_torch.ops.cuda import probes as kp
+    from dgll_tpu_torch.tools import probe
+
+    _zero_all_counters()
+    with contextlib.redirect_stdout(io.StringIO()):  # the tool's own lines
+        res = probe.main(["--device", "cuda", "--seed", "0"])
+    counts = {k: v for k, v in _all_counters().items() if v}
+    check(all(counts.get(k, 0) >= 1 for k in kp.launches), f"every probe launched: {counts}")
+    check(set(counts) <= set(kp.launches), f"no other kernel launched: {counts}")
+    rows = [k for k in res if isinstance(res[k], dict)]
+    check(len(rows) == 8 and all(v > 0 and np.isfinite(v) for k in rows
+                                 for v in res[k].values()), "finite positive probe rates")
+    check(res["device"] == torch.cuda.get_device_name(0) and res["E"] == probe.E,
+          "the tool ran on the card at the script's sizes")
+    tbs = res["p0_stream_copy"]["gbps"] / 1e3
+    print(f"[19 probes] tool: launches {counts}; P0 streams {tbs:.4f} TB/s, "
+          f"{tbs / (HBM_BYTES_PER_S / 1e12):.1%} of the data sheet's 3.35 TB/s")
+    return res, counts
+
+
 def kernel_row(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
@@ -1429,6 +1601,8 @@ def main() -> int:
     k8_times = phase_quantize_time()
     minibatch = phase_minibatch_cli()
     cache = phase_cache()
+    probe_kernels = phase_probe_kernels()
+    probe_res, probe_counts = phase_probe_tool()
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -1451,9 +1625,14 @@ def main() -> int:
         "quantize_int8 (K8: per-column int8, the int8 cache's fill)", QUANTIZE_SOURCE,
         QUANTIZE_REPLACES, cache["budget_6.25pct_int8"]["k8_launches"], k8_err,
         k8_times["fill"]))
+    for name, key, line in PROBE_KERNELS:
+        kernels.append(kernel_row(name, PROBES_SOURCE, f"{PROBE_SCRIPT}:{line}",
+                                  probe_counts[key], probe_kernels[key]["err"],
+                                  probe_kernels[key]["times"]))
     print(f"[15 layers] {json.dumps(r4['layers'])}")
     print(f"[17 cli] {json.dumps(minibatch)}")
     print(f"[18 cache] {json.dumps(cache)}")
+    print(f"[19 probes] {json.dumps(probe_res)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

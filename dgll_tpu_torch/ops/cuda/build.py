@@ -103,6 +103,11 @@ def load_library() -> ctypes.CDLL:
         "dgll_gat_bwd_softmax": [p, p, p, p, p, p, p, i, i, p],
         "dgll_expand_rows": [p, p, p, ll, i, i, p],
         "dgll_sddmm": [p, p, p, p, ll, i, i, i, p],
+        "dgll_probe_copy": [p, p, ll, p],
+        "dgll_probe_dynread": [p, p, p, ll, i, i, p],
+        "dgll_probe_onehot": [p, p, p, ll, i, i, p],
+        "dgll_probe_dynacc": [p, p, p, ll, i, i, p],
+        "dgll_probe_dma": [p, p, p, ll, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -15,6 +15,7 @@ import torch
 from dgll_tpu.cache import HBMFeatureCache as JaxCache
 from dgll_tpu_torch.cache import HBMFeatureCache
 from dgll_tpu_torch.ops.cuda import quantize as k8
+from test_torch_edge_ops import _thread_pool  # noqa: F401 (fixture)
 
 
 def _both(feats, **kw):

@@ -52,7 +52,8 @@ def _thread_pool():
     """Start torch's CPU thread pool before any comparison: the first multi-threaded
     op of a process has been seen to disturb the vector op running beside it (one
     exp in ten thousand off by 1e-4), which the exact and 1e-5 comparisons here
-    would catch."""
+    would catch. The other parity files that compare exactly import it, since any
+    of them can be a test worker's first file."""
     torch.exp(torch.randn(1 << 22)).sum()
 
 

@@ -30,15 +30,10 @@ from dgll_tpu_torch.ops import gat as tg
 from dgll_tpu_torch.ops.cuda import edge_ops as tk
 from dgll_tpu_torch.ops.cuda import gat_fused as tgf
 from dgll_tpu_torch.ops.cuda import segment_matmul as sm
+from test_torch_edge_ops import _thread_pool  # noqa: F401 (fixture)
 from test_torch_gat import N, _close, _to_slots, layouts  # noqa: F401 (fixture)
 
 HEADS = [1, 8]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _thread_pool():
-    """Start torch's CPU thread pool first (see ``test_torch_edge_ops.py``)."""
-    torch.exp(torch.randn(1 << 22)).sum()
 
 
 def _t(x, grad=False):

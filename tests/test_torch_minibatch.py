@@ -38,6 +38,7 @@ from dgll_tpu_torch.nn import GCN, GraphSAGE, SAGEConv, params_from_flax
 from dgll_tpu_torch.ops import spmm
 from dgll_tpu_torch.sampling import HostGraph, NeighborSampler
 from dgll_tpu_torch.train import MiniBatchTrainer
+from test_torch_edge_ops import _thread_pool  # noqa: F401 (fixture)
 
 GRAPH = dict(n_node=300, avg_degree=5, n_class=4, feat_dim=16, power_law=1.0, seed=1)
 FANOUTS = [3, 2]

@@ -1,15 +1,15 @@
 """The port runs without JAX: the machine with the GPU has none.
 
-A subprocess in which ``jax``, ``flax``, ``optax`` and the JAX package cannot be
-imported imports every module of ``dgll_tpu_torch``, trains a few full-batch epochs
-through the CLI, runs the full-graph bench on a small clustered graph through the
-windowed layout, runs the community pipeline through the port's own copy of the
-C++ host kernels, runs both round-4 GAT attention layers, trains GraphSAGE for two
-epochs on the CLI's host minibatch path with the feature cache, and fills and
-fetches from the int8 cache. No source file of the
-package imports them either, and none names a path inside the JAX package: the port
-reads no file of it. ``chip_smoke.py`` refuses to run, and prints no result, without a
-CUDA device.
+A subprocess in which ``jax``, ``flax``, ``optax``, the JAX package and the JAX
+benchmarks cannot be imported imports every module of ``dgll_tpu_torch``, trains a
+few full-batch epochs through the CLI, runs the full-graph bench on a small
+clustered graph through the windowed layout, runs the community pipeline through the
+port's own copy of the C++ host kernels, runs both round-4 GAT attention layers,
+trains GraphSAGE for two epochs on the CLI's host minibatch path with the feature
+cache, fills and fetches from the int8 cache, and runs the probe tool on the CPU. No
+source file of the package imports them either, and none names a path inside the JAX
+package: the port reads no file of it. ``chip_smoke.py`` refuses to run, and prints
+no result, without a CUDA device.
 """
 import ast
 import os
@@ -23,7 +23,7 @@ from dgll_tpu_torch import native
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = Path(dgll_tpu_torch.__file__).resolve().parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "dgll_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "dgll_tpu", "benchmarks")
 
 _NO_JAX = f"""
 import importlib, pkgutil, sys
@@ -67,6 +67,9 @@ cache = HBMFeatureCache(feats, device="cpu", quantize=True)
 cache.fill(np.arange(20))
 rows = cache.fetch(np.array([1, 30, 1]))
 assert rows.dtype == torch.float32 and torch.equal(rows[1], torch.from_numpy(feats[30]))
+from dgll_tpu_torch.tools import probe
+res = probe.main(["--device", "cpu"])
+assert res["p4_row_dma"]["ms"] > 0, res
 print("NOJAX_OK")
 """
 
@@ -84,8 +87,8 @@ def test_package_imports_and_trains_without_jax():
 
 
 def test_no_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dgll_tpu)\b",
-                         re.MULTILINE)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dgll_tpu|benchmarks)\b", re.MULTILINE)
     offenders = [str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []

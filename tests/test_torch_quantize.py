@@ -16,6 +16,7 @@ import torch
 from dgll_tpu.ops import quantize as jq
 from dgll_tpu_torch.ops import quantize as tq
 from dgll_tpu_torch.ops.cuda import quantize as k8
+from test_torch_edge_ops import _thread_pool  # noqa: F401 (fixture)
 
 
 def _x(shape, seed=0):

@@ -27,6 +27,7 @@ from dgll_tpu_torch.sampling import (
     NeighborSampler,
     sample_neighbors_padded,
 )
+from test_torch_edge_ops import _thread_pool  # noqa: F401 (fixture)
 
 GRAPH = dict(n_node=400, avg_degree=6, n_class=4, feat_dim=8, power_law=1.0, seed=2)
 
