@@ -12,16 +12,18 @@ through the CLI's host minibatch path and the library's feature cache, the sixth
 through the primitive probe (``dgll_tpu_torch.tools.probe``):
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
-  on a power-law test graph and, through the autograd wrapper, at the slice's
-  shapes; both timed there; 20 epochs of training, in which the CLI tries the
-  windowed layout and declines it;
+  on a power-law test graph and on a planted graph whose rows cross K1's split
+  threshold (T-1, T, T+1, 2T, 2T+1 and 60,000 edges), and, through the autograd
+  wrapper, at the slice's shapes; both timed there; 20 epochs of training, in which
+  the CLI tries the windowed layout and declines it;
 * full-batch GAT, 8 heads x 8 features (phases 6-9): the attention kernels K3-K7
   and K1 with runtime columns against their plain versions on the test graph; the
   fused layer's forward and backward against the plain composition at the slice's
   shapes; each kernel and its plain version timed there; 20 epochs of training;
 * full-batch GCN on the clustered graph (phases 10-12): the windowed kernel K2
-  against its plain version on a clustered test graph and one with an empty row
-  block; the hybrid op (K2 plus K1 on the residual edges) forward and backward at
+  against its plain version on a clustered test graph, on one whose row blocks hold
+  0 to 17 sub-chunks (every state of K2's ring of stages) and on one with an empty
+  row block; the hybrid op (K2 plus K1 on the residual edges) forward and backward at
   the bench's shapes; K2, the hybrid op and K1 over the whole graph timed there; the
   bench's 14 train steps through K2, and again through K1 alone;
 * the round-4 GAT attention layers (phases 13-15): K6 in its max mode, K9, and K6′
@@ -245,6 +247,34 @@ def power_law_layouts(n=50_000, e=800_000, device="cuda", seed=0):
     return c.to(device), ct.to(device), n
 
 
+def planted_layouts(n=20_000, e=200_000, device="cuda", seed=3):
+    """K1's split boundaries: rows 0..7 of A have T-1, T, T+1, 2T, 2T+1, 0, 1 and
+    60,000 in-edges (T = ``SPLIT_EDGES``), rows 8..255 none (an edgeless 128-row
+    block among them), the rest power-law in-degrees; half of each planted row's
+    edges come from one source, so that A^T has long rows too. The layouts of A and
+    A^T on ``device``."""
+    from dgll_tpu_torch.ops import build_chunked_pair
+    from dgll_tpu_torch.ops.chunked import SPLIT_EDGES as t
+
+    rng = np.random.default_rng(seed)
+    planted = np.array([t - 1, t, t + 1, 2 * t, 2 * t + 1, 0, 1, 60_000])
+    dst = np.repeat(np.arange(len(planted)), planted)
+    src = np.where(np.arange(len(dst)) % 2 == 0, n - 1 - dst, rng.integers(0, n, len(dst)))
+    p = (np.arange(n - 256) + 1.0) ** -1.0
+    rest = 256 + rng.choice(n - 256, size=e, p=p / p.sum())
+    dst, src = np.concatenate([dst, rest]), np.concatenate([src, rng.integers(0, n, e)])
+    c, ct = build_chunked_pair(src, dst, n, n, rng.random(len(src)).astype(np.float32))
+    check(np.array_equal(np.diff(c.indptr[:9].numpy()), planted), "the planted degrees")
+    return c.to(device), ct.to(device), n
+
+
+def _split_summary(c) -> str:
+    sc = c.split
+    deg = c.indptr[1:] - c.indptr[:-1]
+    return (f"max in-degree {int(deg.max())}, {sc.n_split} rows above {sc.max_edges} "
+            f"edges split into {sc.n_seg} segments")
+
+
 def _kernel_case(c, ct, n, f, dtype, activation, gen):
     """Kernel forward + backward against the plain version; returns the max error
     over out, dx and db relative to the case's bound (f32: 1e-4 * max|ref|; bf16:
@@ -293,25 +323,34 @@ def _kernel_case(c, ct, n, f, dtype, activation, gen):
     return errs, same
 
 
-def phase_check(n=50_000, e=800_000, device="cuda") -> float:
-    c, ct, n = power_law_layouts(n, e, device)
+def phase_check(device="cuda") -> float:
+    """Phase 3: K1 forward and backward against its plain version on the power-law
+    test graph (F in {16, 128, 256}) and on the planted graph that crosses the split
+    boundaries (F in {16, 64, 128, 256}), f32 and bf16, with and without bias + ReLU,
+    bitwise repeatable. Returns the max abs error of the f32 cases."""
     gen = torch.Generator(device=device).manual_seed(0)
     worst = 0.0
-    for f in (16, 128, 256):
-        for dtype in (torch.float32, torch.bfloat16):
-            for act in (None, "relu"):
-                errs, same = _kernel_case(c, ct, n, f, dtype, act, gen)
-                ratio = max(v for k, v in errs.items() if not k.endswith("_abs"))
-                print(f"[3 check] F={f} {str(dtype)[6:]} act={act}: "
-                      f"max abs err out {errs['out_abs']:.3e} dx {errs['dx_abs']:.3e}"
-                      + (f" db {errs['db_abs']:.3e}" if "db_abs" in errs else "")
-                      + f"; {ratio:.3f} of tolerance; bitwise repeatable {same}")
-                check(ratio <= 1.0, f"kernel within tolerance (F={f}, {dtype}, {act})")
-                check(same, f"two runs bitwise equal (F={f}, {dtype}, {act})")
-                if dtype == torch.float32:
-                    worst = max(worst, errs["out_abs"], errs["dx_abs"])
-    print(f"[3 check] {c.src.numel()} edges over {n} rows, max in-degree "
-          f"{int((c.indptr[1:] - c.indptr[:-1]).max())}: all 12 cases pass")
+    graphs = (("power-law", power_law_layouts(device=device), (16, 128, 256)),
+              ("planted", planted_layouts(device=device), (16, 64, 128, 256)))
+    for name, (c, ct, n), widths in graphs:
+        cases = 0
+        for f in widths:
+            for dtype in (torch.float32, torch.bfloat16):
+                for act in (None, "relu"):
+                    errs, same = _kernel_case(c, ct, n, f, dtype, act, gen)
+                    ratio = max(v for k, v in errs.items() if not k.endswith("_abs"))
+                    print(f"[3 check] {name} F={f} {str(dtype)[6:]} act={act}: "
+                          f"max abs err out {errs['out_abs']:.3e} dx {errs['dx_abs']:.3e}"
+                          + (f" db {errs['db_abs']:.3e}" if "db_abs" in errs else "")
+                          + f"; {ratio:.3f} of tolerance; bitwise repeatable {same}")
+                    check(ratio <= 1.0, f"kernel within tolerance ({name}, F={f}, {dtype}, "
+                                        f"{act})")
+                    check(same, f"two runs bitwise equal ({name}, F={f}, {dtype}, {act})")
+                    if dtype == torch.float32:
+                        worst = max(worst, errs["out_abs"], errs["dx_abs"])
+                    cases += 1
+        print(f"[3 check] {name}: {c.src.numel()} edges over {n} rows; A: "
+              f"{_split_summary(c)}; A^T: {_split_summary(ct)}: all {cases} cases pass")
     return worst
 
 
@@ -375,9 +414,8 @@ def phase_time() -> dict:
             t = timed(case, (spmm_csr_cuda(lay, x),))
             nnz = lay.src.numel()
             gbs = (nnz * (f * 4 + 8) + lay.n_rows * f * 4) / (t["ms"] * 1e-3) / 1e9
-            deg = int((lay.indptr[1:] - lay.indptr[:-1]).max())
             print(f"[4 time] F={f} {name}: {describe(t)}; {gbs:.1f} GB/s of gathered "
-                  f"rows + indices, {nnz} edges, max in-degree {deg}")
+                  f"rows + indices, {nnz} edges, {_split_summary(lay)}")
             result[(f, name)] = {**t, "err": err}
     return result
 
@@ -529,8 +567,8 @@ def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
         for name, case in _gat_cases(c, ct, heads, width, gen).items():
             line, _ = _compare(f"H={heads}", name, case, worst)
             print(f"[6 check] H={heads} width={width} {name}: {line}")
-    print(f"[6 check] {c.src.numel()} edges over {n} rows, max in-degree "
-          f"{int((c.indptr[1:] - c.indptr[:-1]).max())}: all cases pass")
+    print(f"[6 check] {c.src.numel()} edges over {n} rows; A: {_split_summary(c)}; "
+          f"A^T: {_split_summary(ct)}: all cases pass")
 
 
 def phase_gat_layer() -> None:
@@ -671,11 +709,41 @@ def _windowed_case(c, f, dtype, activation, gen):
     return diff.max().item(), ratio, torch.equal(out, again), out, b
 
 
+# sub-chunks per row block of the ring graph (phase 10): none, fewer than, as many
+# as and more than K2's 3 stages, odd and even, up to several turns of the ring
+RING_SUBS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 13, 17)
+
+
+@functools.cache
+def ring_layout(seed=10):
+    """A windowed layout whose row block b has exactly ``RING_SUBS[b]`` sub-chunks:
+    sub-chunk i of a block has 100 edges from rows [512 i, 512 i + 100) of x (one
+    window each) into random rows of the block. On the card."""
+    from dgll_tpu_torch.ops.windowed import WIN_ROWS, build_windowed
+
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for b, k in enumerate(RING_SUBS):
+        for i in range(k):
+            src.append(WIN_ROWS * i + rng.permutation(100))
+            dst.append(128 * b + rng.integers(0, 128, 100))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    n_cols = WIN_ROWS * max(RING_SUBS)
+    w = rng.random(len(src)).astype(np.float32)
+    win, resid = build_windowed(src, dst, 128 * len(RING_SUBS), n_cols, w)
+    check(resid is None, "the ring graph has no residual edges")
+    check(np.array_equal(np.diff(win.blk_ptr.numpy()), RING_SUBS),
+          f"sub-chunks per row block {RING_SUBS}")
+    return win.to("cuda")
+
+
 def phase_windowed_check() -> float:
     """Phase 10: K2 against ``spmm_windowed_reference`` on the clustered test graph
     (A: F in {16, 128, 256}, f32 and bf16, with and without bias + ReLU; A^T at
-    F=128) and on one with an empty row block, whose rows must come out as
-    act(bias) exactly. Returns the max abs error of the f32 cases."""
+    F=128), on the ring graph (``RING_SUBS`` sub-chunks a row block, so that K2's
+    ring of stages runs empty, part full, full and wraps) and on a graph with an
+    empty row block, whose rows must come out as act(bias) exactly. Returns the max
+    abs error of the f32 cases."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     h, ht, n = clustered_layouts()
     worst = 0.0
@@ -693,6 +761,18 @@ def phase_windowed_check() -> float:
     print(f"[10 check] {h.win.src.numel()} windowed "
           f"edges in {h.win.n_sub} sub-chunks over {n} rows, windowed fraction "
           f"{h.windowed_fraction:.4f}: {len(cases)} cases pass")
+
+    ring = ring_layout()
+    for f, dt in ((128, torch.float32), (128, torch.bfloat16), (16, torch.float32)):
+        for act in (None, "relu"):
+            err, ratio, same, _, _ = _windowed_case(ring, f, dt, act, gen)
+            check(ratio <= 1.0 and same, f"K2 on the ring graph (F={f}, {dt}, {act}): "
+                                         f"{ratio:.3f} of tolerance, repeatable {same}")
+            if dt == torch.float32:
+                worst = max(worst, err)
+    print(f"[10 check] ring graph, {RING_SUBS} sub-chunks a row block: F=128 f32 and "
+          f"bf16, F=16 f32, with and without bias + ReLU, within tolerance and bitwise "
+          f"repeatable")
 
     eh, _, _ = clustered_layouts(empty_block=True)
     blk_ptr = eh.win.blk_ptr.cpu()

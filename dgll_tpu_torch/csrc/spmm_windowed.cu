@@ -13,25 +13,33 @@
 // source) order; per sub-chunk its edge range, first staged row of x and row count
 // (at most 128); per destination 128-row block its range of sub-chunks.
 //
-// Design: one block of 8 warps per (destination 128-row block, column tile of
-// 32*VEC columns). It walks its row block's sub-chunks in order. For each one it
-// stages the sub-chunk's rows of x (at most 128) for its column tile in shared
-// memory, with coalesced VEC-wide loads (one warp per row), and the sub-chunk's
-// edges (local source, local destination, weight). Warp w owns destination rows
-// [16w, 16w+16) of the block: a ballot over the sub-chunk's sorted destinations
-// finds its edge range, each lane keeps VEC columns of a running f32 sum per row
-// and adds it into the block's accumulator in shared memory when the row changes.
-// Each accumulator element is owned by one lane, so there are no atomics and the
-// sum order is fixed (sub-chunk order, then source order): results are bitwise
-// repeatable. The epilogue adds the bias, applies ReLU and stores every row of the
-// block, so a block without windowed edges writes act(bias) or zeros.
-//
 // What bounds it: bytes of x staged. A sub-chunk stages up to its largest source,
 // so a call reads about sum(rows staged) * F * itemsize bytes (rows of neighbouring
 // sub-chunks of one window come from L2), 12 bytes per edge of metadata, and writes
-// n_rows * F * out_itemsize bytes. The staging and the edge loop are not yet
-// overlapped within a block (no cp.async double buffering); the three blocks an SM
-// holds overlap each other's.
+// n_rows * F * out_itemsize bytes.
+//
+// Design: one block of 16 warps per (destination 128-row block, column tile of
+// 32*VEC columns; VEC <= 4, so F = 128 is one tile in f32 and bf16). The block walks
+// its row block's sub-chunks through a ring of kStages = 3 stages in shared memory
+// (64 KB of rows each for a 128-column f32 tile): while the warps sum sub-chunk k,
+// the copies of sub-chunks k+1 and k+2 are in flight. Each thread issues cp.async
+// copies (16 bytes where VEC allows; warp w the rows w, w + 16, ..., a lane a
+// VEC-wide piece of each) of the sub-chunk's rows of x for the tile and of its
+// edges (source, destination, weight), one commit group a sub-chunk. A wait on the
+// group then a barrier make a stage visible and tell that the stage summed last is
+// free, which the step refills at once. (cp.async writes through the generic proxy,
+// so no proxy fence is needed before a stage is reused, unlike P4's bulk copies.)
+// Warp w owns destination rows [8w, 8w+8) of the block and keeps their sums in
+// registers (8 rows x VEC columns a lane), not in shared memory: a ballot over the
+// sub-chunk's sorted destinations finds its edge range, and a loop unrolled over its
+// 8 rows adds each edge into its row's registers. Each sum is owned by one lane and
+// taken in a fixed order (sub-chunk order, then source order): no atomics, and
+// results are bitwise repeatable. The epilogue adds the bias, applies ReLU and stores
+// every row of the block, so a block without windowed edges writes act(bias) or
+// zeros. Measured on the card and not kept: issuing the next copies before the
+// wait (a second barrier a step), loading the metadata one issue ahead, up to 8
+// stages for narrow tiles, and a warp's edges batched in registers (4 rows loaded
+// at a time, each added to its row under a predicate): each was slower.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,8 +48,9 @@ namespace {
 
 constexpr int kRowBlock = 128;                    // destination rows per block
 constexpr int kSub = 128;                         // edges per sub-chunk, at most
-constexpr int kWarps = 8;
+constexpr int kWarps = 16;
 constexpr int kRowsPerWarp = kRowBlock / kWarps;  // destination rows a warp owns
+constexpr int kStages = 3;                        // sub-chunks staged at a time
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -62,116 +71,154 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-template <typename TIn, int VEC>
-constexpr size_t smem_bytes() {
-  return size_t(kRowBlock) * 32 * VEC * (sizeof(float) + sizeof(TIn));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// BYTES from global to shared memory: asynchronously for 4, 8 or 16 bytes (16 bypasses
+// L1), a plain copy for 2 (which the barrier after the stage's wait publishes too).
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  } else if constexpr (BYTES >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(BYTES) : "memory");
+  } else {
+    *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
+  }
+}
+
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One stage: the sub-chunk's staged rows of x for the tile, then its edges.
+template <typename TIn, int VEC>
+struct StageLayout {
+  static constexpr int kTile = 32 * VEC;  // columns per block
+  static constexpr int kXBytes = kSub * kTile * sizeof(TIn);
+  static constexpr int kBytes = kXBytes + 3 * kSub * 4;
+};
+
 template <typename TIn, typename TOut, int VEC>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, 1)
 spmm_windowed_kernel(const int* __restrict__ blk_ptr, const int* __restrict__ sub_ptr,
                      const int* __restrict__ sub_x0, const int* __restrict__ sub_nx,
                      const int* __restrict__ src, const int* __restrict__ rows,
                      const float* __restrict__ weight, const TIn* __restrict__ x,
                      const float* __restrict__ bias, TOut* __restrict__ out, int f,
                      int relu) {
-  constexpr int kTile = 32 * VEC;  // columns per block
+  using L = StageLayout<TIn, VEC>;
+  constexpr int kTile = L::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);                // [kRowBlock][kTile]
-  TIn* xs = reinterpret_cast<TIn*>(acc + kRowBlock * kTile);  // [kSub][kTile]
-  __shared__ int s_src[kSub];    // source row within the staged rows
-  __shared__ int s_dst[kSub];    // destination row within the block
-  __shared__ float s_w[kSub];
+  __shared__ int s_meta[kStages][2];  // per stage: edge count, first staged row of x
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int row0 = blockIdx.x * kRowBlock;
-  const int tcol = lane * VEC;                   // column within the tile
-  const int col = blockIdx.y * kTile + tcol;     // column of x and out
+  const int col0 = blockIdx.y * kTile;
+  const int tcol = lane * VEC;  // column within the tile
   // F % VEC == 0, so a lane holds all VEC of its columns or none.
-  const bool active = col < f;
-  const int r_lo = warp * kRowsPerWarp;
-  const int r_hi = r_lo + kRowsPerWarp;
+  const bool active = col0 + tcol < f;
+  const int s_beg = blk_ptr[blockIdx.x];
+  const int n_sub = blk_ptr[blockIdx.x + 1] - s_beg;
 
-  // Only this lane ever touches its accumulator elements: no barrier needed.
-  Pack<float, VEC> zero;
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) zero.v[k] = 0.f;
-  for (int r = r_lo; r < r_hi; ++r)
-    *reinterpret_cast<Pack<float, VEC>*>(acc + r * kTile + tcol) = zero;
-
-  const int s_end = blk_ptr[blockIdx.x + 1];
-  for (int s = blk_ptr[blockIdx.x]; s < s_end; ++s) {
-    const int e0 = sub_ptr[s];
-    const int ne = sub_ptr[s + 1] - e0;
-    const int x0 = sub_x0[s];
-    const int nx = sub_nx[s];
-    __syncthreads();  // every warp is done with the previous sub-chunk's tiles
-    if (threadIdx.x < ne) {
-      s_src[threadIdx.x] = src[e0 + threadIdx.x] - x0;
-      s_dst[threadIdx.x] = rows[e0 + threadIdx.x] - row0;
-      s_w[threadIdx.x] = weight[e0 + threadIdx.x];
-    }
-    if (active) {
-#pragma unroll 4
-      for (int r = warp; r < nx; r += kWarps) {
-        *reinterpret_cast<Pack<TIn, VEC>*>(xs + r * kTile + tcol) =
-            *reinterpret_cast<const Pack<TIn, VEC>*>(x + (int64_t)(x0 + r) * f + col);
+  // the copies of sub-chunk k, if the block has it, then one commit group
+  auto issue = [&](int k) {
+    if (k < n_sub) {
+      const int s = s_beg + k;
+      const int e0 = sub_ptr[s];
+      const int ne = sub_ptr[s + 1] - e0;
+      const int x0 = sub_x0[s];
+      const int nx = sub_nx[s];
+      unsigned char* st = smem + (k % kStages) * L::kBytes;
+      TIn* xs = reinterpret_cast<TIn*>(st);
+      int* e_src = reinterpret_cast<int*>(st + L::kXBytes);
+      // warp w copies rows w, w + kWarps, ...: lane l the row's l-th VEC-wide piece
+      if (active) {
+        for (int r = warp; r < nx; r += kWarps)
+          copy_async<int(VEC * sizeof(TIn))>(xs + r * kTile + tcol,
+                                             x + (int64_t)(x0 + r) * f + col0 + tcol);
+      }
+      if (tid < ne) {
+        copy_async<4>(e_src + tid, src + e0 + tid);
+        copy_async<4>(e_src + kSub + tid, rows + e0 + tid);
+        copy_async<4>(e_src + 2 * kSub + tid, weight + e0 + tid);
+      }
+      if (tid == 0) {
+        s_meta[k % kStages][0] = ne;
+        s_meta[k % kStages][1] = x0;
       }
     }
-    __syncthreads();
+    commit_group();
+  };
+
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+
+  float acc[kRowsPerWarp][VEC];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[r][k] = 0.f;
+  }
+  const int d_lo = row0 + warp * kRowsPerWarp;  // this warp's first destination row
+
+  for (int k = 0; k < n_sub; ++k) {
+    wait_group<kStages - 2>();  // this thread's copies of sub-chunk k have landed
+    __syncthreads();            // everyone's have, and sub-chunk k-1 is summed
+    issue(k + kStages - 1);     // into the stage sub-chunk k-1 used
+
+    const int st_i = k % kStages;
+    const unsigned char* st = smem + st_i * L::kBytes;
+    const TIn* xs = reinterpret_cast<const TIn*>(st);
+    const int* e_src = reinterpret_cast<const int*>(st + L::kXBytes);
+    const int* e_dst = e_src + kSub;
+    const float* e_w = reinterpret_cast<const float*>(e_src + 2 * kSub);
+    const int ne = s_meta[st_i][0];
+    const int x0 = s_meta[st_i][1];
 
     // The edges are sorted by destination: this warp's run is [lo, hi).
     int lo = 0, hi = 0;
     for (int base = 0; base < ne; base += 32) {
-      const int d = base + lane < ne ? s_dst[base + lane] : kRowBlock;
-      lo += __popc(__ballot_sync(kFull, d < r_lo));
-      hi += __popc(__ballot_sync(kFull, d < r_hi));
+      const int d = base + lane < ne ? e_dst[base + lane] : row0 + kRowBlock;
+      lo += __popc(__ballot_sync(kFull, d < d_lo));
+      hi += __popc(__ballot_sync(kFull, d < d_lo + kRowsPerWarp));
     }
-    if (!active || lo == hi) continue;
-
-    float run[VEC];
+    if (!active) continue;
+    int e = lo;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) run[k] = 0.f;
-    int cur = s_dst[lo];
-    for (int e = lo; e < hi; ++e) {
-      const int d = s_dst[e];
-      if (d != cur) {
-        Pack<float, VEC>* a = reinterpret_cast<Pack<float, VEC>*>(acc + cur * kTile + tcol);
-        Pack<float, VEC> v = *a;
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      for (; e < hi && e_dst[e] == d_lo + r; ++e) {
+        const Pack<TIn, VEC> p =
+            *reinterpret_cast<const Pack<TIn, VEC>*>(xs + (e_src[e] - x0) * kTile + tcol);
+        const float w = e_w[e];
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          v.v[k] += run[k];
-          run[k] = 0.f;
-        }
-        *a = v;
-        cur = d;
+        for (int c = 0; c < VEC; ++c) acc[r][c] = fmaf(w, to_float(p.v[c]), acc[r][c]);
       }
-      const Pack<TIn, VEC> p =
-          *reinterpret_cast<const Pack<TIn, VEC>*>(xs + s_src[e] * kTile + tcol);
-      const float w = s_w[e];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) run[k] = fmaf(w, to_float(p.v[k]), run[k]);
     }
-    Pack<float, VEC>* a = reinterpret_cast<Pack<float, VEC>*>(acc + cur * kTile + tcol);
-    Pack<float, VEC> v = *a;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) v.v[k] += run[k];
-    *a = v;
   }
   if (!active) return;
 
-  for (int r = r_lo; r < r_hi; ++r) {
-    const Pack<float, VEC> v = *reinterpret_cast<const Pack<float, VEC>*>(acc + r * kTile + tcol);
+  const int col = col0 + tcol;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
     Pack<TOut, VEC> o;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      float y = v.v[k];
-      if (bias != nullptr) y += bias[col + k];
+    for (int c = 0; c < VEC; ++c) {
+      float y = acc[r][c];
+      if (bias != nullptr) y += bias[col + c];
       if (relu) y = fmaxf(y, 0.f);
-      o.v[k] = from_float<TOut>(y);
+      o.v[c] = from_float<TOut>(y);
     }
-    *reinterpret_cast<Pack<TOut, VEC>*>(out + (int64_t)(row0 + r) * f + col) = o;
+    *reinterpret_cast<Pack<TOut, VEC>*>(out + (int64_t)(d_lo + r) * f + col) = o;
   }
 }
 
@@ -181,9 +228,9 @@ cudaError_t launch(const void* blk_ptr, const void* sub_ptr, const void* sub_x0,
                    const void* weight, const void* x, const void* bias, void* out,
                    int n_row_blocks, int f, int relu, cudaStream_t stream) {
   auto kernel = spmm_windowed_kernel<TIn, TOut, VEC>;
-  constexpr size_t smem = smem_bytes<TIn, VEC>();
+  constexpr int smem = kStages * StageLayout<TIn, VEC>::kBytes;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int cols = 32 * VEC;
   const dim3 grid(n_row_blocks, (f + cols - 1) / cols);
@@ -222,8 +269,9 @@ cudaError_t launch_vec(int vec, const void* blk_ptr, const void* sub_ptr,
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16. Supported (in, out) pairs: (0, 0),
-// (1, 1), (1, 0). bias is float32 or null. vec is 1, 2 or 4 and divides f. Returns
-// cudaGetLastError() after the launch; nothing is launched when a check fails.
+// (1, 1), (1, 0). bias is float32 or null. vec is 1, 2 or 4 and divides f; x is
+// aligned to vec elements. Returns cudaGetLastError() after the launch; nothing is
+// launched when a check fails.
 int dgll_spmm_windowed(const void* blk_ptr, const void* sub_ptr, const void* sub_x0,
                        const void* sub_nx, const void* src, const void* rows,
                        const void* weight, const void* x, const void* bias, void* out,

@@ -4,7 +4,10 @@ Counterpart of ``dgll_tpu/ops/chunked.py``. The JAX package packs the edges into
 fixed chunks of ``EB`` slots per 128-row block, with an odd chunk count and
 one-hot scatter matrices, because a TPU has no atomics and runs its grid in order.
 None of that carries over to the GPU: the kernel (``csrc/segment_matmul.cu``) walks
-a plain dst-major CSR, one warp per destination row, and needs no atomics.
+a plain dst-major CSR and needs no atomics. It takes a row of at most
+``SPLIT_EDGES`` edges as one work item; a longer row is cut into segments of at
+most that many edges (``split_schedule``, built once per layout as
+``ChunkedCSR.split``), whose partial sums a second pass adds in segment order.
 
 The API conventions stay:
 
@@ -26,6 +29,47 @@ import numpy as np
 import torch
 
 R_BLOCK = 128  # the output row space is padded to a multiple of this
+# K1 cuts a row of more in-edges than this into segments of at most this many
+SPLIT_EDGES = 512
+
+
+@dataclass
+class SplitSchedule:
+    """K1's cut of a layout's long rows into segments (``split_schedule``)."""
+
+    seg_beg: torch.Tensor    # [n_seg] int32, first edge of each segment
+    seg_end: torch.Tensor    # [n_seg] int32, one past its last edge
+    split_row: torch.Tensor  # [n_split] int32, the rows cut into segments, ascending
+    split_ptr: torch.Tensor  # [n_split + 1] int32, each split row's range of segments
+    max_edges: int           # rows of at most this many edges are not cut
+
+    @property
+    def n_seg(self) -> int:
+        return self.seg_beg.numel()
+
+    @property
+    def n_split(self) -> int:
+        return self.split_row.numel()
+
+
+def split_schedule(indptr: torch.Tensor, max_edges: int = SPLIT_EDGES) -> SplitSchedule:
+    """Cut every row of more than ``max_edges`` edges into segments of ``max_edges``
+    consecutive edges (the last one shorter), in edge order, on ``indptr``'s device.
+    Rows of at most ``max_edges`` edges are left whole and appear nowhere."""
+    indptr = indptr.long()
+    dev = indptr.device
+    deg = indptr[1:] - indptr[:-1]
+    split_row = torch.nonzero(deg > max_edges).flatten()
+    counts = (deg[split_row] + max_edges - 1) // max_edges
+    split_ptr = torch.zeros(split_row.numel() + 1, dtype=torch.long, device=dev)
+    torch.cumsum(counts, 0, out=split_ptr[1:])
+    seg_row = torch.repeat_interleave(split_row, counts)
+    k = (torch.arange(seg_row.numel(), device=dev)
+         - torch.repeat_interleave(split_ptr[:-1], counts))
+    seg_beg = indptr[seg_row] + k * max_edges
+    seg_end = torch.minimum(seg_beg + max_edges, indptr[seg_row + 1])
+    return SplitSchedule(seg_beg.int(), seg_end.int(), split_row.int(), split_ptr.int(),
+                         int(max_edges))
 
 
 @dataclass
@@ -51,6 +95,12 @@ class ChunkedCSR:
     def unit_weight(self) -> torch.Tensor:
         """[nnz] float32 ones: the weights of a plain sum over each row's edges."""
         return torch.ones_like(self.weight)
+
+    @functools.cached_property
+    def split(self) -> SplitSchedule:
+        """K1's segment schedule of this layout's rows (``split_schedule``), built on
+        the layout's device at first use."""
+        return split_schedule(self.indptr)
 
     def to(self, device) -> "ChunkedCSR":
         perm = None if self.t_slot_perm is None else self.t_slot_perm.to(device)

@@ -94,7 +94,7 @@ def load_library() -> ctypes.CDLL:
     f, ll, ull = ctypes.c_float, ctypes.c_longlong, ctypes.c_ulonglong
     signatures = {
         "dgll_quantize_int8": [p, p, p, p, ll, i, i, i, i, ull, p],
-        "dgll_spmm_csr": [p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "dgll_spmm_csr": [p] * 6 + [i] * 7 + [p] * 5 + [i] * 3 + [p],
         "dgll_spmm_windowed": [p] * 10 + [i] * 6 + [p],
         "dgll_gat_stats": [p, p, p, p, p, i, i, f, p],
         "dgll_gat_alpha": [p, p, p, p, p, p, p, ll, i, f, p],

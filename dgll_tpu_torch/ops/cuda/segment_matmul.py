@@ -1,9 +1,11 @@
 """SpMM kernel wrapper: ``act(A @ x + bias)`` with its backward on A^T.
 
 Counterpart of ``dgll_tpu/ops/pallas/segment_matmul.py:spmm_chunked``. The kernel is
-``csrc/segment_matmul.cu`` (weighted CSR, one warp per destination row, f32
-accumulation, fused bias and ReLU). The backward runs the same kernel on the
-transpose layout: ``dx = A^T (act'(out) * g)``, and ``db = sum(g)`` in plain torch.
+``csrc/segment_matmul.cu`` (weighted CSR, f32 accumulation, fused bias and ReLU; rows
+of more than ``SPLIT_EDGES`` edges cut into segments by the layout's ``split``
+schedule, whose f32 partials a second pass adds in segment order, into scratch this
+wrapper allocates). The backward runs the same kernel on the transpose layout:
+``dx = A^T (act'(out) * g)``, and ``db = sum(g)`` in plain torch.
 
 A tensor on the CPU goes through the plain version (``ops/chunked.py:
 spmm_chunked_reference``); a tensor on a CUDA device launches the kernel or raises.
@@ -11,8 +13,9 @@ spmm_chunked_reference``); a tensor on a CUDA device launches the kernel or rais
 ``spmm_edges`` is the same kernel with runtime columns and unit weights, summing
 per-edge messages (the GAT layer's aggregation and backward scatter).
 
-``launches_fwd`` and ``launches_bwd`` count the kernel's launches from the forward
-and the backward, so that a run can show it went through the kernel.
+``launches_fwd`` and ``launches_bwd`` count the calls of the kernel from the forward
+and the backward (one per ``spmm_csr_cuda`` call, whether or not it also ran the
+second pass), so that a run can show it went through the kernel.
 """
 from __future__ import annotations
 
@@ -39,14 +42,23 @@ def _uses_kernel(x: torch.Tensor) -> bool:
     raise ValueError(f"the kernels run on cpu or cuda tensors, not {x.device}")
 
 
-def _vector_width(x: torch.Tensor, f: int, max_bytes: int = 16) -> int:
-    """Columns per lane: the widest load (up to ``max_bytes``) that divides F, fits
-    the pointer's alignment and still gives a warp 32 busy lanes; else 1."""
+def _vector_width(x: torch.Tensor, f: int, max_vec: int = 8,
+                  full_warp: bool = False) -> int:
+    """Columns per lane: the widest load (at most 16 bytes and ``max_vec`` columns)
+    that divides F and fits the pointer's alignment; with ``full_warp``, also narrow
+    enough that F fills 32 lanes where F allows; else 1."""
     size = x.element_size()
-    vec = max_bytes // size
-    while vec > 1 and (f % vec or x.data_ptr() % (vec * size) or f // vec < 32):
+    vec = min(max_vec, 16 // size)
+    while vec > 1 and (f % vec or x.data_ptr() % (vec * size)
+                       or (full_warp and f // vec < 32)):
         vec //= 2
     return vec
+
+
+def _lane_groups(f: int, vec: int) -> int:
+    """log2 of K1's lanes per edge: the power of two that covers F / vec vector
+    columns, at most a warp. A warp then takes 32 >> log2 edges at a time."""
+    return min(5, (f // vec - 1).bit_length())
 
 
 def _check(name: str, t: torch.Tensor, dtype, device, numel=None) -> None:
@@ -61,7 +73,8 @@ def spmm_csr_cuda(c: ChunkedCSR, x: torch.Tensor, bias: Optional[torch.Tensor] =
                   activation: Optional[str] = None, out_dtype=None,
                   cols: Optional[torch.Tensor] = None,
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel once: ``act(A @ x + bias)`` as ``[c.n_rows, F]``.
+    """Run the kernel once: ``act(A @ x + bias)`` as ``[c.n_rows, F]``, in one C call
+    that launches pass 1 and, where the layout has split rows, pass 2.
 
     ``cols`` and ``weights`` ([nnz], in the layout's edge order) override the
     layout's ``src`` and ``weight``, as in ``spmm_chunked_reference``; ``cols`` must
@@ -88,14 +101,20 @@ def spmm_csr_cuda(c: ChunkedCSR, x: torch.Tensor, bias: Optional[torch.Tensor] =
         bias = bias.to(torch.float32).contiguous()
         _check("bias", bias, torch.float32, dev, f)
 
+    sc = c.split  # built from c.indptr, on its device
     out = torch.empty((c.n_rows, f), dtype=out_dtype, device=dev)
+    partial = torch.empty((sc.n_seg, f), dtype=torch.float32, device=dev)
+    vec = _vector_width(x, f)
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.dgll_spmm_csr(
             c.indptr.data_ptr(), cols.data_ptr(), weights.data_ptr(),
             x.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            c.n_rows, f, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-            _vector_width(x, f), int(activation == "relu"),
+            c.n_rows, f, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], vec,
+            _lane_groups(f, vec), int(activation == "relu"),
+            sc.seg_beg.data_ptr(), sc.seg_end.data_ptr(), sc.split_row.data_ptr(),
+            sc.split_ptr.data_ptr(), partial.data_ptr() if sc.n_seg else None,
+            sc.n_seg, sc.n_split, sc.max_edges,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -29,9 +29,9 @@ launches_fwd = 0
 launches_bwd = 0
 
 
-# Loads of up to 8 bytes a lane keep the block's shared tiles (128 rows of staged x
-# and of f32 sums, 32 lanes wide) at 64 KB in f32 and 96 KB in bf16.
-MAX_LOAD_BYTES = 8
+# Columns a lane sums, at most: its f32 sums of 8 destination rows stay in registers
+# (32 at most), and a stage of 128 rows of x, 32 lanes wide, at 64 KB in f32.
+MAX_VEC = 4
 
 
 def spmm_windowed_cuda(c: WindowedCSR, x: torch.Tensor,
@@ -71,7 +71,7 @@ def spmm_windowed_cuda(c: WindowedCSR, x: torch.Tensor,
             c.weight.data_ptr(), x.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             c.n_row_blocks, f, sm._DTYPE_CODE[x.dtype], sm._DTYPE_CODE[out_dtype],
-            sm._vector_width(x, f, MAX_LOAD_BYTES), int(activation == "relu"),
+            sm._vector_width(x, f, MAX_VEC, full_warp=True), int(activation == "relu"),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -40,7 +40,7 @@ from dgll_tpu_torch.nn import GCN, params_from_flax
 from dgll_tpu_torch.ops.chunked import R_BLOCK
 from dgll_tpu_torch.ops.cuda.segment_matmul import _vector_width
 from dgll_tpu_torch.ops.cuda.spmm_windowed import (
-    MAX_LOAD_BYTES,
+    MAX_VEC,
     spmm_hybrid,
     spmm_windowed_cuda,
 )
@@ -311,13 +311,14 @@ def test_wrapper_takes_cpu_or_cuda_only():
 
 
 @pytest.mark.parametrize("dtype,f,want", [
-    (torch.float32, 128, 2), (torch.float32, 256, 2), (torch.float32, 16, 1),
+    (torch.float32, 128, 4), (torch.float32, 256, 4), (torch.float32, 16, 1),
     (torch.float32, 33, 1), (torch.bfloat16, 128, 4), (torch.bfloat16, 64, 2),
 ])
 def test_vector_width(dtype, f, want):
-    """K2's loads: up to 8 bytes a lane, dividing F, with 32 busy lanes where F
+    """K2's loads: up to 4 columns a lane, dividing F, with 32 busy lanes where F
     allows."""
-    assert _vector_width(torch.zeros(4, f, dtype=dtype), f, MAX_LOAD_BYTES) == want
+    x = torch.zeros(4, f, dtype=dtype)
+    assert _vector_width(x, f, MAX_VEC, full_warp=True) == want
 
 
 def test_graph_to_moves_the_windowed_layouts():
