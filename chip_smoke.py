@@ -17,9 +17,11 @@ through the primitive probe (``dgll_tpu_torch.tools.probe``):
   wrapper, at the slice's shapes; both timed there; 20 epochs of training, in which
   the CLI tries the windowed layout and declines it;
 * full-batch GAT, 8 heads x 8 features (phases 6-9): the attention kernels K3-K7
-  and K1 with runtime columns against their plain versions on the test graph; the
-  fused layer's forward and backward against the plain composition at the slice's
-  shapes; each kernel and its plain version timed there; 20 epochs of training;
+  and K1 with runtime columns against their plain versions on the test graph, and
+  K3 and K5 on the planted graph whose rows cross their split threshold (H 1, 3 and
+  8; K3's row max exact); the fused layer's forward and backward against the plain
+  composition at the slice's shapes; each kernel and its plain version timed there;
+  20 epochs of training;
 * full-batch GCN on the clustered graph (phases 10-12): the windowed kernel K2
   against its plain version on a clustered test graph, on one whose row blocks hold
   0 to 17 sub-chunks (every state of K2's ring of stages) and on one with an empty
@@ -97,6 +99,12 @@ GAT_KERNELS = (
      "dgll_tpu/ops/pallas/expand_rows.py:20"),
 )
 K1_GAT = "spmm_csr (K1) with runtime columns and unit weights: GAT aggregation and scatter"
+# outputs a kernel computes exactly as its plain version does, whatever the tolerance
+# of the others: K3's row max m (a max does not round)
+EXACT_OUTPUTS = {"gat_stats": (0,)}
+# head counts of phase 6's planted-graph cases of K3 and K5: across lanes (1, 8) and
+# one pass a head (3)
+SPLIT_HEADS = (1, 3, 8)
 WINDOWED_SOURCE = "dgll_tpu_torch/csrc/spmm_windowed.cu"
 WINDOWED_REPLACES = "dgll_tpu/ops/pallas/spmm_windowed.py:42"
 # windowed_fraction of A on the bench's clustered graph, as the JAX builder gives it
@@ -538,16 +546,17 @@ def _max_err(got, want, scale=1e-4) -> tuple:
 
 def _compare(tag, name, case, worst, scale=1e-4, exact=False) -> tuple:
     """Check one case (f32: every output within ``scale`` * max|ref| of the plain
-    version's, or equal to it with ``exact``; none of the kernels uses atomics, so
-    two runs must be bitwise equal), keep its max abs error in ``worst`` under the
-    kernel's JSON key, and return the printed summary and the kernel's outputs."""
+    version's, or equal to it with ``exact``, and those of ``EXACT_OUTPUTS`` always;
+    none of the kernels uses atomics, so two runs must be bitwise equal), keep its
+    max abs error in ``worst`` under the kernel's JSON key, and return the printed
+    summary and the kernel's outputs."""
     got, again, want = case.kernel(), case.kernel(), case.plain()
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = [_max_err(a, b, scale) for a, b in zip(got, want)]
-    if exact:
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"{name} equals its plain version ({tag})")
+    for i in range(len(got)) if exact else EXACT_OUTPUTS.get(name, ()):
+        check(torch.equal(got[i], want[i]), f"{name} output {i} equals its plain "
+                                            f"version's ({tag})")
     check(all(x <= b for x, b in errs),
           f"{name} within tolerance ({tag}): (max abs err, tolerance) {errs}")
     check(same, f"{name}: two runs bitwise equal ({tag})")
@@ -560,7 +569,8 @@ def _compare(tag, name, case, worst, scale=1e-4, exact=False) -> tuple:
 
 def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
     """Phase 6: the GAT kernels against their plain versions on the power-law test
-    graph, H in {1, 8}."""
+    graph, H in {1, 8}; then K3 and K5 on the planted graph whose rows cross the
+    split threshold (T-1 .. 2T+1 and 60,000 edges), H in ``SPLIT_HEADS``."""
     c, ct, n = power_law_layouts(n, e)
     gen = torch.Generator(device="cuda").manual_seed(2)
     for heads, width in ((1, 16), (8, 64)):
@@ -569,6 +579,14 @@ def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
             print(f"[6 check] H={heads} width={width} {name}: {line}")
     print(f"[6 check] {c.src.numel()} edges over {n} rows; A: {_split_summary(c)}; "
           f"A^T: {_split_summary(ct)}: all cases pass")
+    c, ct, n = planted_layouts()
+    for heads in SPLIT_HEADS:
+        for name, case in _gat_cases(c, ct, heads, 16, gen).items():
+            if name in ("gat_stats", "gat_bwd_softmax"):
+                line, _ = _compare(f"planted, H={heads}", name, case, worst)
+                print(f"[6 check] planted H={heads} {name}: {line}")
+    print(f"[6 check] planted: {c.src.numel()} edges over {n} rows; A: "
+          f"{_split_summary(c)}: all K3 and K5 cases pass")
 
 
 def phase_gat_layer() -> None:

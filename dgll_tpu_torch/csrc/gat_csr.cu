@@ -22,8 +22,9 @@
 // (dgll_tpu/ops/pallas/expand_rows.py) and _sddmm_kernel (dgll_tpu/ops/pallas/
 // sddmm.py). Those walk 128-row blocks of edge chunks in grid order, carry running
 // sums from chunk to chunk in scratch memory, and move values between rows and edges
-// with one-hot matrix products (the TPU has no gather or atomics). Here each row is
-// one warp's, so nothing carries between blocks, and rows and edges meet through the
+// with one-hot matrix products (the TPU has no gather or atomics). Here each row (or
+// segment of a long row, which a second pass combines) is one warp's or one lane
+// group's, so nothing carries between blocks, and rows and edges meet through the
 // CSR's indptr and row ids.
 //
 // Three more TPU kernels need no kernel of their own: _r2e_multi_kernel (K6') and
@@ -33,27 +34,62 @@
 // slots, is the sum mode here: this layout has no padding slots. Their wrappers
 // (ops/cuda/edge_ops.py) launch K7 and K6 and count the launches apart.
 //
-// Design. The row reductions (K3, K5, K6) give each destination row one warp, with
-// the head loop inside: the lanes stride over the row's edges, and a shuffle
-// reduction across the warp finishes each head. Every row's outputs are written,
-// rows without edges included, and no atomics are used, so results are bitwise
-// repeatable. K3 takes two passes per head, the max and then the sum of exponentials,
-// so that m is exact and den is the JAX package's sum, not an online rescaling. K6
-// is one kernel templated on its reduction; the max is exact. The per-edge passes
-// (K4, K7) are grid-stride loops over the flat [nnz * H] or [nnz * F] index. K9 is
-// per edge too: every edge's dot product is independent, so a group of a few lanes
-// (a power of two, up to 32, no more than the row's float4 count) owns one edge,
-// reads its msg row and a[r] (through the read-only cache: a is small and its rows
-// repeat along a row's edges) in float4 units, and finishes with a shuffle
-// reduction inside the group. Parallel over edges, it has no hub-row tail.
+// Design of the row reductions K3 and K5: work items of at most max_edges edges, as
+// in K1 (csrc/segment_matmul.cu), one lane group each.
+//
+// * Rows of at most max_edges edges are one item each and write their outputs
+//   directly. A longer row (a hub of a power-law graph: 53,866 in-edges on the CLI
+//   graph) is cut into segments by the layout's split schedule, the one K1 runs on
+//   (ops/chunked.py:split_schedule, built once per layout from indptr alone). Pass 1
+//   writes each segment's per-head partials into f32 scratch [n_seg, H] that the
+//   caller allocates; pass 2, one thread a (split row, head), combines a row's
+//   partials in segment order. Both passes run on the caller's stream in one C call,
+//   so nothing reads a split row's output between them. Segments come first in pass
+//   1's grid, so the hub work starts first. A segment finds its destination row as
+//   the row of its first edge (rows[beg]).
+// * K3 takes two passes over an item, the max and then the sum of exp(e - max), so
+//   a row's m is exact (equal to the plain version's) and an unsplit row's den is the
+//   plain two-pass sum. A segment writes (m_seg, den_seg = sum exp(e - m_seg)); pass
+//   2 takes m = max m_seg and den = sum den_seg * exp(m_seg - m), the rescaling by
+//   which the JAX kernel combines its chunks (gat_fused.py:82-89); exp(m_seg - m) is
+//   exactly 1 for the segment that holds the maximum. K5 writes every edge's dz in
+//   pass 1 and a segment's partial row sum; pass 2 adds the partials.
+// * Heads across lanes, for H a power of two up to 32 (the wrapper says which): a
+//   row's per-edge values are one contiguous block x[beg*H .. end*H), which a group
+//   of G lanes reads G floats at a time, coalesced. Lane j always holds head j % H (G
+//   is a multiple of H) and edges beg + j / H, + G / H, ...; the lanes of one head
+//   meet in log2(G / H) xor-shuffles (2 a pass at H = 8 and G = 32, where a loop over
+//   heads takes 5 a head), and lanes 0..H-1 write the item's H outputs side by side.
+//   The wrapper takes G = 8 H up to a warp (ops/cuda/gat_fused.py:item_lanes): at
+//   H = 1 a warp then holds 4 short rows at a time, which measured faster than one
+//   row a warp on an H100 on the CLI graph, whose rows average 27 edges; at H = 8 a
+//   whole warp, which K3 needs (it measured slower on 8 or 16 lanes). Any other H
+//   (3, 6, above 32) takes a warp an item and one pass a head: lanes over edges, a
+//   stride of H floats, the whole warp's 5 shuffles.
+// * A row's s_dst (K3) or S (K5) is loaded once a lane, issued beside the row's
+//   indptr loads: its index is known before them.
+//
+// K6 still gives each destination row one warp, with the head loop inside; it is one
+// kernel templated on its reduction, and its max is exact. Every row's outputs are
+// written, rows without edges included, and no kernel uses atomics: each sum has a
+// fixed order (edge order within a lane, the shuffle tree, segment order), so
+// results are bitwise repeatable. The per-edge passes (K4, K7) are grid-stride loops
+// over the flat [nnz * H] or [nnz * F] index. K9 is per edge too: every edge's dot
+// product is independent, so a group of a few lanes (a power of two, up to 32, no
+// more than the row's float4 count) owns one edge, reads its msg row and a[r]
+// (through the read-only cache: a is small and its rows repeat along a row's edges)
+// in float4 units, and finishes with a shuffle reduction inside the group. Parallel
+// over edges, it has no hub-row tail.
 //
 // What bounds them: memory bytes, a few float32 values per edge and head. K4, K7
-// and K9 stream their per-edge arrays once. The row reductions read per-edge values
-// with a stride of H floats per head pass, so for H > 1 each sector is fetched once
-// and then found in L1/L2 by the next heads. A hub row is walked by one warp alone
-// (the tail that K1, csrc/segment_matmul.cu, shows): on a power-law graph the
-// largest in-degree sets a floor under K3, K5 and K6. Splitting hub rows is left
-// for a later change.
+// and K9 stream their per-edge arrays once; K5 reads three and writes one. K3 reads
+// its one array twice, the second time mostly from L1/L2; the latency of a short
+// item's dependent loads (indptr, then its values, then the second pass) holds it
+// further from its bound than K5, and it needs every warp an SM can hold: keeping a
+// lane's values in registers between the passes (64 registers, half the warps) and
+// asking for 8 blocks an SM (32 registers, spills) both measured slower. K6 reads with
+// a stride of H floats a head pass, and a hub row is walked by one warp alone: on a
+// power-law graph the largest in-degree sets a floor under it.
 //
 // Precision: expf and IEEE division (no --use_fast_math, no __expf), as the JAX
 // package's kernels need full float32 here (gat_fused.py:155-160).
@@ -66,47 +102,161 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 256;         // per block, for the grid-stride kernels
 constexpr int kMaxStrideBlocks = 132 * 16;
 constexpr float kNeg = -3.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+// Max and sum over the lanes l ^ (span << k) of a group of `group` lanes (powers of
+// two, span <= group <= 32): xor-shuffles with offsets group / 2 down to span; span 1
+// and group 32 reduce the whole warp.
+__device__ __forceinline__ float lanes_max(float v, int span, int group) {
+  for (int o = group >> 1; o >= span; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+__device__ __forceinline__ float lanes_sum(float v, int span, int group) {
+  for (int o = group >> 1; o >= span; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
+
+__device__ __forceinline__ float warp_max(float v) { return lanes_max(v, 1, 32); }
+
+__device__ __forceinline__ float warp_sum(float v) { return lanes_sum(v, 1, 32); }
 
 __device__ __forceinline__ float leaky(float z, float slope) {
   return z > 0.f ? z : slope * z;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gat_stats_kernel(const int* __restrict__ indptr, const float* __restrict__ sc_src,
-                 const float* __restrict__ s_dst, float* __restrict__ m,
-                 float* __restrict__ den, int n_rows, int heads, float slope) {
+// The split schedule of K3 and K5 (ops/chunked.py:SplitSchedule): segments
+// [seg_beg, seg_end) of the n_split rows split_row with more than max_edges edges,
+// split_ptr their ranges of segments.
+struct Split {
+  const int* seg_beg;
+  const int* seg_end;
+  const int* split_row;
+  const int* split_ptr;
+  int n_seg, n_split, max_edges;
+};
+
+// A warp's lanes in pass 1 of K3 and K5: groups of `group` lanes (a power of two;
+// 32 unless heads across lanes), one work item a group, and how a group covers its
+// item's [deg, H] block x[beg*H .. end*H). With heads across lanes, one pass in
+// which group lane j reads flat indices beg*H + j, + group, ... (head j % H; group is
+// a multiple of H); otherwise one pass a head h, lane j on (beg + j)*H + h, + 32*H,
+// ... The lanes of one head are j ^ (span << k), and group lanes [0, span) write.
+struct Lanes {
+  bool across;
+  int heads, group, passes, span, stride;
+  __device__ Lanes(int heads_, int across_, int group_)
+      : across(across_ != 0), heads(heads_), group(group_), passes(across ? 1 : heads_),
+        span(across ? heads_ : 1), stride(across ? group_ : 32 * heads_) {}
+  __device__ int head(int j, int pass) const { return across ? j & (heads - 1) : pass; }
+  __device__ int64_t first(int beg, int j, int pass) const {
+    return across ? (int64_t)beg * heads + j : (int64_t)(beg + j) * heads + pass;
+  }
+};
+
+// Pass 1's work item of a lane group: [0, n_seg) are the segments, then the rows.
+struct Item {
+  int index;     // segment index, or n_seg + row
+  int j;         // this thread's lane in its group
+  int row;       // destination row; n_rows for an item past the last
+  int beg, end;  // edges
+  bool segment;
+};
+
+// The item of this thread's lane group. A row's index is known before its indptr
+// loads return, so the kernels issue the load of its per-row value (s_dst, S) beside
+// them, before they look at its degree (`active`).
+__device__ __forceinline__ Item item_of(const Lanes& ln, int n_rows,
+                                        const int* __restrict__ indptr,
+                                        const int* __restrict__ rows, const Split& sp) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // the same for the whole warp
-  const int beg = indptr[row];
-  const int end = indptr[row + 1];
-  for (int h = 0; h < heads; ++h) {
-    const float sd = s_dst[(int64_t)row * heads + h];
+  Item it;
+  it.index = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / ln.group) +
+             lane / ln.group;
+  it.j = lane & (ln.group - 1);
+  it.segment = it.index < sp.n_seg;
+  it.beg = it.end = 0;
+  if (it.segment) {
+    it.beg = sp.seg_beg[it.index];
+    it.end = sp.seg_end[it.index];
+    it.row = rows[it.beg];
+    return it;
+  }
+  it.row = min(it.index - sp.n_seg, n_rows);
+  if (it.row < n_rows) {
+    it.beg = indptr[it.row];
+    it.end = indptr[it.row + 1];
+  }
+  return it;
+}
+
+// Whether the item reads its edges: a segment, or a row of at most max_edges edges
+// (a longer row's segments cover it). An inactive group reads nothing and writes
+// nothing, but takes part in its warp's shuffles.
+__device__ __forceinline__ bool active(Item& it, int n_rows, const Split& sp) {
+  const bool a = it.segment || (it.row < n_rows && it.end - it.beg <= sp.max_edges);
+  if (!a) it.end = it.beg;
+  return a;
+}
+
+// K3, pass 1: an item's per-head max and sum of exponentials, into m and den for a
+// row, into m_seg and den_seg for a segment.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+gat_stats_kernel(const int* __restrict__ indptr, const int* __restrict__ rows,
+                 const float* __restrict__ sc_src, const float* __restrict__ s_dst,
+                 float* __restrict__ m, float* __restrict__ den,
+                 float* __restrict__ m_seg, float* __restrict__ den_seg, Split sp,
+                 int n_rows, int heads, int across, int group, float slope) {
+  const Lanes ln(heads, across, group);
+  Item it = item_of(ln, n_rows, indptr, rows, sp);
+  const int64_t row_h = (int64_t)min(it.row, n_rows - 1) * heads;
+  float sd = s_dst[row_h + ln.head(it.j, 0)];
+  const bool writes = active(it, n_rows, sp);
+  if (!__any_sync(kFull, writes)) return;  // the same for the whole warp
+  const int64_t hi = (int64_t)it.end * heads;
+  for (int pass = 0; pass < ln.passes; ++pass) {
+    const int h = ln.head(it.j, pass);
+    if (pass > 0) sd = s_dst[row_h + h];
+    const int64_t lo = ln.first(it.beg, it.j, pass);
     float mx = kNeg;
-    for (int e = beg + lane; e < end; e += 32)
-      mx = fmaxf(mx, leaky(sc_src[(int64_t)e * heads + h] + sd, slope));
-    mx = warp_max(mx);
+#pragma unroll 4
+    for (int64_t i = lo; i < hi; i += ln.stride)
+      mx = fmaxf(mx, leaky(sc_src[i] + sd, slope));
+    mx = lanes_max(mx, ln.span, ln.group);
     float s = 0.f;
-    for (int e = beg + lane; e < end; e += 32)
-      s += expf(leaky(sc_src[(int64_t)e * heads + h] + sd, slope) - mx);
-    s = warp_sum(s);
-    if (lane == 0) {
-      m[(int64_t)row * heads + h] = mx;
-      den[(int64_t)row * heads + h] = s;
+#pragma unroll 4
+    for (int64_t i = lo; i < hi; i += ln.stride)
+      s += expf(leaky(sc_src[i] + sd, slope) - mx);
+    s = lanes_sum(s, ln.span, ln.group);
+    if (writes && it.j < ln.span) {
+      const int64_t o = (int64_t)(it.segment ? it.index : it.row) * heads + h;
+      (it.segment ? m_seg : m)[o] = mx;
+      (it.segment ? den_seg : den)[o] = s;
     }
   }
+}
+
+// K3, pass 2: thread t is head t % H of split row t / H: the maximum of the row's
+// segment maxima, then the segments' sums rescaled to it, added in segment order.
+__global__ void __launch_bounds__(kThreads)
+gat_stats_combine_kernel(const float* __restrict__ m_seg,
+                         const float* __restrict__ den_seg, float* __restrict__ m,
+                         float* __restrict__ den, Split sp, int heads) {
+  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (t >= (int64_t)sp.n_split * heads) return;
+  const int r = (int)(t / heads);
+  const int h = (int)(t - (int64_t)r * heads);
+  const int p0 = sp.split_ptr[r], p1 = sp.split_ptr[r + 1];
+  float mx = kNeg;
+  for (int p = p0; p < p1; ++p) mx = fmaxf(mx, m_seg[(int64_t)p * heads + h]);
+  float s = 0.f;
+  for (int p = p0; p < p1; ++p) {
+    const int64_t i = (int64_t)p * heads + h;
+    s += den_seg[i] * expf(m_seg[i] - mx);
+  }
+  const int64_t o = (int64_t)sp.split_row[r] * heads + h;
+  m[o] = mx;
+  den[o] = s;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -155,28 +305,53 @@ edges_to_rows_kernel(const int* __restrict__ indptr, const float* __restrict__ v
   }
 }
 
+// K5, pass 1: an item's dz, and its per-head sum into dsd for a row, into partial
+// for a segment.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gat_bwd_softmax_kernel(const int* __restrict__ indptr, const float* __restrict__ alpha,
-                       const float* __restrict__ dalpha, const float* __restrict__ lgrad,
-                       const float* __restrict__ s_row, float* __restrict__ dz,
-                       float* __restrict__ dsd, int n_rows, int heads) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int beg = indptr[row];
-  const int end = indptr[row + 1];
-  for (int h = 0; h < heads; ++h) {
-    const float sr = s_row[(int64_t)row * heads + h];
+gat_bwd_softmax_kernel(const int* __restrict__ indptr, const int* __restrict__ rows,
+                       const float* __restrict__ alpha, const float* __restrict__ dalpha,
+                       const float* __restrict__ lgrad, const float* __restrict__ s_row,
+                       float* __restrict__ dz, float* __restrict__ dsd,
+                       float* __restrict__ partial, Split sp, int n_rows, int heads,
+                       int across, int group) {
+  const Lanes ln(heads, across, group);
+  Item it = item_of(ln, n_rows, indptr, rows, sp);
+  const int64_t row_h = (int64_t)min(it.row, n_rows - 1) * heads;
+  float sr = s_row[row_h + ln.head(it.j, 0)];
+  const bool writes = active(it, n_rows, sp);
+  if (!__any_sync(kFull, writes)) return;  // the same for the whole warp
+  const int64_t hi = (int64_t)it.end * heads;
+  for (int pass = 0; pass < ln.passes; ++pass) {
+    const int h = ln.head(it.j, pass);
+    if (pass > 0) sr = s_row[row_h + h];
     float s = 0.f;
-    for (int e = beg + lane; e < end; e += 32) {
-      const int64_t i = (int64_t)e * heads + h;
+#pragma unroll 4
+    for (int64_t i = ln.first(it.beg, it.j, pass); i < hi; i += ln.stride) {
       const float v = alpha[i] * (dalpha[i] - sr) * lgrad[i];
       dz[i] = v;
       s += v;
     }
-    s = warp_sum(s);
-    if (lane == 0) dsd[(int64_t)row * heads + h] = s;
+    s = lanes_sum(s, ln.span, ln.group);
+    if (writes && it.j < ln.span) {
+      const int64_t o = (int64_t)(it.segment ? it.index : it.row) * heads + h;
+      (it.segment ? partial : dsd)[o] = s;
+    }
   }
+}
+
+// K5, pass 2: thread t is head t % H of split row t / H: the partials added in
+// segment order.
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_softmax_combine_kernel(const float* __restrict__ partial, float* __restrict__ dsd,
+                               Split sp, int heads) {
+  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (t >= (int64_t)sp.n_split * heads) return;
+  const int r = (int)(t / heads);
+  const int h = (int)(t - (int64_t)r * heads);
+  float s = 0.f;
+  const int p0 = sp.split_ptr[r], p1 = sp.split_ptr[r + 1];
+  for (int p = p0; p < p1; ++p) s += partial[(int64_t)p * heads + h];
+  dsd[(int64_t)sp.split_row[r] * heads + h] = s;
 }
 
 // T is float or float4: the wrapper passes fv = F / (sizeof(T) / 4) units per row.
@@ -233,6 +408,29 @@ int stride_blocks(int64_t n) {
   return (int)(b < kMaxStrideBlocks ? b : kMaxStrideBlocks);
 }
 
+bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// The checks K3 and K5 share: sizes; lane groups of a power of two up to 32 lanes,
+// which are whole warps unless heads lie across lanes, and then hold whole heads (H
+// a power of two); a schedule whose segments and split rows come together.
+bool split_args_ok(int n_rows, int heads, int across, int group, int n_seg, int n_split,
+                   int max_edges) {
+  return n_rows > 0 && heads > 0 && pow2(group) && group <= 32 &&
+         (across ? pow2(heads) && heads <= group : group == 32) && n_seg >= 0 &&
+         n_split >= 0 && (n_seg > 0) == (n_split > 0) && max_edges > 0;
+}
+
+// Pass 1's grid: a lane group per segment and per row.
+int item_blocks(const Split& sp, int n_rows, int group) {
+  const int64_t per_block = kWarpsPerBlock * (32 / group);
+  return (int)(((int64_t)sp.n_seg + n_rows + per_block - 1) / per_block);
+}
+
+// Pass 2's grid: a thread per (split row, head).
+int combine_blocks(const Split& sp, int heads) {
+  return (int)(((int64_t)sp.n_split * heads + kThreads - 1) / kThreads);
+}
+
 template <typename Op>
 int edges_to_rows(const void* indptr, const void* v, void* out, int n_rows, int heads,
                   void* stream) {
@@ -251,14 +449,37 @@ extern "C" {
 // Each returns cudaGetLastError() after its launch, or cudaErrorInvalidValue (and
 // launches nothing) for a bad size. All pointers are float32 or int32 device memory.
 
-int dgll_gat_stats(const void* indptr, const void* sc_src, const void* s_dst, void* m,
-                   void* den, int n_rows, int heads, float slope, void* stream) {
-  if (n_rows <= 0 || heads <= 0) return cudaErrorInvalidValue;
-  gat_stats_kernel<<<row_blocks(n_rows), kWarpsPerBlock * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indptr), static_cast<const float*>(sc_src),
-      static_cast<const float*>(s_dst), static_cast<float*>(m), static_cast<float*>(den),
-      n_rows, heads, slope);
+// K3 and K5 take the layout's rows ([nnz] int32, each edge's destination row), a
+// lane mapping (across = 1: heads across lanes, for H a power of two up to 32; 0:
+// one pass a head), the lanes of a work item (group: a power of two, H to 32 with
+// heads across lanes, else 32) and the split schedule (ops/chunked.py:
+// split_schedule): n_seg segments [seg_beg, seg_end) of the n_split rows split_row
+// with more than max_edges edges, split_ptr their segment ranges, with float32
+// [n_seg, H] scratch (null when n_seg is 0). They launch pass 1 and, if a row is
+// split, pass 2.
+int dgll_gat_stats(const void* indptr, const void* rows, const void* sc_src,
+                   const void* s_dst, void* m, void* den, int n_rows, int heads,
+                   int across, int group, float slope, const void* seg_beg,
+                   const void* seg_end, const void* split_row, const void* split_ptr,
+                   void* m_seg, void* den_seg, int n_seg, int n_split, int max_edges,
+                   void* stream) {
+  if (!split_args_ok(n_rows, heads, across, group, n_seg, n_split, max_edges) ||
+      (n_seg > 0 && (m_seg == nullptr || den_seg == nullptr)))
+    return cudaErrorInvalidValue;
+  const Split sp{static_cast<const int*>(seg_beg), static_cast<const int*>(seg_end),
+                 static_cast<const int*>(split_row), static_cast<const int*>(split_ptr),
+                 n_seg, n_split, max_edges};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gat_stats_kernel<<<item_blocks(sp, n_rows, group), kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const int*>(indptr), static_cast<const int*>(rows),
+      static_cast<const float*>(sc_src), static_cast<const float*>(s_dst),
+      static_cast<float*>(m), static_cast<float*>(den), static_cast<float*>(m_seg),
+      static_cast<float*>(den_seg), sp, n_rows, heads, across, group, slope);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return err;
+  gat_stats_combine_kernel<<<combine_blocks(sp, heads), kThreads, 0, s>>>(
+      static_cast<const float*>(m_seg), static_cast<const float*>(den_seg),
+      static_cast<float*>(m), static_cast<float*>(den), sp, heads);
   return cudaGetLastError();
 }
 
@@ -286,16 +507,29 @@ int dgll_edges_to_rows_max(const void* indptr, const void* v, void* out, int n_r
   return edges_to_rows<MaxOp>(indptr, v, out, n_rows, heads, stream);
 }
 
-int dgll_gat_bwd_softmax(const void* indptr, const void* alpha, const void* dalpha,
-                         const void* lgrad, const void* s_row, void* dz, void* dsd,
-                         int n_rows, int heads, void* stream) {
-  if (n_rows <= 0 || heads <= 0) return cudaErrorInvalidValue;
-  gat_bwd_softmax_kernel<<<row_blocks(n_rows), kWarpsPerBlock * 32, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indptr), static_cast<const float*>(alpha),
-      static_cast<const float*>(dalpha), static_cast<const float*>(lgrad),
-      static_cast<const float*>(s_row), static_cast<float*>(dz), static_cast<float*>(dsd),
-      n_rows, heads);
+int dgll_gat_bwd_softmax(const void* indptr, const void* rows, const void* alpha,
+                         const void* dalpha, const void* lgrad, const void* s_row,
+                         void* dz, void* dsd, int n_rows, int heads, int across,
+                         int group, const void* seg_beg, const void* seg_end,
+                         const void* split_row, const void* split_ptr, void* partial,
+                         int n_seg, int n_split, int max_edges, void* stream) {
+  if (!split_args_ok(n_rows, heads, across, group, n_seg, n_split, max_edges) ||
+      (n_seg > 0 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  const Split sp{static_cast<const int*>(seg_beg), static_cast<const int*>(seg_end),
+                 static_cast<const int*>(split_row), static_cast<const int*>(split_ptr),
+                 n_seg, n_split, max_edges};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gat_bwd_softmax_kernel<<<item_blocks(sp, n_rows, group), kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const int*>(indptr), static_cast<const int*>(rows),
+      static_cast<const float*>(alpha), static_cast<const float*>(dalpha),
+      static_cast<const float*>(lgrad), static_cast<const float*>(s_row),
+      static_cast<float*>(dz), static_cast<float*>(dsd), static_cast<float*>(partial), sp,
+      n_rows, heads, across, group);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return err;
+  gat_bwd_softmax_combine_kernel<<<combine_blocks(sp, heads), kThreads, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dsd), sp, heads);
   return cudaGetLastError();
 }
 

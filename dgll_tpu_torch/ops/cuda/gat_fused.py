@@ -14,6 +14,16 @@ runtime columns and unit weights, ``segment_matmul.spmm_edges``, which counts th
 Forward: K3 -> K4 -> K1 on A. Backward: K7 -> K6 -> K5 -> K1 on A^T, whose columns
 ``c.t_slot_perm`` read the message gradient in A's edge order.
 
+The row reductions K3 and K5 run on the layout's split schedule (``c.split``, the
+one K1 runs on): a lane group per row of at most ``SPLIT_EDGES`` edges and per
+segment of a longer row, whose per-head partials (f32 scratch ``[n_seg, H]`` this
+wrapper allocates) a second pass in the same C call combines in segment order: K3
+rescales each segment's sum to the row's max, K5 adds. For H a power of two up to 32
+(``heads_across_lanes``) a group of ``item_lanes(H)`` lanes reads a row's ``[deg, H]``
+block coalesced, heads across lanes (at H=1 a warp holds 4 rows); other H take a
+warp a row and one pass a head. Both are bound by their bytes, K3 also by the
+latency of short rows; the launch counters still count one launch a wrapper call.
+
 Deviations from the JAX op, none of which changes the math: per-edge arrays are in
 the CSR's edge order (no padding slots), and the per-head products use ``[E, H, F]``
 views (the TPU's rank-2 ``head_proj``/``head_expand`` matrices avoid a tile padding
@@ -27,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from dgll_tpu_torch.ops import gat_csr
-from dgll_tpu_torch.ops.chunked import ChunkedCSR
+from dgll_tpu_torch.ops.chunked import ChunkedCSR, SplitSchedule
 from dgll_tpu_torch.ops.cuda.build import load_library
 from dgll_tpu_torch.ops.cuda.segment_matmul import _check, _uses_kernel, spmm_edges
 
@@ -65,6 +75,35 @@ def _per_edge(c: ChunkedCSR, t: torch.Tensor) -> Tuple[int, torch.device]:
     return t.shape[1], t.device
 
 
+def heads_across_lanes(h: int) -> bool:
+    """K3's and K5's lane mapping for ``h`` heads: True (a lane group reads a row's
+    ``[deg, H]`` block its width of consecutive floats at a time, lane j holding head
+    j % H) for H a power of two up to 32, else False (a warp a row, one pass a head,
+    lanes over edges)."""
+    return 0 < h <= 32 and h & (h - 1) == 0
+
+
+def item_lanes(h: int) -> int:
+    """Lanes of K3's and K5's work item (a row or a segment) for ``h`` heads: with
+    heads across lanes, enough for 8 edges a step, at most a warp, so that a warp
+    takes 4 rows at a time at H=1 (the fastest width there on the CLI graph, with
+    4) and a whole warp at H=8 (which K3 needs); otherwise a warp."""
+    return min(32, 8 * h) if heads_across_lanes(h) else 32
+
+
+def _split_args(sp: SplitSchedule, dev: torch.device, h: int, scratch: int) -> tuple:
+    """The schedule's C arguments, with ``scratch`` float32 ``[n_seg, H]`` buffers
+    (None where the layout has no split row) between its tensors and its sizes;
+    returns ``(args, buffers)``, the buffers kept alive by the caller."""
+    for name in ("seg_beg", "seg_end", "split_row", "split_ptr"):
+        _check(name, getattr(sp, name), torch.int32, dev)
+    bufs = [torch.empty((sp.n_seg, h), device=dev) for _ in range(scratch)]
+    ptrs = [b.data_ptr() if sp.n_seg else None for b in bufs]
+    args = (sp.seg_beg.data_ptr(), sp.seg_end.data_ptr(), sp.split_row.data_ptr(),
+            sp.split_ptr.data_ptr(), *ptrs, sp.n_seg, sp.n_split, sp.max_edges)
+    return args, bufs
+
+
 def gat_stats_cuda(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor,
                    negative_slope: float = 0.2) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3 once: ``(m, den)``, each ``[n_rows, H]``."""
@@ -74,8 +113,10 @@ def gat_stats_cuda(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor,
     _check_f32(dev, (c.n_rows, h), s_dst=s_dst)
     m = torch.empty((c.n_rows, h), device=dev)
     den = torch.empty((c.n_rows, h), device=dev)
-    _launch("gat_stats", dev, c.indptr.data_ptr(), sc_src.data_ptr(), s_dst.data_ptr(),
-            m.data_ptr(), den.data_ptr(), c.n_rows, h, float(negative_slope))
+    sp_args, _scratch = _split_args(c.split, dev, h, 2)
+    _launch("gat_stats", dev, c.indptr.data_ptr(), c.rows.data_ptr(), sc_src.data_ptr(),
+            s_dst.data_ptr(), m.data_ptr(), den.data_ptr(), c.n_rows, h,
+            int(heads_across_lanes(h)), item_lanes(h), float(negative_slope), *sp_args)
     return m, den
 
 
@@ -116,9 +157,11 @@ def gat_bwd_softmax_cuda(c: ChunkedCSR, alpha: torch.Tensor, dalpha: torch.Tenso
     _check_f32(dev, (c.n_rows, h), s=s)
     dz = torch.empty_like(alpha)
     dsd = torch.empty((c.n_rows, h), device=dev)
-    _launch("gat_bwd_softmax", dev, c.indptr.data_ptr(), alpha.data_ptr(),
-            dalpha.data_ptr(), lgrad.data_ptr(), s.data_ptr(), dz.data_ptr(),
-            dsd.data_ptr(), c.n_rows, h)
+    sp_args, _scratch = _split_args(c.split, dev, h, 1)
+    _launch("gat_bwd_softmax", dev, c.indptr.data_ptr(), c.rows.data_ptr(),
+            alpha.data_ptr(), dalpha.data_ptr(), lgrad.data_ptr(), s.data_ptr(),
+            dz.data_ptr(), dsd.data_ptr(), c.n_rows, h, int(heads_across_lanes(h)),
+            item_lanes(h), *sp_args)
     return dz, dsd
 
 

@@ -14,7 +14,10 @@ It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph w
 * the hub-row probe (CUDA events, median of 15) on the layout of A, on only its
   rows with more than ``HUB`` in-edges, and with every row cut to its first ``CAP``
   edges: the SpMM kernel at each width of the model and, for GAT, the row
-  reductions K3, K5 and K6 at the hidden layer's head count.
+  reductions K3, K5 and K6 at the hidden layer's head count;
+* for GAT, K3 and K5 on copies of the layout of A whose long rows are cut at each
+  split threshold of ``SPLIT_SWEEP`` (``split_sweep``), at the hidden layer's head
+  count and at one head.
 
 With ``--clustered`` it profiles the full-graph bench's GCN step instead
 (``dgll_tpu_torch.bench``, 200k-node clustered graph, widths 128): ``STEPS`` train
@@ -26,6 +29,7 @@ Each result is a line; the last line is one JSON object with every number.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import subprocess
@@ -51,6 +55,8 @@ GAT_SLICE_ARGS = ["--Model", "GAT", "--samp_type", "full", "--n_node", "200000",
 STEPS = 5     # profiled epochs
 HUB = 4096    # a row with more in-edges than this is a hub
 CAP = 1024    # edges kept per row in the probe's capped layout
+# split thresholds at which --gat times K3 and K5 (the layouts' own is SPLIT_EDGES)
+SPLIT_SWEEP = (128, 256, 512, 1024, 2048, 4096)
 
 
 def restrict_rows(c: ChunkedCSR, keep_row: Optional[np.ndarray] = None,
@@ -131,6 +137,43 @@ def _row_reductions(lay: ChunkedCSR, heads: int, gen) -> dict:
             "K6": lambda: gf.edges_to_rows_sum_cuda(lay, e)}
 
 
+def with_split(c: ChunkedCSR, max_edges: int) -> ChunkedCSR:
+    """A copy of layout ``c`` whose split schedule cuts rows at ``max_edges``."""
+    from dgll_tpu_torch.ops.chunked import split_schedule
+
+    lay = dataclasses.replace(c)
+    lay.split = split_schedule(lay.indptr, max_edges)
+    return lay
+
+
+def split_sweep(c: ChunkedCSR, heads_list, thresholds=SPLIT_SWEEP) -> dict:
+    """K3 and K5 (CUDA events, median of 15) on copies of layout ``c`` whose rows
+    are cut at each threshold of ``thresholds``, at each head count of
+    ``heads_list``. Every run is held against the first of its head count on the
+    same inputs: m exactly equal, the rest within 1e-4 x max|ref|."""
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    out = {}
+    for heads in heads_list:
+        first = None
+        for t in thresholds:
+            lay = with_split(c, t)
+            fns = _row_reductions(lay, heads,
+                                  torch.Generator(device=c.src.device).manual_seed(heads))
+            got = fns["K3"]() + fns["K5"]()
+            if first is None:
+                first = got
+            if not torch.equal(got[0], first[0]) or any(
+                    (a - b).abs().max() > 1e-4 * b.abs().max()
+                    for a, b in zip(got[1:], first[1:])):
+                raise RuntimeError(f"K3/K5 at H={heads} T={t} disagree with "
+                                   f"T={thresholds[0]}")
+            out[f"H={heads} T={t}"] = {
+                **{f"{k} ms": cuda_median_ms(fns[k]) for k in ("K3", "K5")},
+                "segments": lay.split.n_seg, "split_rows": lay.split.n_split}
+    return out
+
+
 def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int, heads: int = 0) -> dict:
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
     from dgll_tpu_torch.utils.profiling import cuda_median_ms
@@ -154,6 +197,11 @@ def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int, heads: int = 0) -> dict
                 entry[f"{k} H={heads} ms"] = cuda_median_ms(fn)
         out["layouts"][name] = entry
     return out
+
+
+def _entry_line(entry: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in entry.items())
 
 
 def _print_profile(name: str, p: dict) -> None:
@@ -198,9 +246,11 @@ def main(argv=None) -> dict:
     gat = args.gat
     cfg = parse_train_config(GAT_SLICE_ARGS if gat else SLICE_ARGS)
     prof, g, n_class = profile_training(cfg, STEPS)
+    sweep = None
     if gat:
         probe = hub_probe(g.chunked, (cfg.nhid * cfg.n_heads, n_class), HUB, CAP,
                           heads=cfg.n_heads)
+        sweep = split_sweep(g.chunked, (cfg.n_heads, 1))
     else:
         probe = hub_probe(g.chunked, (cfg.nhid, n_class), HUB, CAP)
 
@@ -211,9 +261,13 @@ def main(argv=None) -> dict:
     print(f"hub probe: {probe['hub_rows']} rows above {HUB} edges, "
           f"max in-degree {probe['max_degree']}")
     for name, entry in probe["layouts"].items():
-        print(f"    {name}: " + ", ".join(
-            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in entry.items()))
+        print(f"    {name}: " + _entry_line(entry))
     result = {"card": card, "model": cfg.model, "profile": prof, "hub_probe": probe}
+    if sweep is not None:
+        print("K3 and K5 on A by split threshold:")
+        for name, entry in sweep.items():
+            print(f"    {name}: " + _entry_line(entry))
+        result["split_sweep"] = sweep
     print(json.dumps(result))
     return result
 
