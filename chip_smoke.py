@@ -18,8 +18,8 @@ through the primitive probe (``dgll_tpu_torch.tools.probe``):
   the CLI tries the windowed layout and declines it;
 * full-batch GAT, 8 heads x 8 features (phases 6-9): the attention kernels K3-K7
   and K1 with runtime columns against their plain versions on the test graph, and
-  K3 and K5 on the planted graph whose rows cross their split threshold (H 1, 3 and
-  8; K3's row max exact); the fused layer's forward and backward against the plain
+  K3, K5 and K6 on the planted graph whose rows cross their split threshold (H 1, 3
+  and 8; K3's row max exact); the fused layer's forward and backward against the plain
   composition at the slice's shapes; each kernel and its plain version timed there;
   20 epochs of training;
 * full-batch GCN on the clustered graph (phases 10-12): the windowed kernel K2
@@ -28,9 +28,11 @@ through the primitive probe (``dgll_tpu_torch.tools.probe``):
   row block; the hybrid op (K2 plus K1 on the residual edges) forward and backward at
   the bench's shapes; K2, the hybrid op and K1 over the whole graph timed there; the
   bench's 14 train steps through K2, and again through K1 alone;
-* the round-4 GAT attention layers (phases 13-15): K6 in its max mode, K9, and K6′
-  and K10 (served by K7's and K6's kernels through counted wrappers) against their
-  plain versions on the test graph; ``gat_attention_chunked_multihead`` (8 heads x
+* the round-4 GAT attention layers (phases 13-15): K6 in its max mode, K9, K10's
+  rows-to-edges, and K6′ and K10's reduction (served by K7's and K6's kernels through
+  counted wrappers) against their plain versions on the test graph, K6 and K10 also
+  on the planted graph (H 1, 3 and 8) and K10's rows-to-edges on every residue of
+  nnz % 4; ``gat_attention_chunked_multihead`` (8 heads x
   8 features) and ``gat_attention_chunked`` (one head, F=16 and F=64) forward and
   backward against the fused op at the slice's shapes, with every launch counted;
   each kernel and both layers timed;
@@ -47,15 +49,16 @@ through the primitive probe (``dgll_tpu_torch.tools.probe``):
   version on ragged shapes and at the probe script's full sizes (E 2^22 rows of 128
   floats; P0, P2, P4 exact, P2b within rtol 1e-5, P3 within rtol 1e-4 and 1e-5 x
   max|ref|), each timed beside its plain version, ``copy_``, ``index_select`` or
-  ``index_add_``, and its bound; P3 again with every row sent to 64 or 1,024
+  ``index_add_``, and its bound; P0 against ``copy_`` and ``clone`` in alternating
+  turns; P3 again with every row sent to 64 or 1,024
   destination rows (contended atomics, integer values: exact); then the probe
   tool's run at those sizes, whose JSON (with ``index_select`` as P1 and P0's
   achieved bandwidth) it prints.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
-the same function where there is one (``library_ms``; the port never calls it), and
-its bound: the larger of its bytes (each input read once, each output written once)
+the same function where there is one (``library_ms``; the port never calls it; in
+phases 4, 8, 15 and 16 the three in turns), and its bound: the larger of its bytes (each input read once, each output written once)
 over the H100's 3.35 TB/s and its float32 operations over 67 TFLOP/s (P2b's one
 product over TF32's 495 TFLOP/s). It needs one
 CUDA device and ``nvcc`` (``CUDA_HOME`` or ``PATH``), and no JAX.
@@ -102,9 +105,17 @@ K1_GAT = "spmm_csr (K1) with runtime columns and unit weights: GAT aggregation a
 # outputs a kernel computes exactly as its plain version does, whatever the tolerance
 # of the others: K3's row max m (a max does not round)
 EXACT_OUTPUTS = {"gat_stats": (0,)}
-# head counts of phase 6's planted-graph cases of K3 and K5: across lanes (1, 8) and
-# one pass a head (3)
+# head counts of the planted-graph cases of K3, K5 and K6 (phases 6 and 13): across
+# lanes (1, 8) and one pass a head (3)
 SPLIT_HEADS = (1, 3, 8)
+# the row reductions held on the planted graph: phase 6's (GAT counters) and phase
+# 13's (round-4 counters, K10's two launchers at H=1)
+SPLIT_GAT = ("gat_stats", "gat_bwd_softmax", "edges_to_rows_sum")
+SPLIT_R4 = ("edges_to_rows_max", "sum_all", "rows_to_edges", "edges_to_rows:sum",
+            "edges_to_rows:max")
+# edge counts of phase 13's K10 rows-to-edges cases: every residue of nnz % 4, and
+# layouts too small for one group of 4 edges
+R2E_TAILS = (1, 2, 3, 10_001, 10_002, 10_003, 10_004)
 WINDOWED_SOURCE = "dgll_tpu_torch/csrc/spmm_windowed.cu"
 WINDOWED_REPLACES = "dgll_tpu/ops/pallas/spmm_windowed.py:42"
 # windowed_fraction of A on the bench's clustered graph, as the JAX builder gives it
@@ -117,8 +128,8 @@ R4_KERNELS = (
     ("edges_to_rows_sum (K6, sum_all mode: the sum kernel)", "sum_all", f"{EDGE_OPS}:293"),
     ("rows_to_edges_multi (K6': K7's kernel at width H)", "rows_to_edges_multi",
      f"{EDGE_OPS}:249"),
-    ("rows_to_edges (K10 rows to edges: K7's kernel at width 1)", "rows_to_edges",
-     f"{EDGE_OPS}:39"),
+    ("rows_to_edges (K10 rows to edges: its width-1 kernel, 4 edges a thread)",
+     "rows_to_edges", f"{EDGE_OPS}:39"),
     ("edges_to_rows, sum (K10 reduce, sum and sum_all: K6's sum kernel at H=1)",
      "edges_to_rows:sum", f"{EDGE_OPS}:77"),
     ("edges_to_rows, max (K10 reduce, max: K6's max kernel at H=1)", "edges_to_rows:max",
@@ -186,13 +197,20 @@ def csr(indptr, cols, values, shape):
 
 
 def timed(case: Case, outs) -> dict:
-    """A case's kernel, plain and library times (CUDA events, median of 15 after 3
-    warm-ups) and bound, for the outputs ``outs`` of its kernel."""
+    """A case's kernel, plain and library times and bound, for the outputs ``outs``
+    of its kernel. Each time is the mean of two medians of 15 CUDA-event timings
+    after 3 warm-ups, taken in turns (kernel, plain, library, library, plain,
+    kernel), so that a drift of the card or the host during the case falls on all
+    three alike: below 0.1 ms it moved one call's reading by up to 17%."""
     from dgll_tpu_torch.utils.profiling import cuda_median_ms
 
+    calls = {"ms": case.kernel, "plain_ms": case.plain, "library_ms": case.library}
+    order = [k for k, fn in calls.items() if fn is not None]
+    ms = collections.defaultdict(list)
+    for k in order + order[::-1]:
+        ms[k].append(cuda_median_ms(calls[k]))
     b_ms, b_by = bound(nbytes(*case.reads, *outs), case.ops)
-    return {"ms": cuda_median_ms(case.kernel), "plain_ms": cuda_median_ms(case.plain),
-            "library_ms": None if case.library is None else cuda_median_ms(case.library),
+    return {"library_ms": None, **{k: sum(v) / len(v) for k, v in ms.items()},
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -569,7 +587,7 @@ def _compare(tag, name, case, worst, scale=1e-4, exact=False) -> tuple:
 
 def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
     """Phase 6: the GAT kernels against their plain versions on the power-law test
-    graph, H in {1, 8}; then K3 and K5 on the planted graph whose rows cross the
+    graph, H in {1, 8}; then K3, K5 and K6 on the planted graph whose rows cross the
     split threshold (T-1 .. 2T+1 and 60,000 edges), H in ``SPLIT_HEADS``."""
     c, ct, n = power_law_layouts(n, e)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -582,11 +600,11 @@ def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
     c, ct, n = planted_layouts()
     for heads in SPLIT_HEADS:
         for name, case in _gat_cases(c, ct, heads, 16, gen).items():
-            if name in ("gat_stats", "gat_bwd_softmax"):
+            if name in SPLIT_GAT:
                 line, _ = _compare(f"planted, H={heads}", name, case, worst)
                 print(f"[6 check] planted H={heads} {name}: {line}")
     print(f"[6 check] planted: {c.src.numel()} edges over {n} rows; A: "
-          f"{_split_summary(c)}: all K3 and K5 cases pass")
+          f"{_split_summary(c)}: all K3, K5 and K6 cases pass")
 
 
 def phase_gat_layer() -> None:
@@ -1000,7 +1018,10 @@ def phase_r4_check(worst: dict, n=50_000, e=800_000) -> None:
     """Phase 13: the round-4 path's kernels against their plain versions on the
     power-law test graph (hub rows, an edgeless 128-row block), H in {1, 8} and F in
     {16, 64}: maxima and copies exactly equal, K9 within 1e-5 and the sums within
-    1e-4 of max|ref|, and every kernel bitwise repeatable."""
+    1e-4 of max|ref|, and every kernel bitwise repeatable; then K6's max and sum_all
+    and K10's two launchers (H=1) on the planted graph whose rows cross the split
+    threshold, H in ``SPLIT_HEADS``, and K10's rows-to-edges at the edge counts of
+    ``R2E_TAILS``."""
     c, ct, n = power_law_layouts(n, e)
     gen = torch.Generator(device="cuda").manual_seed(7)
     for heads, width in ((1, 16), (8, 64)):
@@ -1009,6 +1030,37 @@ def phase_r4_check(worst: dict, n=50_000, e=800_000) -> None:
             print(f"[13 check] H={heads} F={width} {name}: {line}")
     print(f"[13 check] {c.src.numel()} edges over {n} rows, max in-degree "
           f"{int((c.indptr[1:] - c.indptr[:-1]).max())}: all cases pass")
+    c, ct, n = planted_layouts()
+    for heads in SPLIT_HEADS:
+        for name, (case, scale) in _r4_cases(c, heads, 16, gen).items():
+            if name in SPLIT_R4:
+                line, _ = _compare(f"planted, H={heads}", name, case, worst, scale,
+                                   scale == 0)
+                print(f"[13 check] planted H={heads} {name}: {line}")
+    print(f"[13 check] planted: {c.src.numel()} edges over {n} rows; A: "
+          f"{_split_summary(c)}: all K6 and K10 cases pass")
+    _rows_to_edges_tails(worst, gen)
+
+
+def _rows_to_edges_tails(worst: dict, gen, n=1000) -> None:
+    """Phase 13: K10's rows-to-edges on random layouts of ``R2E_TAILS`` edges over
+    ``n`` nodes: the last nnz % 4 edges, which the kernel's groups of 4 leave to the
+    first block, and layouts with no whole group; exactly equal, bitwise
+    repeatable."""
+    from dgll_tpu_torch.ops import gat_csr
+    from dgll_tpu_torch.ops.chunked import build_chunked
+    from dgll_tpu_torch.ops.cuda import edge_ops as tk
+
+    rng = np.random.default_rng(13)
+    for nnz in R2E_TAILS:
+        c = build_chunked(rng.integers(0, n, nnz), rng.integers(0, n, nnz), n, n).to("cuda")
+        check(c.src.numel() == nnz, f"a layout of {nnz} edges")
+        s = torch.randn(c.n_rows, generator=gen, device="cuda")
+        case = Case(lambda: (tk.rows_to_edges_cuda(c, s),),
+                    lambda: (gat_csr.rows_to_edges_reference(c, s),), None, (), 0)
+        _compare(f"nnz={nnz}", "rows_to_edges", case, worst, 0, True)
+    print(f"[13 check] rows_to_edges at {len(R2E_TAILS)} edge counts "
+          f"{R2E_TAILS} (nnz % 4 = 0-3): exactly equal, bitwise repeatable")
 
 
 def _counters() -> dict:
@@ -1585,13 +1637,37 @@ def _probe_p3_contended(msg: torch.Tensor) -> None:
               f"{lib:.4f} ms")
 
 
+def _probe_p0_turns(msg: torch.Tensor, rounds: int = 3) -> None:
+    """Phase 19: P0 against ``copy_`` into a kept buffer and ``clone`` (a fresh
+    one), timed in alternating turns (P0, copy_, clone, clone, copy_, P0, ``rounds``
+    times; each a median of 15 CUDA-event timings), so that a drift of the card
+    between timings falls on all three alike."""
+    from dgll_tpu_torch.ops.cuda import probes as kp
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    out = torch.empty_like(msg)
+    calls = {"P0": lambda: kp.p0_copy_cuda(msg), "copy_": lambda: out.copy_(msg),
+             "clone": lambda: msg.clone()}
+    ms = collections.defaultdict(list)
+    for _ in range(rounds):
+        for name in ("P0", "copy_", "clone", "clone", "copy_", "P0"):
+            ms[name].append(cuda_median_ms(calls[name]))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"[19 probes] p0_copy in turns with copy_ and clone, ms (mean of "
+          f"{2 * rounds}): P0 {mean['P0']:.4f}, copy_ {mean['copy_']:.4f} "
+          f"({mean['P0'] / mean['copy_']:.3f}x), clone {mean['clone']:.4f} "
+          f"({mean['P0'] / mean['clone']:.3f}x); each turn: "
+          + "; ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in ms.items()))
+
+
 def phase_probe_kernels() -> dict:
     """Phase 19: each probe's kernel (``csrc/probes.cu``, uncounted launches) against
     its plain version at the script's full sizes (``tools/probe.make_data`` and
     ``probe_calls``): P0, P2 and P4 exactly, P2b elementwise within rtol 1e-5, P3
     within rtol 1e-4 and 1e-5 x max|ref| (``tools/probe.max_error``); then each timed
     beside its plain version, one library call (``copy_``, ``index_select``,
-    ``index_add_``) and its bound; then P3 under contention. A gather's bytes count the
+    ``index_add_``) and its bound; P0 against ``copy_`` and ``clone`` in turns; then
+    P3 under contention. A gather's bytes count the
     table rows its ids touch. P2b's bound is the larger of its bytes and the function's
     one product (2 x E x WIN x F operations) at TF32's 495 TFLOP/s: splitting win
     into hi + lo is the kernel's way to f32 accuracy, not work the function needs."""
@@ -1641,6 +1717,7 @@ def phase_probe_kernels() -> dict:
         result[key] = {"err": err, "times": t}
         print(f"[19 probes] {key}: max abs err {err:.3e} against its plain version; "
               f"{describe(t)}; {moved / (t['ms'] * 1e-3) / 1e9:.1f} GB/s moved")
+    _probe_p0_turns(msg)
     _probe_p3_contended(msg)
     return result
 

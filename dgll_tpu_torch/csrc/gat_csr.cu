@@ -13,29 +13,29 @@
 //   K5 gat_bwd_softmax:  dz[e,h] = alpha * (dalpha - S[r,h]) * lgrad,  dsd[r,h] = sum_e dz.
 //   K6 edges_to_rows:    out[r,h] = sum_e v[e,h] (sum mode), or max_e v[e,h] with -3e38
 //                        on a row without edges (max mode).
-//   K7 expand_rows:      out[e,:] = a[r,:].
+//   K7 expand_rows:      out[e,:] = a[r,:]; K10 rows_to_edges the same at width 1.
 //   K9 sddmm:            out[e] = <a[r,:], msg[e,:]>.
 //
 // They replace the TPU kernels _stats_kernel, _alpha_kernel and _bwd_sm_kernel
 // (dgll_tpu/ops/pallas/gat_fused.py), _e2r_multi_kernel (dgll_tpu/ops/pallas/
-// edge_ops.py; its sum, sum_all and max modes), _expand_kernel
-// (dgll_tpu/ops/pallas/expand_rows.py) and _sddmm_kernel (dgll_tpu/ops/pallas/
-// sddmm.py). Those walk 128-row blocks of edge chunks in grid order, carry running
-// sums from chunk to chunk in scratch memory, and move values between rows and edges
+// edge_ops.py; its sum, sum_all and max modes), _rows_to_edges_kernel (edge_ops.py,
+// K10), _expand_kernel (dgll_tpu/ops/pallas/expand_rows.py) and _sddmm_kernel
+// (dgll_tpu/ops/pallas/sddmm.py). Those walk 128-row blocks of edge chunks in grid
+// order, carry running sums from chunk to chunk in scratch memory, and move values
+// between rows and edges
 // with one-hot matrix products (the TPU has no gather or atomics). Here each row (or
 // segment of a long row, which a second pass combines) is one warp's or one lane
 // group's, so nothing carries between blocks, and rows and edges meet through the
 // CSR's indptr and row ids.
 //
-// Three more TPU kernels need no kernel of their own: _r2e_multi_kernel (K6') and
-// the single-head _rows_to_edges_kernel (K10, edge_ops.py) compute what K7 computes
-// at width H and at width 1, and the single-head _reduce_kernel (K10) computes what
-// K6 computes at H = 1. Its sum_all mode, which also sums the TPU layout's padding
+// Two more TPU kernels need no kernel of their own: _r2e_multi_kernel (K6') computes
+// what K7 computes at width H, and the single-head _reduce_kernel (K10) what K6
+// computes at H = 1. Its sum_all mode, which also sums the TPU layout's padding
 // slots, is the sum mode here: this layout has no padding slots. Their wrappers
 // (ops/cuda/edge_ops.py) launch K7 and K6 and count the launches apart.
 //
-// Design of the row reductions K3 and K5: work items of at most max_edges edges, as
-// in K1 (csrc/segment_matmul.cu), one lane group each.
+// Design of the row reductions K3, K5 and K6: work items of at most max_edges edges,
+// as in K1 (csrc/segment_matmul.cu), one lane group each.
 //
 // * Rows of at most max_edges edges are one item each and write their outputs
 //   directly. A longer row (a hub of a power-law graph: 53,866 in-edges on the CLI
@@ -54,6 +54,10 @@
 //   which the JAX kernel combines its chunks (gat_fused.py:82-89); exp(m_seg - m) is
 //   exactly 1 for the segment that holds the maximum. K5 writes every edge's dz in
 //   pass 1 and a segment's partial row sum; pass 2 adds the partials.
+// * K6 reads its one array once an item. A segment writes its per-head sum or max;
+//   pass 2 adds the sums in segment order, or takes the max of the maxima (exact, as
+//   K3's m). One pass-1 and one pass-2 kernel, templated on the reduction, serve K6's
+//   sum and max; K5's pass 2 is the sum instance.
 // * Heads across lanes, for H a power of two up to 32 (the wrapper says which): a
 //   row's per-edge values are one contiguous block x[beg*H .. end*H), which a group
 //   of G lanes reads G floats at a time, coalesced. Lane j always holds head j % H (G
@@ -69,17 +73,21 @@
 // * A row's s_dst (K3) or S (K5) is loaded once a lane, issued beside the row's
 //   indptr loads: its index is known before them.
 //
-// K6 still gives each destination row one warp, with the head loop inside; it is one
-// kernel templated on its reduction, and its max is exact. Every row's outputs are
-// written, rows without edges included, and no kernel uses atomics: each sum has a
-// fixed order (edge order within a lane, the shuffle tree, segment order), so
-// results are bitwise repeatable. The per-edge passes (K4, K7) are grid-stride loops
-// over the flat [nnz * H] or [nnz * F] index. K9 is per edge too: every edge's dot
-// product is independent, so a group of a few lanes (a power of two, up to 32, no
-// more than the row's float4 count) owns one edge, reads its msg row and a[r]
-// (through the read-only cache: a is small and its rows repeat along a row's edges)
-// in float4 units, and finishes with a shuffle reduction inside the group. Parallel
-// over edges, it has no hub-row tail.
+// Every row's outputs are written, rows without edges included (K6 writes 0 or
+// -3e38), and no kernel uses atomics: each sum has a fixed order (edge order within a
+// lane, the shuffle tree, segment order), so results are bitwise repeatable. The
+// per-edge passes (K4, K7) are grid-stride loops over the flat [nnz * H] or [nnz * F]
+// index. K9 is per edge too: every edge's dot product is independent, so a group of
+// a few lanes (a power of two, up to 32, no more than the row's float4 count) owns
+// one edge, reads its msg row and a[r] (through the read-only cache: a is small and
+// its rows repeat along a row's edges) in float4 units, and finishes with a shuffle
+// reduction inside the group. Parallel over edges, it has no hub-row tail. K10's
+// rows-to-edges, K7's function at width 1, has a kernel of its own: there K7's one
+// float a thread, behind a 64-bit division, was slower than index_select. A thread
+// takes 4 consecutive edges: one 16-byte load of their row ids, four independent
+// gathers from a (a per-row vector, small enough to stay in L2) and one 16-byte
+// store; the grid covers every group of 4 at once, and the last nnz % 4 edges are
+// the first block's.
 //
 // What bounds them: memory bytes, a few float32 values per edge and head. K4, K7
 // and K9 stream their per-edge arrays once; K5 reads three and writes one. K3 reads
@@ -87,9 +95,10 @@
 // item's dependent loads (indptr, then its values, then the second pass) holds it
 // further from its bound than K5, and it needs every warp an SM can hold: keeping a
 // lane's values in registers between the passes (64 registers, half the warps) and
-// asking for 8 blocks an SM (32 registers, spills) both measured slower. K6 reads with
-// a stride of H floats a head pass, and a hub row is walked by one warp alone: on a
-// power-law graph the largest in-degree sets a floor under it.
+// asking for 8 blocks an SM (32 registers, spills) both measured slower. K6, with one
+// read an item and nothing to write per edge, is the most latency-bound of the three:
+// an item's indptr loads, then its values, then the shuffles. K10's rows-to-edges
+// reads and writes 8 bytes an edge and is bound by them.
 //
 // Precision: expf and IEEE division (no --use_fast_math, no __expf), as the JAX
 // package's kernels need full float32 here (gat_fused.py:155-160).
@@ -116,10 +125,6 @@ __device__ __forceinline__ float lanes_sum(float v, int span, int group) {
   for (int o = group >> 1; o >= span; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
-
-__device__ __forceinline__ float warp_max(float v) { return lanes_max(v, 1, 32); }
-
-__device__ __forceinline__ float warp_sum(float v) { return lanes_sum(v, 1, 32); }
 
 __device__ __forceinline__ float leaky(float z, float slope) {
   return z > 0.f ? z : slope * z;
@@ -275,33 +280,49 @@ gat_alpha_kernel(const int* __restrict__ rows, const float* __restrict__ sc_src,
   }
 }
 
-// The reductions of K6: an identity, a combine, and the warp's shuffle reduction.
+// The reductions of K6 and of the sum or max combine of pass 2: an identity, a
+// combine, and the reduction over the lanes of one head in a lane group (lanes_sum,
+// lanes_max).
 struct SumOp {
   static __device__ __forceinline__ float init() { return 0.f; }
   static __device__ __forceinline__ float combine(float a, float b) { return a + b; }
-  static __device__ __forceinline__ float warp(float v) { return warp_sum(v); }
+  static __device__ __forceinline__ float lanes(float v, int span, int group) {
+    return lanes_sum(v, span, group);
+  }
 };
 
 struct MaxOp {
   static __device__ __forceinline__ float init() { return kNeg; }
   static __device__ __forceinline__ float combine(float a, float b) { return fmaxf(a, b); }
-  static __device__ __forceinline__ float warp(float v) { return warp_max(v); }
+  static __device__ __forceinline__ float lanes(float v, int span, int group) {
+    return lanes_max(v, span, group);
+  }
 };
 
+// K6, pass 1: an item's per-head sum or max, into out for a row (the identity for a
+// row without edges), into partial for a segment.
 template <typename Op>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-edges_to_rows_kernel(const int* __restrict__ indptr, const float* __restrict__ v,
-                     float* __restrict__ out, int n_rows, int heads) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int beg = indptr[row];
-  const int end = indptr[row + 1];
-  for (int h = 0; h < heads; ++h) {
+edges_to_rows_kernel(const int* __restrict__ indptr, const int* __restrict__ rows,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ partial, Split sp, int n_rows, int heads,
+                     int across, int group) {
+  const Lanes ln(heads, across, group);
+  Item it = item_of(ln, n_rows, indptr, rows, sp);
+  const bool writes = active(it, n_rows, sp);
+  if (!__any_sync(kFull, writes)) return;  // the same for the whole warp
+  const int64_t hi = (int64_t)it.end * heads;
+  for (int pass = 0; pass < ln.passes; ++pass) {
     float s = Op::init();
-    for (int e = beg + lane; e < end; e += 32) s = Op::combine(s, v[(int64_t)e * heads + h]);
-    s = Op::warp(s);
-    if (lane == 0) out[(int64_t)row * heads + h] = s;
+#pragma unroll 4
+    for (int64_t i = ln.first(it.beg, it.j, pass); i < hi; i += ln.stride)
+      s = Op::combine(s, v[i]);
+    s = Op::lanes(s, ln.span, ln.group);
+    if (writes && it.j < ln.span) {
+      const int64_t o =
+          (int64_t)(it.segment ? it.index : it.row) * heads + ln.head(it.j, pass);
+      (it.segment ? partial : out)[o] = s;
+    }
   }
 }
 
@@ -339,19 +360,20 @@ gat_bwd_softmax_kernel(const int* __restrict__ indptr, const int* __restrict__ r
   }
 }
 
-// K5, pass 2: thread t is head t % H of split row t / H: the partials added in
-// segment order.
+// Pass 2 of K5 (sum) and K6 (sum, max): thread t is head t % H of split row t / H:
+// the row's partials combined in segment order.
+template <typename Op>
 __global__ void __launch_bounds__(kThreads)
-gat_bwd_softmax_combine_kernel(const float* __restrict__ partial, float* __restrict__ dsd,
-                               Split sp, int heads) {
+combine_segments_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                        Split sp, int heads) {
   const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (t >= (int64_t)sp.n_split * heads) return;
   const int r = (int)(t / heads);
   const int h = (int)(t - (int64_t)r * heads);
-  float s = 0.f;
+  float s = Op::init();
   const int p0 = sp.split_ptr[r], p1 = sp.split_ptr[r + 1];
-  for (int p = p0; p < p1; ++p) s += partial[(int64_t)p * heads + h];
-  dsd[(int64_t)sp.split_row[r] * heads + h] = s;
+  for (int p = p0; p < p1; ++p) s = Op::combine(s, partial[(int64_t)p * heads + h]);
+  out[(int64_t)sp.split_row[r] * heads + h] = s;
 }
 
 // T is float or float4: the wrapper passes fv = F / (sizeof(T) / 4) units per row.
@@ -363,6 +385,28 @@ expand_rows_kernel(const int* __restrict__ rows, const T* __restrict__ a,
        i += (int64_t)gridDim.x * blockDim.x) {
     const int64_t e = i / fv;
     out[i] = a[(int64_t)rows[e] * fv + (i - e * fv)];
+  }
+}
+
+// K10's rows-to-edges, out[e] = a[rows[e]]: thread q takes edges 4q .. 4q+3 (rows
+// and out 16-byte aligned); threads 0 .. nnz % 4 - 1 of block 0 take the last edges.
+__global__ void __launch_bounds__(kThreads)
+rows_to_edges_kernel(const int* __restrict__ rows, const float* __restrict__ a,
+                     float* __restrict__ out, int64_t nnz) {
+  const int64_t quads = nnz >> 2;
+  for (int64_t q = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; q < quads;
+       q += (int64_t)gridDim.x * blockDim.x) {
+    const int4 r = __ldg(reinterpret_cast<const int4*>(rows) + q);
+    float4 o;
+    o.x = __ldg(a + r.x);
+    o.y = __ldg(a + r.y);
+    o.z = __ldg(a + r.z);
+    o.w = __ldg(a + r.w);
+    reinterpret_cast<float4*>(out)[q] = o;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < (nnz & 3)) {
+    const int64_t e = (quads << 2) + threadIdx.x;
+    out[e] = __ldg(a + rows[e]);
   }
 }
 
@@ -401,8 +445,6 @@ sddmm_kernel(const int* __restrict__ rows, const T* __restrict__ a,
   }
 }
 
-int row_blocks(int n_rows) { return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock; }
-
 int stride_blocks(int64_t n) {
   const int64_t b = (n + kThreads - 1) / kThreads;
   return (int)(b < kMaxStrideBlocks ? b : kMaxStrideBlocks);
@@ -431,14 +473,32 @@ int combine_blocks(const Split& sp, int heads) {
   return (int)(((int64_t)sp.n_split * heads + kThreads - 1) / kThreads);
 }
 
+Split make_split(const void* seg_beg, const void* seg_end, const void* split_row,
+                 const void* split_ptr, int n_seg, int n_split, int max_edges) {
+  return Split{static_cast<const int*>(seg_beg), static_cast<const int*>(seg_end),
+               static_cast<const int*>(split_row), static_cast<const int*>(split_ptr),
+               n_seg, n_split, max_edges};
+}
+
 template <typename Op>
-int edges_to_rows(const void* indptr, const void* v, void* out, int n_rows, int heads,
-                  void* stream) {
-  if (n_rows <= 0 || heads <= 0) return cudaErrorInvalidValue;
-  edges_to_rows_kernel<Op><<<row_blocks(n_rows), kWarpsPerBlock * 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indptr), static_cast<const float*>(v),
-      static_cast<float*>(out), n_rows, heads);
+int edges_to_rows(const void* indptr, const void* rows, const void* v, void* out,
+                  int n_rows, int heads, int across, int group, const void* seg_beg,
+                  const void* seg_end, const void* split_row, const void* split_ptr,
+                  void* partial, int n_seg, int n_split, int max_edges, void* stream) {
+  if (!split_args_ok(n_rows, heads, across, group, n_seg, n_split, max_edges) ||
+      (n_seg > 0 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  const Split sp =
+      make_split(seg_beg, seg_end, split_row, split_ptr, n_seg, n_split, max_edges);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  edges_to_rows_kernel<Op><<<item_blocks(sp, n_rows, group), kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const int*>(indptr), static_cast<const int*>(rows),
+      static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(partial),
+      sp, n_rows, heads, across, group);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return err;
+  combine_segments_kernel<Op><<<combine_blocks(sp, heads), kThreads, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), sp, heads);
   return cudaGetLastError();
 }
 
@@ -449,7 +509,7 @@ extern "C" {
 // Each returns cudaGetLastError() after its launch, or cudaErrorInvalidValue (and
 // launches nothing) for a bad size. All pointers are float32 or int32 device memory.
 
-// K3 and K5 take the layout's rows ([nnz] int32, each edge's destination row), a
+// K3, K5 and K6 take the layout's rows ([nnz] int32, each edge's destination row), a
 // lane mapping (across = 1: heads across lanes, for H a power of two up to 32; 0:
 // one pass a head), the lanes of a work item (group: a power of two, H to 32 with
 // heads across lanes, else 32) and the split schedule (ops/chunked.py:
@@ -466,9 +526,8 @@ int dgll_gat_stats(const void* indptr, const void* rows, const void* sc_src,
   if (!split_args_ok(n_rows, heads, across, group, n_seg, n_split, max_edges) ||
       (n_seg > 0 && (m_seg == nullptr || den_seg == nullptr)))
     return cudaErrorInvalidValue;
-  const Split sp{static_cast<const int*>(seg_beg), static_cast<const int*>(seg_end),
-                 static_cast<const int*>(split_row), static_cast<const int*>(split_ptr),
-                 n_seg, n_split, max_edges};
+  const Split sp =
+      make_split(seg_beg, seg_end, split_row, split_ptr, n_seg, n_split, max_edges);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   gat_stats_kernel<<<item_blocks(sp, n_rows, group), kWarpsPerBlock * 32, 0, s>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(rows),
@@ -497,14 +556,25 @@ int dgll_gat_alpha(const void* rows, const void* sc_src, const void* s_dst, cons
   return cudaGetLastError();
 }
 
-int dgll_edges_to_rows_sum(const void* indptr, const void* v, void* out, int n_rows,
-                           int heads, void* stream) {
-  return edges_to_rows<SumOp>(indptr, v, out, n_rows, heads, stream);
+// K6 takes float32 [n_seg, H] scratch partial (null when n_seg is 0).
+int dgll_edges_to_rows_sum(const void* indptr, const void* rows, const void* v, void* out,
+                           int n_rows, int heads, int across, int group,
+                           const void* seg_beg, const void* seg_end, const void* split_row,
+                           const void* split_ptr, void* partial, int n_seg, int n_split,
+                           int max_edges, void* stream) {
+  return edges_to_rows<SumOp>(indptr, rows, v, out, n_rows, heads, across, group, seg_beg,
+                              seg_end, split_row, split_ptr, partial, n_seg, n_split,
+                              max_edges, stream);
 }
 
-int dgll_edges_to_rows_max(const void* indptr, const void* v, void* out, int n_rows,
-                           int heads, void* stream) {
-  return edges_to_rows<MaxOp>(indptr, v, out, n_rows, heads, stream);
+int dgll_edges_to_rows_max(const void* indptr, const void* rows, const void* v, void* out,
+                           int n_rows, int heads, int across, int group,
+                           const void* seg_beg, const void* seg_end, const void* split_row,
+                           const void* split_ptr, void* partial, int n_seg, int n_split,
+                           int max_edges, void* stream) {
+  return edges_to_rows<MaxOp>(indptr, rows, v, out, n_rows, heads, across, group, seg_beg,
+                              seg_end, split_row, split_ptr, partial, n_seg, n_split,
+                              max_edges, stream);
 }
 
 int dgll_gat_bwd_softmax(const void* indptr, const void* rows, const void* alpha,
@@ -516,9 +586,8 @@ int dgll_gat_bwd_softmax(const void* indptr, const void* rows, const void* alpha
   if (!split_args_ok(n_rows, heads, across, group, n_seg, n_split, max_edges) ||
       (n_seg > 0 && partial == nullptr))
     return cudaErrorInvalidValue;
-  const Split sp{static_cast<const int*>(seg_beg), static_cast<const int*>(seg_end),
-                 static_cast<const int*>(split_row), static_cast<const int*>(split_ptr),
-                 n_seg, n_split, max_edges};
+  const Split sp =
+      make_split(seg_beg, seg_end, split_row, split_ptr, n_seg, n_split, max_edges);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   gat_bwd_softmax_kernel<<<item_blocks(sp, n_rows, group), kWarpsPerBlock * 32, 0, s>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(rows),
@@ -528,7 +597,7 @@ int dgll_gat_bwd_softmax(const void* indptr, const void* rows, const void* alpha
       n_rows, heads, across, group);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 0) return err;
-  gat_bwd_softmax_combine_kernel<<<combine_blocks(sp, heads), kThreads, 0, s>>>(
+  combine_segments_kernel<SumOp><<<combine_blocks(sp, heads), kThreads, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(dsd), sp, heads);
   return cudaGetLastError();
 }
@@ -550,6 +619,21 @@ int dgll_expand_rows(const void* rows, const void* a, void* out, long long nnz, 
     expand_rows_kernel<float><<<stride_blocks(n), kThreads, 0, s>>>(
         static_cast<const int*>(rows), static_cast<const float*>(a),
         static_cast<float*>(out), n, fv);
+  return cudaGetLastError();
+}
+
+// K10's rows-to-edges: out[e] = a[rows[e]] for e < nnz; rows and out 16-byte aligned.
+int dgll_rows_to_edges(const void* rows, const void* a, void* out, long long nnz,
+                       void* stream) {
+  if (nnz < 0 || reinterpret_cast<uintptr_t>(rows) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (nnz == 0) return cudaSuccess;
+  const int64_t b = ((nnz >> 2) + kThreads - 1) / kThreads;
+  const int grid = (int)(b < 1 ? 1 : (b < (1 << 24) ? b : (1 << 24)));
+  rows_to_edges_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(rows), static_cast<const float*>(a), static_cast<float*>(out),
+      nnz);
   return cudaGetLastError();
 }
 

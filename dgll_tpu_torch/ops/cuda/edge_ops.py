@@ -13,7 +13,7 @@ tensors, or raises; ``launches[name]`` counts the launches:
 | --- | --- | --- |
 | ``edges_to_rows_max`` | K6 ``_e2r_multi_kernel``, max mode | K6, max mode |
 | ``rows_to_edges_multi`` | K6′ ``_r2e_multi_kernel`` | K7 at width H |
-| ``rows_to_edges`` | K10 ``_rows_to_edges_kernel`` | K7 at width 1 |
+| ``rows_to_edges`` | K10 ``_rows_to_edges_kernel`` | K10's width-1 kernel |
 | ``edges_to_rows:sum`` | K10 ``_reduce_kernel``, sum and sum_all | K6 sum at H = 1 |
 | ``edges_to_rows:max`` | K10 ``_reduce_kernel``, max | K6 max at H = 1 |
 | ``sddmm_edges`` | K9 ``_sddmm_kernel`` | K9 |
@@ -39,13 +39,7 @@ E2R_OPS = ("sum", "sum_all", "max")
 
 def edges_to_rows_max_cuda(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
     """Launch K6 (max mode) once: ``[n_rows, H]``, ``NEG`` on rows without edges."""
-    h, dev = gf._per_edge(c, v)
-    gf._check_layout(c, dev)
-    gf._check_f32(dev, v.shape, v=v)
-    out = torch.empty((c.n_rows, h), device=dev)
-    gf._launch("edges_to_rows_max", dev, c.indptr.data_ptr(), v.data_ptr(), out.data_ptr(),
-               c.n_rows, h)
-    return out
+    return gf.edges_to_rows_launch("max", c, v)
 
 
 def _lanes(fv: int) -> int:
@@ -89,12 +83,24 @@ def rows_to_edges_multi(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
 
 
 def rows_to_edges_cuda(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
-    """Launch K7's kernel once at width 1: ``[n_rows] -> [nnz]``."""
-    return gf.expand_rows_cuda(c, v.view(-1, 1)).view(-1)
+    """Launch K10's rows-to-edges kernel once: ``[n_rows] -> [nnz]``, 4 edges a
+    thread with 16-byte loads of ``c.rows`` (which must be 16-byte aligned, as a
+    layout's own tensor is)."""
+    if v.device.type != "cuda" or v.dim() != 1 or v.shape[0] != c.n_rows:
+        raise ValueError(f"v: need a [n_rows={c.n_rows}] CUDA tensor, "
+                         f"got {tuple(v.shape)} on {v.device}")
+    dev, nnz = v.device, c.src.numel()
+    _check("rows", c.rows, torch.int32, dev, nnz)
+    _check("v", v, torch.float32, dev)
+    if c.rows.data_ptr() % 16:
+        raise ValueError("rows: need a 16-byte aligned tensor")
+    out = torch.empty(nnz, device=dev)
+    gf._launch("rows_to_edges", dev, c.rows.data_ptr(), v.data_ptr(), out.data_ptr(), nnz)
+    return out
 
 
 def rows_to_edges(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
-    """K10's rows-to-edges: ``[n_rows] -> [nnz]``, by K7's kernel at width 1."""
+    """K10's rows-to-edges: ``[n_rows] -> [nnz]``, ``out[e] = v[row of e]``."""
     _need_rank("v", v, 1)
     return gf._dispatch(launches, "rows_to_edges", rows_to_edges_cuda,
                         gat_csr.rows_to_edges_reference, v, c, v)

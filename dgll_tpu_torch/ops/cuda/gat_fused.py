@@ -14,15 +14,16 @@ runtime columns and unit weights, ``segment_matmul.spmm_edges``, which counts th
 Forward: K3 -> K4 -> K1 on A. Backward: K7 -> K6 -> K5 -> K1 on A^T, whose columns
 ``c.t_slot_perm`` read the message gradient in A's edge order.
 
-The row reductions K3 and K5 run on the layout's split schedule (``c.split``, the
-one K1 runs on): a lane group per row of at most ``SPLIT_EDGES`` edges and per
+The row reductions K3, K5 and K6 run on the layout's split schedule (``c.split``,
+the one K1 runs on): a lane group per row of at most ``SPLIT_EDGES`` edges and per
 segment of a longer row, whose per-head partials (f32 scratch ``[n_seg, H]`` this
 wrapper allocates) a second pass in the same C call combines in segment order: K3
-rescales each segment's sum to the row's max, K5 adds. For H a power of two up to 32
-(``heads_across_lanes``) a group of ``item_lanes(H)`` lanes reads a row's ``[deg, H]``
-block coalesced, heads across lanes (at H=1 a warp holds 4 rows); other H take a
-warp a row and one pass a head. Both are bound by their bytes, K3 also by the
-latency of short rows; the launch counters still count one launch a wrapper call.
+rescales each segment's sum to the row's max, K5 and K6's sum add, K6's max takes the
+max. For H a power of two up to 32 (``heads_across_lanes``) a group of
+``item_lanes(H)`` lanes reads a row's ``[deg, H]`` block coalesced, heads across lanes
+(at H=1 a warp holds 4 rows); other H take a warp a row and one pass a head. They are
+bound by their bytes and by the latency of short rows; the launch counters still
+count one launch a wrapper call.
 
 Deviations from the JAX op, none of which changes the math: per-edge arrays are in
 the CSR's edge order (no padding slots), and the per-head products use ``[E, H, F]``
@@ -31,6 +32,7 @@ the GPU does not have).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -45,14 +47,25 @@ launches = dict.fromkeys(
     ("gat_stats", "gat_alpha", "gat_bwd_softmax", "edges_to_rows_sum", "expand_rows"), 0)
 
 
+@functools.cache
+def _entry(name: str):
+    return getattr(load_library(), f"dgll_{name}")
+
+
 def _launch(name: str, dev: torch.device, *args) -> None:
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"dgll_{name}")(
-            *args, torch.cuda.current_stream(dev).cuda_stream)
+    """Call the C entry ``dgll_<name>`` with ``args`` and the current stream of
+    ``dev``, on ``dev``; raise if it reports an error. A kernel of a few tens of
+    microseconds waits on this host path, so the entry is looked up once, the device
+    is switched only when it is not the current one, and the stream is read as a raw
+    handle (``current_stream(dev).cuda_stream`` without the ``Stream`` object)."""
+    if dev.index == torch.cuda.current_device():
+        err = _entry(name)(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = _entry(name)(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.dgll_cuda_error_string(err).decode())
+                           + load_library().dgll_cuda_error_string(err).decode())
 
 
 def _check_layout(c: ChunkedCSR, dev: torch.device) -> None:
@@ -76,7 +89,7 @@ def _per_edge(c: ChunkedCSR, t: torch.Tensor) -> Tuple[int, torch.device]:
 
 
 def heads_across_lanes(h: int) -> bool:
-    """K3's and K5's lane mapping for ``h`` heads: True (a lane group reads a row's
+    """K3's, K5's and K6's lane mapping for ``h`` heads: True (a lane group reads a row's
     ``[deg, H]`` block its width of consecutive floats at a time, lane j holding head
     j % H) for H a power of two up to 32, else False (a warp a row, one pass a head,
     lanes over edges)."""
@@ -84,7 +97,7 @@ def heads_across_lanes(h: int) -> bool:
 
 
 def item_lanes(h: int) -> int:
-    """Lanes of K3's and K5's work item (a row or a segment) for ``h`` heads: with
+    """Lanes of K3's, K5's and K6's work item (a row or a segment) for ``h`` heads: with
     heads across lanes, enough for 8 edges a step, at most a warp, so that a warp
     takes 4 rows at a time at H=1 (the fastest width there on the CLI graph, with
     4) and a whole warp at H=8 (which K3 needs); otherwise a warp."""
@@ -136,15 +149,22 @@ def gat_alpha_cuda(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor,
     return alpha, lgrad
 
 
-def edges_to_rows_sum_cuda(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
-    """Launch K6 (sum mode) once: ``[n_rows, H]``."""
+def edges_to_rows_launch(op: str, c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
+    """Launch K6 once in mode ``op`` ("sum" or "max"): ``[n_rows, H]``."""
     h, dev = _per_edge(c, v)
     _check_layout(c, dev)
     _check_f32(dev, v.shape, v=v)
     out = torch.empty((c.n_rows, h), device=dev)
-    _launch("edges_to_rows_sum", dev, c.indptr.data_ptr(), v.data_ptr(), out.data_ptr(),
-            c.n_rows, h)
+    sp_args, _scratch = _split_args(c.split, dev, h, 1)
+    _launch(f"edges_to_rows_{op}", dev, c.indptr.data_ptr(), c.rows.data_ptr(),
+            v.data_ptr(), out.data_ptr(), c.n_rows, h, int(heads_across_lanes(h)),
+            item_lanes(h), *sp_args)
     return out
+
+
+def edges_to_rows_sum_cuda(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
+    """Launch K6 (sum mode) once: ``[n_rows, H]``."""
+    return edges_to_rows_launch("sum", c, v)
 
 
 def gat_bwd_softmax_cuda(c: ChunkedCSR, alpha: torch.Tensor, dalpha: torch.Tensor,

@@ -1,6 +1,6 @@
 """Where the time of a full-batch slice goes on a CUDA device.
 
-    python -m dgll_tpu_torch.tools.profile_slice [--gat | --clustered]
+    python -m dgll_tpu_torch.tools.profile_slice [--gat | --clustered | --small]
 
 It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph with
 16 classes: a 2-layer GCN of width 128 (``SLICE_ARGS``), or with ``--gat`` the
@@ -14,7 +14,7 @@ It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph w
 * the hub-row probe (CUDA events, median of 15) on the layout of A, on only its
   rows with more than ``HUB`` in-edges, and with every row cut to its first ``CAP``
   edges: the SpMM kernel at each width of the model and, for GAT, the row
-  reductions K3, K5 and K6 at the hidden layer's head count;
+  reductions K3, K5 and K6 (sum and max) at the hidden layer's head count;
 * for GAT, K3 and K5 on copies of the layout of A whose long rows are cut at each
   split threshold of ``SPLIT_SWEEP`` (``split_sweep``), at the hidden layer's head
   count and at one head.
@@ -23,6 +23,12 @@ With ``--clustered`` it profiles the full-graph bench's GCN step instead
 (``dgll_tpu_torch.bench``, 200k-node clustered graph, widths 128): ``STEPS`` train
 steps through the windowed layout (K2 and K1 on the residual edges) and through K1
 alone, without the hub-row probe (the graph has no hubs).
+
+With ``--small`` it splits the time of each kernel under 0.15 ms at the slices'
+shapes, and of the library calls beside them, into the device time of the kernels it
+launches and the host time of its wrapper (``small_kernels``): at a few tens of
+microseconds the wrapper's host work before the launch is part of what a CUDA-event
+timing of one call reads.
 
 Each result is a line; the last line is one JSON object with every number.
 """
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from dgll_tpu_torch.ops.chunked import ChunkedCSR, build_chunked
+from dgll_tpu_torch.utils.profiling import cuda_median_ms
 
 # The slices' CLI arguments (dgll_tpu_torch.run), without the epoch count: GCN, and
 # the published GAT (8 heads x 8 features, dropout 0.6, Adam with weight decay) on
@@ -57,6 +64,7 @@ HUB = 4096    # a row with more in-edges than this is a hub
 CAP = 1024    # edges kept per row in the probe's capped layout
 # split thresholds at which --gat times K3 and K5 (the layouts' own is SPLIT_EDGES)
 SPLIT_SWEEP = (128, 256, 512, 1024, 2048, 4096)
+SMALL_REPS = 50  # calls a --small measurement averages
 
 
 def restrict_rows(c: ChunkedCSR, keep_row: Optional[np.ndarray] = None,
@@ -75,8 +83,9 @@ def restrict_rows(c: ChunkedCSR, keep_row: Optional[np.ndarray] = None,
     return sub.to(c.src.device)
 
 
-def profile(fn) -> dict:
-    """Trace ``fn()`` and split its host wall time into device busy and idle."""
+def _traced(fn):
+    """Run ``fn()`` under ``torch.profiler``: (host wall ms, {kernel name cut to 90
+    characters: {"ms", "count"}}), kernels that share a cut name added up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -90,10 +99,15 @@ def profile(fn) -> dict:
     kernels = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            # names cut to 90 characters; kernels that share the cut name add up
             k = kernels.setdefault(e.key[:90], {"ms": 0.0, "count": 0})
             k["ms"] += e.self_device_time_total / 1e3
             k["count"] += e.count
+    return wall_ms, kernels
+
+
+def profile(fn) -> dict:
+    """Trace ``fn()`` and split its host wall time into device busy and idle."""
+    wall_ms, kernels = _traced(fn)
     busy_ms = sum(k["ms"] for k in kernels.values())
     if busy_ms <= 0:
         raise RuntimeError("the profiler traced no device time")
@@ -126,7 +140,8 @@ def profile_training(cfg, steps: int):
 
 
 def _row_reductions(lay: ChunkedCSR, heads: int, gen) -> dict:
-    """Calls of the GAT row-reduction kernels K3, K5, K6 on ``lay``."""
+    """Calls of the GAT row-reduction kernels K3, K5, K6 (sum, max) on ``lay``."""
+    from dgll_tpu_torch.ops.cuda import edge_ops as tk
     from dgll_tpu_torch.ops.cuda import gat_fused as gf
 
     nnz, dev = lay.src.numel(), lay.src.device
@@ -134,7 +149,8 @@ def _row_reductions(lay: ChunkedCSR, heads: int, gen) -> dict:
     rows = torch.randn(lay.n_rows, heads, generator=gen, device=dev)
     return {"K3": lambda: gf.gat_stats_cuda(lay, e, rows),
             "K5": lambda: gf.gat_bwd_softmax_cuda(lay, e, r, e, rows),
-            "K6": lambda: gf.edges_to_rows_sum_cuda(lay, e)}
+            "K6": lambda: gf.edges_to_rows_sum_cuda(lay, e),
+            "K6 max": lambda: tk.edges_to_rows_max_cuda(lay, e)}
 
 
 def with_split(c: ChunkedCSR, max_edges: int) -> ChunkedCSR:
@@ -151,8 +167,6 @@ def split_sweep(c: ChunkedCSR, heads_list, thresholds=SPLIT_SWEEP) -> dict:
     are cut at each threshold of ``thresholds``, at each head count of
     ``heads_list``. Every run is held against the first of its head count on the
     same inputs: m exactly equal, the rest within 1e-4 x max|ref|."""
-    from dgll_tpu_torch.utils.profiling import cuda_median_ms
-
     out = {}
     for heads in heads_list:
         first = None
@@ -176,7 +190,6 @@ def split_sweep(c: ChunkedCSR, heads_list, thresholds=SPLIT_SWEEP) -> dict:
 
 def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int, heads: int = 0) -> dict:
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
-    from dgll_tpu_torch.utils.profiling import cuda_median_ms
 
     degree = np.diff(c.indptr.cpu().numpy().astype(np.int64))
     layouts = {
@@ -197,6 +210,67 @@ def hub_probe(c: ChunkedCSR, widths, hub: int, cap: int, heads: int = 0) -> dict
                 entry[f"{k} H={heads} ms"] = cuda_median_ms(fn)
         out["layouts"][name] = entry
     return out
+
+
+def wrapper_split(fn, reps: int = SMALL_REPS) -> dict:
+    """One call ``fn()`` three ways, in ms a call: ``events_ms``, CUDA events around
+    the call (``cuda_median_ms``, as ``chip_smoke.py`` times a kernel: the wrapper's
+    host work before the launch counts, as the card idles meanwhile); ``device_ms``,
+    the device time of what it launches (``torch.profiler``, ``kernels`` a call),
+    over ``reps`` calls; ``host_ms``, the host time of a call, ``reps`` calls on the
+    host clock with no synchronisation between them."""
+    events_ms = cuda_median_ms(fn)
+    _, kernels = _traced(lambda: [fn() for _ in range(reps)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return {"events_ms": events_ms,
+            "device_ms": sum(k["ms"] for k in kernels.values()) / reps,
+            "host_ms": host_ms,
+            "kernels": sum(k["count"] for k in kernels.values()) / reps}
+
+
+def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS) -> dict:
+    """``wrapper_split`` of each kernel under 0.15 ms at the slices' shapes, on the
+    slices' layout ``c`` (K8 at the int8 cache's fill shape), and of the library
+    calls that compute K10's functions."""
+    from dgll_tpu_torch.ops import quantize as q
+    from dgll_tpu_torch.ops.cuda import edge_ops as tk
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+    from dgll_tpu_torch.ops.cuda.quantize import quantize_int8_cuda
+
+    dev = c.src.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    nnz, offsets = c.src.numel(), c.indptr.long()
+    e1, e8, r1, r8 = r(nnz, 1), r(nnz, 8), r(c.n_rows, 1), r(c.n_rows, 8)
+    v1, s1 = e1[:, 0].contiguous(), r1[:, 0].contiguous()
+    m, den = gf.gat_stats_cuda(c, e1, r1)
+    x = r(50_000, 256)
+    scale = q.column_scale(x)
+    calls = {
+        "K10 rows_to_edges": lambda: tk.rows_to_edges_cuda(c, s1),
+        "index_select (K10 rows_to_edges)": lambda: s1.index_select(0, c.rows),
+        "K10 reduce sum (K6 sum, H=1)": lambda: tk.edges_to_rows_cuda(c, v1, "sum"),
+        "segment_reduce sum (K10 reduce)": lambda: torch.segment_reduce(
+            v1, "sum", offsets=offsets),
+        "K10 reduce max (K6 max, H=1)": lambda: tk.edges_to_rows_cuda(c, v1, "max"),
+        "segment_reduce max (K10 reduce)": lambda: torch.segment_reduce(
+            v1, "max", offsets=offsets),
+        "K3 H=1": lambda: gf.gat_stats_cuda(c, e1, r1),
+        "K4 H=1": lambda: gf.gat_alpha_cuda(c, e1, r1, m, den),
+        "K5 H=1": lambda: gf.gat_bwd_softmax_cuda(c, e1, e1, e1, r1),
+        "K6' H=8": lambda: gf.expand_rows_cuda(c, r8),
+        "K6 sum H=8": lambda: gf.edges_to_rows_sum_cuda(c, e8),
+        "K8 fill 50000x256": lambda: quantize_int8_cuda(x, scale, "xla"),
+    }
+    return {name: wrapper_split(fn, reps) for name, fn in calls.items()}
 
 
 def _entry_line(entry: dict) -> str:
@@ -229,6 +303,22 @@ def profile_clustered(card: str) -> dict:
     return result
 
 
+def profile_small(card: str) -> dict:
+    """``small_kernels`` on the slices' graph."""
+    from dgll_tpu_torch.run import build_dataset
+    from dgll_tpu_torch.utils import parse_train_config
+
+    g = build_dataset(parse_train_config(SLICE_ARGS)).with_chunked()
+    split = small_kernels(g.chunked.to("cuda"))
+    print(f"card: {card}, small kernels on the slices' graph, ms a call ({SMALL_REPS} "
+          f"calls): CUDA events around the call, device time, host time")
+    for name, entry in split.items():
+        print(f"    {name}: " + _entry_line(entry))
+    result = {"card": card, "small_kernels": split}
+    print(json.dumps(result))
+    return result
+
+
 def main(argv=None) -> dict:
     from dgll_tpu_torch.utils import parse_train_config
 
@@ -237,12 +327,16 @@ def main(argv=None) -> dict:
     which.add_argument("--gat", action="store_true", help="profile the GAT slice")
     which.add_argument("--clustered", action="store_true",
                        help="profile the full-graph bench's step on the clustered graph")
+    which.add_argument("--small", action="store_true",
+                       help="split the small kernels' times into device and host time")
     args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     if args.clustered:
         return profile_clustered(card)
+    if args.small:
+        return profile_small(card)
     gat = args.gat
     cfg = parse_train_config(GAT_SLICE_ARGS if gat else SLICE_ARGS)
     prof, g, n_class = profile_training(cfg, STEPS)

@@ -49,9 +49,16 @@ def graph(t: int):
     """(JAX layout, port layout, slots) of the planted graph, unweighted: JAX slot
     ``slots[k]`` holds the port's edge ``k``."""
     src, dst, _ = planted_graph(t)
+    jc, c, slots = layouts_of(src, dst)
+    np.testing.assert_array_equal(np.diff(c.indptr.numpy())[:8], planted_degrees(t))
+    return jc, c, slots
+
+
+def layouts_of(src, dst):
+    """(JAX layout, port layout, slots) of the unweighted edges ``src -> dst`` over
+    ``N`` nodes."""
     jc, _ = jax_build_chunked_pair(src, dst, N, N, None, eb=128)
     c, _ = build_chunked_pair(src, dst, N, N)
-    np.testing.assert_array_equal(np.diff(c.indptr.numpy())[:8], planted_degrees(t))
     nc = jc.n_chunk
     dst_g = (np.asarray(jc.row_block)[:nc, None] * R_BLOCK
              + np.asarray(jc.dst_local)[:nc]).reshape(-1)
