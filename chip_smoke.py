@@ -17,9 +17,11 @@ through the primitive probe (``dgll_tpu_torch.tools.probe``):
   wrapper, at the slice's shapes; both timed there; 20 epochs of training, in which
   the CLI tries the windowed layout and declines it;
 * full-batch GAT, 8 heads x 8 features (phases 6-9): the attention kernels K3-K7
-  and K1 with runtime columns against their plain versions on the test graph, and
-  K3, K5 and K6 on the planted graph whose rows cross their split threshold (H 1, 3
-  and 8; K3's row max exact); the fused layer's forward and backward against the plain
+  and K1 with runtime columns against their plain versions on the test graph, K3,
+  K5 and K6 on the planted graph whose rows cross their split threshold (H 1, 3
+  and 8; K3's row max exact), and K4 on copies of the test graph with every residue
+  of nnz % 4, in each variant of its edge-major mapping (lgrad exact); the fused
+  layer's forward and backward against the plain
   composition at the slice's shapes; each kernel and its plain version timed there;
   20 epochs of training;
 * full-batch GCN on the clustered graph (phases 10-12): the windowed kernel K2
@@ -28,11 +30,11 @@ through the primitive probe (``dgll_tpu_torch.tools.probe``):
   row block; the hybrid op (K2 plus K1 on the residual edges) forward and backward at
   the bench's shapes; K2, the hybrid op and K1 over the whole graph timed there; the
   bench's 14 train steps through K2, and again through K1 alone;
-* the round-4 GAT attention layers (phases 13-15): K6 in its max mode, K9, K10's
-  rows-to-edges, and K6′ and K10's reduction (served by K7's and K6's kernels through
-  counted wrappers) against their plain versions on the test graph, K6 and K10 also
-  on the planted graph (H 1, 3 and 8) and K10's rows-to-edges on every residue of
-  nnz % 4; ``gat_attention_chunked_multihead`` (8 heads x
+* the round-4 GAT attention layers (phases 13-15): K6 in its max mode, K9, K6′,
+  K10's rows-to-edges (K6′'s kernel at one head) and K10's reduction (K6's kernel
+  through a counted wrapper) against their plain versions on the test graph, K6 and
+  K10 also on the planted graph (H 1, 3 and 8), K10's rows-to-edges and K6′ (H 1, 2,
+  3 and 8) on every residue of nnz % 4; ``gat_attention_chunked_multihead`` (8 heads x
   8 features) and ``gat_attention_chunked`` (one head, F=16 and F=64) forward and
   backward against the fused op at the slice's shapes, with every launch counted;
   each kernel and both layers timed;
@@ -103,8 +105,9 @@ GAT_KERNELS = (
 )
 K1_GAT = "spmm_csr (K1) with runtime columns and unit weights: GAT aggregation and scatter"
 # outputs a kernel computes exactly as its plain version does, whatever the tolerance
-# of the others: K3's row max m (a max does not round)
-EXACT_OUTPUTS = {"gat_stats": (0,)}
+# of the others: K3's row max m (a max does not round), K4's lgrad (a compare and a
+# select on the same float32 sum)
+EXACT_OUTPUTS = {"gat_stats": (0,), "gat_alpha": (1,)}
 # head counts of the planted-graph cases of K3, K5 and K6 (phases 6 and 13): across
 # lanes (1, 8) and one pass a head (3)
 SPLIT_HEADS = (1, 3, 8)
@@ -116,6 +119,12 @@ SPLIT_R4 = ("edges_to_rows_max", "sum_all", "rows_to_edges", "edges_to_rows:sum"
 # edge counts of phase 13's K10 rows-to-edges cases: every residue of nnz % 4, and
 # layouts too small for one group of 4 edges
 R2E_TAILS = (1, 2, 3, 10_001, 10_002, 10_003, 10_004)
+# head counts of K6′'s cases (phase 13) on the layouts of every nnz % 4
+# (tail_layouts; K4's take SPLIT_HEADS): 4 edges a unit (1), 4 heads a unit (8) and
+# an edge a unit (2, 3); and of K4's further cases on one of them: every instance of
+# the 4-heads kernel (4, 8, 16, 32, 64 heads; at 12 it divides by G at run time)
+R2E_MULTI_HEADS = (1, 2, 3, 8)
+K4_MORE_HEADS = (4, 12, 16, 32, 64)
 WINDOWED_SOURCE = "dgll_tpu_torch/csrc/spmm_windowed.cu"
 WINDOWED_REPLACES = "dgll_tpu/ops/pallas/spmm_windowed.py:42"
 # windowed_fraction of A on the bench's clustered graph, as the JAX builder gives it
@@ -126,9 +135,9 @@ EDGE_OPS = "dgll_tpu/ops/pallas/edge_ops.py"
 R4_KERNELS = (
     ("edges_to_rows_max (K6, max mode)", "edges_to_rows_max", f"{EDGE_OPS}:293"),
     ("edges_to_rows_sum (K6, sum_all mode: the sum kernel)", "sum_all", f"{EDGE_OPS}:293"),
-    ("rows_to_edges_multi (K6': K7's kernel at width H)", "rows_to_edges_multi",
-     f"{EDGE_OPS}:249"),
-    ("rows_to_edges (K10 rows to edges: its width-1 kernel, 4 edges a thread)",
+    ("rows_to_edges_multi (K6': its own kernel, K4's edge-major mapping)",
+     "rows_to_edges_multi", f"{EDGE_OPS}:249"),
+    ("rows_to_edges (K10 rows to edges: K6''s kernel at H=1, 4 edges a thread)",
      "rows_to_edges", f"{EDGE_OPS}:39"),
     ("edges_to_rows, sum (K10 reduce, sum and sum_all: K6's sum kernel at H=1)",
      "edges_to_rows:sum", f"{EDGE_OPS}:77"),
@@ -292,6 +301,22 @@ def planted_layouts(n=20_000, e=200_000, device="cuda", seed=3):
     c, ct = build_chunked_pair(src, dst, n, n, rng.random(len(src)).astype(np.float32))
     check(np.array_equal(np.diff(c.indptr[:9].numpy()), planted), "the planted degrees")
     return c.to(device), ct.to(device), n
+
+
+@functools.cache
+def tail_layouts():
+    """The power-law test graph's layout of A with its last 0, 1, 2 and 3 edges
+    dropped, on the card: ``{nnz % 4: layout}`` for every residue."""
+    from dgll_tpu_torch.ops.chunked import build_chunked
+
+    c, _, n = power_law_layouts(device="cpu")
+    src, rows, w = (t.numpy() for t in (c.src, c.rows, c.weight))
+    out = {}
+    for k in range(4):
+        m = len(src) - k
+        out[m % 4] = build_chunked(src[:m], rows[:m], n, n, w[:m]).to("cuda")
+    check(sorted(out) == [0, 1, 2, 3], "a layout for every nnz % 4")
+    return out
 
 
 def _split_summary(c) -> str:
@@ -550,6 +575,52 @@ def _gat_cases(c, ct, heads, width, gen) -> dict:
     }
 
 
+def _alpha_case(c, heads, gen, misaligned=False) -> tuple:
+    """K4 on random scores with the plain K3's m and den of them: ``(Case, vec)``,
+    ``vec`` the variant of the edge-major mapping its wrapper picks
+    (``gat_fused.edge_plan``; the outputs come from the caching allocator, 16-byte
+    aligned). ``misaligned`` puts the scores 4 bytes past a 16-byte boundary."""
+    from dgll_tpu_torch.ops import gat_csr
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+
+    nnz = c.src.numel()
+    flat = 2 * torch.randn(nnz * heads + 1, generator=gen, device="cuda")
+    sc = (flat[1:] if misaligned else flat[:-1]).view(nnz, heads)
+    sd = 2 * torch.randn(c.n_rows, heads, generator=gen, device="cuda")
+    m, den = gat_csr.gat_stats_reference(c, sc, sd)
+    plan = gf.edge_plan(nnz, heads, c.rows, (sc,), (sd, m, den))
+    return Case(lambda: gf.gat_alpha_cuda(c, sc, sd, m, den),
+                lambda: gat_csr.gat_alpha_reference(c, sc, sd, m, den),
+                None, (c.rows, sc, sd, m, den), 8 * nnz * heads), plan.vec
+
+
+def _mapping_vec(heads, misaligned=False) -> int:
+    """The variant the edge-major mapping must take: float4 units of 4 edges (H = 1)
+    or 4 heads (H % 4 == 0) on aligned pointers, else an edge a unit."""
+    return 4 if (heads == 1 or heads % 4 == 0) and not misaligned else 1
+
+
+def phase_alpha_mapping(worst: dict, gen) -> None:
+    """Phase 6: K4 on ``tail_layouts`` (every nnz % 4) at ``SPLIT_HEADS``, then on
+    one of them at ``K4_MORE_HEADS`` and with misaligned scores at 1 and 8 heads:
+    alpha within 1e-4 x max|ref|, lgrad exactly equal, bitwise repeatable, each in
+    the variant it must take."""
+    cases = [(rem, c, heads, False) for rem, c in tail_layouts().items()
+             for heads in SPLIT_HEADS]
+    rem, c = 2, tail_layouts()[2]
+    cases += [(rem, c, heads, False) for heads in K4_MORE_HEADS]
+    cases += [(rem, c, heads, True) for heads in (1, 8)]
+    for rem, c, heads, misaligned in cases:
+        case, vec = _alpha_case(c, heads, gen, misaligned)
+        check(vec == _mapping_vec(heads, misaligned),
+              f"K4's variant at H={heads} (misaligned {misaligned}): vec {vec}")
+        tag = (f"nnz % 4 = {rem}, H={heads}{', misaligned' if misaligned else ''}, "
+               f"vec {vec}")
+        line, _ = _compare(tag, "gat_alpha", case, worst)
+        print(f"[6 check] K4 {tag}: {line}")
+    print(f"[6 check] K4: all {len(cases)} mapping cases pass (lgrad exactly equal)")
+
+
 def _max_err(got, want, scale=1e-4) -> tuple:
     """(max abs error, scale * max|ref|). Rows without edges carry the row max
     NEG = -3e38 (K3's m, K6's max): they must match exactly and are left out of the
@@ -588,7 +659,8 @@ def _compare(tag, name, case, worst, scale=1e-4, exact=False) -> tuple:
 def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
     """Phase 6: the GAT kernels against their plain versions on the power-law test
     graph, H in {1, 8}; then K3, K5 and K6 on the planted graph whose rows cross the
-    split threshold (T-1 .. 2T+1 and 60,000 edges), H in ``SPLIT_HEADS``."""
+    split threshold (T-1 .. 2T+1 and 60,000 edges), H in ``SPLIT_HEADS``; then K4's
+    mapping cases (``phase_alpha_mapping``)."""
     c, ct, n = power_law_layouts(n, e)
     gen = torch.Generator(device="cuda").manual_seed(2)
     for heads, width in ((1, 16), (8, 64)):
@@ -605,6 +677,7 @@ def phase_gat_check(worst: dict, n=50_000, e=800_000) -> None:
                 print(f"[6 check] planted H={heads} {name}: {line}")
     print(f"[6 check] planted: {c.src.numel()} edges over {n} rows; A: "
           f"{_split_summary(c)}: all K3, K5 and K6 cases pass")
+    phase_alpha_mapping(worst, gen)
 
 
 def phase_gat_layer() -> None:
@@ -986,7 +1059,7 @@ def _r4_cases(c, heads, width, gen) -> dict:
             lambda: torch.segment_reduce(v, "sum", offsets=offsets),
             (c.indptr, v), nnz * heads), 1e-4),
         "rows_to_edges_multi": (Case(
-            lambda: (gf.expand_rows_cuda(c, s),),
+            lambda: (tk.rows_to_edges_multi_cuda(c, s),),
             lambda: (gat_csr.rows_to_edges_reference(c, s),),
             lambda: s.index_select(0, c.rows), (c.rows, s), 0), 0),
         "sddmm_edges": (Case(
@@ -1020,8 +1093,8 @@ def phase_r4_check(worst: dict, n=50_000, e=800_000) -> None:
     {16, 64}: maxima and copies exactly equal, K9 within 1e-5 and the sums within
     1e-4 of max|ref|, and every kernel bitwise repeatable; then K6's max and sum_all
     and K10's two launchers (H=1) on the planted graph whose rows cross the split
-    threshold, H in ``SPLIT_HEADS``, and K10's rows-to-edges at the edge counts of
-    ``R2E_TAILS``."""
+    threshold, H in ``SPLIT_HEADS``, K10's rows-to-edges at the edge counts of
+    ``R2E_TAILS``, and K6′ on ``tail_layouts`` at ``R2E_MULTI_HEADS``."""
     c, ct, n = power_law_layouts(n, e)
     gen = torch.Generator(device="cuda").manual_seed(7)
     for heads, width in ((1, 16), (8, 64)):
@@ -1040,6 +1113,33 @@ def phase_r4_check(worst: dict, n=50_000, e=800_000) -> None:
     print(f"[13 check] planted: {c.src.numel()} edges over {n} rows; A: "
           f"{_split_summary(c)}: all K6 and K10 cases pass")
     _rows_to_edges_tails(worst, gen)
+    _rows_to_edges_multi_tails(worst, gen)
+
+
+def _rows_to_edges_multi_tails(worst: dict, gen) -> None:
+    """Phase 13: K6′ on ``tail_layouts`` (every nnz % 4) at ``R2E_MULTI_HEADS``, and
+    on one of them with a misaligned ``v`` at 8 heads (an edge a unit); exactly
+    equal, bitwise repeatable."""
+    from dgll_tpu_torch.ops import gat_csr
+    from dgll_tpu_torch.ops.cuda import edge_ops as tk
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+
+    cases = [(rem, c, heads, False) for rem, c in tail_layouts().items()
+             for heads in R2E_MULTI_HEADS]
+    cases.append((2, tail_layouts()[2], 8, True))
+    for rem, c, heads, misaligned in cases:
+        flat = torch.randn(c.n_rows * heads + 1, generator=gen, device="cuda")
+        s = (flat[1:] if misaligned else flat[:-1]).view(c.n_rows, heads)
+        vec = gf.edge_plan(c.src.numel(), heads, c.rows, (), (s,)).vec
+        check(vec == _mapping_vec(heads, misaligned),
+              f"K6′'s variant at H={heads} (misaligned {misaligned}): vec {vec}")
+        case = Case(lambda: (tk.rows_to_edges_multi_cuda(c, s),),
+                    lambda: (gat_csr.rows_to_edges_reference(c, s),), None, (), 0)
+        _compare(f"nnz % 4 = {rem}, H={heads}, vec {vec}", "rows_to_edges_multi", case,
+                 worst, 0, True)
+    print(f"[13 check] rows_to_edges_multi (K6′) in {len(cases)} cases, nnz % 4 = 0-3, "
+          f"H in {R2E_MULTI_HEADS}, and misaligned at H=8: exactly equal, bitwise "
+          f"repeatable")
 
 
 def _rows_to_edges_tails(worst: dict, gen, n=1000) -> None:

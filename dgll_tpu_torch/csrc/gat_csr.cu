@@ -13,26 +13,26 @@
 //   K5 gat_bwd_softmax:  dz[e,h] = alpha * (dalpha - S[r,h]) * lgrad,  dsd[r,h] = sum_e dz.
 //   K6 edges_to_rows:    out[r,h] = sum_e v[e,h] (sum mode), or max_e v[e,h] with -3e38
 //                        on a row without edges (max mode).
-//   K7 expand_rows:      out[e,:] = a[r,:]; K10 rows_to_edges the same at width 1.
+//   K6' rows_to_edges_multi: out[e,h] = v[r,h]; K10 rows_to_edges the same at H = 1.
+//   K7 expand_rows:      out[e,:] = a[r,:].
 //   K9 sddmm:            out[e] = <a[r,:], msg[e,:]>.
 //
 // They replace the TPU kernels _stats_kernel, _alpha_kernel and _bwd_sm_kernel
 // (dgll_tpu/ops/pallas/gat_fused.py), _e2r_multi_kernel (dgll_tpu/ops/pallas/
-// edge_ops.py; its sum, sum_all and max modes), _rows_to_edges_kernel (edge_ops.py,
-// K10), _expand_kernel (dgll_tpu/ops/pallas/expand_rows.py) and _sddmm_kernel
-// (dgll_tpu/ops/pallas/sddmm.py). Those walk 128-row blocks of edge chunks in grid
-// order, carry running sums from chunk to chunk in scratch memory, and move values
-// between rows and edges
+// edge_ops.py; its sum, sum_all and max modes), _r2e_multi_kernel (edge_ops.py, K6'),
+// _rows_to_edges_kernel (edge_ops.py, K10), _expand_kernel (dgll_tpu/ops/pallas/
+// expand_rows.py) and _sddmm_kernel (dgll_tpu/ops/pallas/sddmm.py). Those walk
+// 128-row blocks of edge chunks in grid order, carry running sums from chunk to
+// chunk in scratch memory, and move values between rows and edges
 // with one-hot matrix products (the TPU has no gather or atomics). Here each row (or
 // segment of a long row, which a second pass combines) is one warp's or one lane
 // group's, so nothing carries between blocks, and rows and edges meet through the
 // CSR's indptr and row ids.
 //
-// Two more TPU kernels need no kernel of their own: _r2e_multi_kernel (K6') computes
-// what K7 computes at width H, and the single-head _reduce_kernel (K10) what K6
-// computes at H = 1. Its sum_all mode, which also sums the TPU layout's padding
-// slots, is the sum mode here: this layout has no padding slots. Their wrappers
-// (ops/cuda/edge_ops.py) launch K7 and K6 and count the launches apart.
+// One more TPU kernel needs no kernel of its own: the single-head _reduce_kernel
+// (K10) computes what K6 computes at H = 1. Its sum_all mode, which also sums the TPU
+// layout's padding slots, is the sum mode here: this layout has no padding slots.
+// Its wrapper (ops/cuda/edge_ops.py) launches K6 and counts the launches apart.
 //
 // Design of the row reductions K3, K5 and K6: work items of at most max_edges edges,
 // as in K1 (csrc/segment_matmul.cu), one lane group each.
@@ -75,30 +75,51 @@
 //
 // Every row's outputs are written, rows without edges included (K6 writes 0 or
 // -3e38), and no kernel uses atomics: each sum has a fixed order (edge order within a
-// lane, the shuffle tree, segment order), so results are bitwise repeatable. The
-// per-edge passes (K4, K7) are grid-stride loops over the flat [nnz * H] or [nnz * F]
-// index. K9 is per edge too: every edge's dot product is independent, so a group of
+// lane, the shuffle tree, segment order), so results are bitwise repeatable. K7 is a
+// grid-stride loop over the flat [nnz * F] index. K9 is per edge too: every edge's
+// dot product is independent, so a group of
 // a few lanes (a power of two, up to 32, no more than the row's float4 count) owns
 // one edge, reads its msg row and a[r] (through the read-only cache: a is small and
 // its rows repeat along a row's edges) in float4 units, and finishes with a shuffle
-// reduction inside the group. Parallel over edges, it has no hub-row tail. K10's
-// rows-to-edges, K7's function at width 1, has a kernel of its own: there K7's one
-// float a thread, behind a 64-bit division, was slower than index_select. A thread
-// takes 4 consecutive edges: one 16-byte load of their row ids, four independent
-// gathers from a (a per-row vector, small enough to stay in L2) and one 16-byte
-// store; the grid covers every group of 4 at once, and the last nnz % 4 edges are
-// the first block's.
+// reduction inside the group. Parallel over edges, it has no hub-row tail.
 //
-// What bounds them: memory bytes, a few float32 values per edge and head. K4, K7
-// and K9 stream their per-edge arrays once; K5 reads three and writes one. K3 reads
+// Design of K4, K6' and K10's rows-to-edges, which carry per-row values [n_rows, H]
+// out to the edges [nnz, H] through rows (K4 with its arithmetic, K6' and K10 as a
+// copy): one edge-major mapping, written once (edges_heads4_kernel, edges_quads_kernel,
+// edges_one_kernel below), templated on what a unit computes. A unit is a float4 of
+// per-edge values where the pointers allow it; consecutive threads take consecutive
+// units, so a warp's loads and stores of per-edge values are 512 contiguous bytes,
+// and the grid strides over them. The wrapper (ops/cuda/gat_fused.py:edge_plan) picks
+// the variant and a grid of one thread a unit: on an H100 at the GAT slice's shapes
+// that was fastest, or within 2% of grids of 1-4 waves; runs of 2 or 4 consecutive
+// units a thread were 1.6-2.7x slower (their lanes' 16-byte accesses 32 or 64 bytes
+// apart, and a unit's loads waiting on the last unit's stores), and two units a grid
+// apart with every load issued first gained K6' 5% and lost K4 2%. The variants:
+// * 4 heads a unit (H % 4 == 0; per-edge and per-row arrays 16-byte aligned): unit
+//   u = e * G + j holds heads 4j .. 4j+3 of edge e, G = H / 4. The per-row values are
+//   read as float4 at [rows[e] * G + j] through the read-only path (consecutive edges
+//   of a dst-sorted CSR mostly share a row, so these hit L1/L2). The kernel is
+//   templated on log2 G for H = 4 .. 64, so the edge index is a shift; any other G
+//   divides once a unit (4 values).
+// * 4 edges a unit (H = 1; rows and per-edge arrays 16-byte aligned): one int4 of row
+//   ids, four scalar gathers of each per-row value, float4 loads and stores along the
+//   edges; threads 0 .. nnz % 4 - 1 of block 0 take the last edges.
+// * one edge a unit (any other H, or a misaligned pointer): a loop over the heads.
+// A thread loads its unit's row ids once; for G a power of two up to 16 the loop
+// holds no 64-bit division or modulo. The old K4, one thread a value behind a 64-bit division by H,
+// paid dozens of instructions a value and moved 4 bytes an access, so instructions,
+// not bytes, set its pace; K6' ran on K7's kernel, a 64-bit division and a load of
+// rows[e] per float4. K4 keeps the reference's full float32 (expf and IEEE division).
+//
+// What bounds them: memory bytes, a few float32 values per edge and head. K4, K6',
+// K7 and K9 stream their per-edge arrays once; K5 reads three and writes one. K3 reads
 // its one array twice, the second time mostly from L1/L2; the latency of a short
 // item's dependent loads (indptr, then its values, then the second pass) holds it
 // further from its bound than K5, and it needs every warp an SM can hold: keeping a
 // lane's values in registers between the passes (64 registers, half the warps) and
 // asking for 8 blocks an SM (32 registers, spills) both measured slower. K6, with one
 // read an item and nothing to write per edge, is the most latency-bound of the three:
-// an item's indptr loads, then its values, then the shuffles. K10's rows-to-edges
-// reads and writes 8 bytes an edge and is bound by them.
+// an item's indptr loads, then its values, then the shuffles.
 //
 // Precision: expf and IEEE division (no --use_fast_math, no __expf), as the JAX
 // package's kernels need full float32 here (gat_fused.py:155-160).
@@ -264,21 +285,125 @@ gat_stats_combine_kernel(const float* __restrict__ m_seg,
   den[o] = s;
 }
 
+// ---- The edge-major mapping of K4, K6' and K10's rows-to-edges ----------------------
+//
+// An Op computes the outputs of the values it is given: one(i, d) the value of
+// per-edge flat index i, whose row's values are at per-row flat index d; quad(q, r)
+// edges 4q .. 4q+3 at H = 1 (per-edge float4 index q), whose rows are r; heads4(u, d)
+// heads 4j .. 4j+3 of an edge (per-edge float4 index u), its row's at float4 index d.
+
+__device__ __forceinline__ float4 ldg4(const float* p, int64_t i) {
+  return __ldg(reinterpret_cast<const float4*>(p) + i);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p, int64_t i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+
+__device__ __forceinline__ void st4(float* p, int64_t i, float4 v) {
+  reinterpret_cast<float4*>(p)[i] = v;
+}
+
+// A thread's first unit, and the grid's stride over the units.
+__device__ __forceinline__ int64_t first_unit() {
+  return blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ int64_t unit_stride() { return (int64_t)gridDim.x * blockDim.x; }
+
+// 4 heads a unit: unit u = e * G + j is heads 4j .. 4j+3 of edge e. LG = log2 G, or
+// -1 for a G known at run time, which is divided by once a unit.
+template <int LG, typename Op>
 __global__ void __launch_bounds__(kThreads)
-gat_alpha_kernel(const int* __restrict__ rows, const float* __restrict__ sc_src,
-                 const float* __restrict__ s_dst, const float* __restrict__ m,
-                 const float* __restrict__ den, float* __restrict__ alpha,
-                 float* __restrict__ lgrad, int64_t n, int heads, float slope) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t e = i / heads;
-    const int64_t d = (int64_t)rows[e] * heads + (i - e * heads);
-    const float z = sc_src[i] + s_dst[d];
-    const float inv = 1.f / fmaxf(den[d], 1e-16f);
-    alpha[i] = expf(fminf(leaky(z, slope) - m[d], 0.f)) * inv;
-    lgrad[i] = z > 0.f ? 1.f : slope;
+edges_heads4_kernel(Op op, const int* __restrict__ rows, int64_t nnz, int groups) {
+  const int g = LG >= 0 ? 1 << LG : groups;
+  const int64_t units = nnz * g;
+  for (int64_t u = first_unit(); u < units; u += unit_stride()) {
+    const int64_t e = LG >= 0 ? u >> LG : u / g;
+    op.heads4(u, (int64_t)__ldg(rows + e) * g + (u - e * g));
   }
 }
+
+// 4 edges a unit at H = 1 (rows 16-byte aligned); block 0 takes the last nnz % 4.
+template <typename Op>
+__global__ void __launch_bounds__(kThreads)
+edges_quads_kernel(Op op, const int* __restrict__ rows, int64_t nnz) {
+  const int64_t quads = nnz >> 2;
+  for (int64_t q = first_unit(); q < quads; q += unit_stride())
+    op.quad(q, __ldg(reinterpret_cast<const int4*>(rows) + q));
+  if (blockIdx.x == 0 && threadIdx.x < (nnz & 3)) {
+    const int64_t e = (quads << 2) + threadIdx.x;
+    op.one(e, __ldg(rows + e));
+  }
+}
+
+// One edge a unit, a loop over its heads.
+template <typename Op>
+__global__ void __launch_bounds__(kThreads)
+edges_one_kernel(Op op, const int* __restrict__ rows, int64_t nnz, int heads) {
+  for (int64_t e = first_unit(); e < nnz; e += unit_stride()) {
+    const int64_t d = (int64_t)__ldg(rows + e) * heads;
+    for (int h = 0; h < heads; ++h) op.one(e * heads + h, d + h);
+  }
+}
+
+// K4 for one (edge, head): its score z = sc + s_dst[r], alpha and the LeakyReLU slope
+// factor, with the reference's expf and IEEE division.
+__device__ __forceinline__ void alpha_of(float sc, float sd, float m, float den,
+                                         float slope, float& alpha, float& lgrad) {
+  const float z = sc + sd;
+  alpha = expf(fminf(leaky(z, slope) - m, 0.f)) * (1.f / fmaxf(den, 1e-16f));
+  lgrad = z > 0.f ? 1.f : slope;
+}
+
+struct AlphaOp {
+  const float* sc_src;
+  const float* s_dst;
+  const float* m;
+  const float* den;
+  float* alpha;
+  float* lgrad;
+  float slope;
+
+  __device__ void one(int64_t i, int64_t d) const {
+    alpha_of(sc_src[i], __ldg(s_dst + d), __ldg(m + d), __ldg(den + d), slope, alpha[i],
+             lgrad[i]);
+  }
+  __device__ void quad(int64_t q, int4 r) const {
+    const float4 sc = ld4(sc_src, q);
+    float4 a, l;
+    alpha_of(sc.x, __ldg(s_dst + r.x), __ldg(m + r.x), __ldg(den + r.x), slope, a.x, l.x);
+    alpha_of(sc.y, __ldg(s_dst + r.y), __ldg(m + r.y), __ldg(den + r.y), slope, a.y, l.y);
+    alpha_of(sc.z, __ldg(s_dst + r.z), __ldg(m + r.z), __ldg(den + r.z), slope, a.z, l.z);
+    alpha_of(sc.w, __ldg(s_dst + r.w), __ldg(m + r.w), __ldg(den + r.w), slope, a.w, l.w);
+    st4(alpha, q, a);
+    st4(lgrad, q, l);
+  }
+  __device__ void heads4(int64_t u, int64_t d) const {
+    const float4 sc = ld4(sc_src, u), sd = ldg4(s_dst, d), mx = ldg4(m, d),
+                 dn = ldg4(den, d);
+    float4 a, l;
+    alpha_of(sc.x, sd.x, mx.x, dn.x, slope, a.x, l.x);
+    alpha_of(sc.y, sd.y, mx.y, dn.y, slope, a.y, l.y);
+    alpha_of(sc.z, sd.z, mx.z, dn.z, slope, a.z, l.z);
+    alpha_of(sc.w, sd.w, mx.w, dn.w, slope, a.w, l.w);
+    st4(alpha, u, a);
+    st4(lgrad, u, l);
+  }
+};
+
+// K6' and K10's rows-to-edges: out[e, h] = v[rows[e], h].
+struct GatherOp {
+  const float* v;
+  float* out;
+
+  __device__ void one(int64_t i, int64_t d) const { out[i] = __ldg(v + d); }
+  __device__ void quad(int64_t q, int4 r) const {
+    st4(out, q,
+        make_float4(__ldg(v + r.x), __ldg(v + r.y), __ldg(v + r.z), __ldg(v + r.w)));
+  }
+  __device__ void heads4(int64_t u, int64_t d) const { st4(out, u, ldg4(v, d)); }
+};
 
 // The reductions of K6 and of the sum or max combine of pass 2: an identity, a
 // combine, and the reduction over the lanes of one head in a lane group (lanes_sum,
@@ -388,28 +513,6 @@ expand_rows_kernel(const int* __restrict__ rows, const T* __restrict__ a,
   }
 }
 
-// K10's rows-to-edges, out[e] = a[rows[e]]: thread q takes edges 4q .. 4q+3 (rows
-// and out 16-byte aligned); threads 0 .. nnz % 4 - 1 of block 0 take the last edges.
-__global__ void __launch_bounds__(kThreads)
-rows_to_edges_kernel(const int* __restrict__ rows, const float* __restrict__ a,
-                     float* __restrict__ out, int64_t nnz) {
-  const int64_t quads = nnz >> 2;
-  for (int64_t q = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; q < quads;
-       q += (int64_t)gridDim.x * blockDim.x) {
-    const int4 r = __ldg(reinterpret_cast<const int4*>(rows) + q);
-    float4 o;
-    o.x = __ldg(a + r.x);
-    o.y = __ldg(a + r.y);
-    o.z = __ldg(a + r.z);
-    o.w = __ldg(a + r.w);
-    reinterpret_cast<float4*>(out)[q] = o;
-  }
-  if (blockIdx.x == 0 && threadIdx.x < (nnz & 3)) {
-    const int64_t e = (quads << 2) + threadIdx.x;
-    out[e] = __ldg(a + rows[e]);
-  }
-}
-
 __device__ __forceinline__ float fma_dot(float x, float y, float s) { return fmaf(x, y, s); }
 
 __device__ __forceinline__ float fma_dot(float4 x, float4 y, float s) {
@@ -451,6 +554,43 @@ int stride_blocks(int64_t n) {
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+template <typename... P>
+bool aligned16(const P*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
+}
+
+// Launches the edge-major mapping of `op` over [nnz, H] per-edge values in the
+// wrapper's variant (ops/cuda/gat_fused.py:edge_plan): vec = 4 takes float4 units,
+// 4 heads of an edge (H % 4 == 0) or at H = 1 4 edges, and needs `vectors` (16-byte
+// aligned, checked by the caller) and, at H = 1, rows 16-byte aligned; vec = 1 an edge
+// a unit. `grid` blocks stride over the units.
+template <typename Op>
+int launch_edges(const Op& op, bool vectors, const void* rows_, long long nnz, int heads,
+                 int vec, int grid, void* stream) {
+  const int* rows = static_cast<const int*>(rows_);
+  if (nnz < 0 || heads <= 0 || grid <= 0 || (vec != 1 && vec != 4))
+    return cudaErrorInvalidValue;
+  if (vec == 4 && (!vectors || (heads == 1 ? !aligned16(rows) : heads % 4 != 0)))
+    return cudaErrorInvalidValue;
+  if (nnz == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 1) {
+    edges_one_kernel<<<grid, kThreads, 0, s>>>(op, rows, nnz, heads);
+  } else if (heads == 1) {
+    edges_quads_kernel<<<grid, kThreads, 0, s>>>(op, rows, nnz);
+  } else {
+    const int g = heads / 4;
+    auto heads4 = g == 1   ? edges_heads4_kernel<0, Op>
+                  : g == 2 ? edges_heads4_kernel<1, Op>
+                  : g == 4 ? edges_heads4_kernel<2, Op>
+                  : g == 8 ? edges_heads4_kernel<3, Op>
+                  : g == 16 ? edges_heads4_kernel<4, Op>
+                            : edges_heads4_kernel<-1, Op>;
+    heads4<<<grid, kThreads, 0, s>>>(op, rows, nnz, g);
+  }
+  return cudaGetLastError();
+}
 
 // The checks K3 and K5 share: sizes; lane groups of a power of two up to 32 lanes,
 // which are whole warps unless heads lie across lanes, and then hold whole heads (H
@@ -542,18 +682,25 @@ int dgll_gat_stats(const void* indptr, const void* rows, const void* sc_src,
   return cudaGetLastError();
 }
 
+// K4, K6' and K10's rows-to-edges take the edge-major mapping's variant (vec, grid;
+// see launch_edges): vec = 4 needs their per-edge arrays and, for H > 1, their
+// per-row arrays 16-byte aligned.
 int dgll_gat_alpha(const void* rows, const void* sc_src, const void* s_dst, const void* m,
                    const void* den, void* alpha, void* lgrad, long long nnz, int heads,
-                   float slope, void* stream) {
-  if (nnz < 0 || heads <= 0) return cudaErrorInvalidValue;
-  const int64_t n = (int64_t)nnz * heads;
-  if (n == 0) return cudaSuccess;
-  gat_alpha_kernel<<<stride_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rows), static_cast<const float*>(sc_src),
-      static_cast<const float*>(s_dst), static_cast<const float*>(m),
-      static_cast<const float*>(den), static_cast<float*>(alpha),
-      static_cast<float*>(lgrad), n, heads, slope);
-  return cudaGetLastError();
+                   float slope, int vec, int grid, void* stream) {
+  const AlphaOp op{static_cast<const float*>(sc_src), static_cast<const float*>(s_dst),
+                   static_cast<const float*>(m), static_cast<const float*>(den),
+                   static_cast<float*>(alpha), static_cast<float*>(lgrad), slope};
+  const bool vectors = aligned16(op.sc_src, op.alpha, op.lgrad) &&
+                       (heads == 1 || aligned16(op.s_dst, op.m, op.den));
+  return launch_edges(op, vectors, rows, nnz, heads, vec, grid, stream);
+}
+
+int dgll_rows_to_edges_multi(const void* rows, const void* v, void* out, long long nnz,
+                             int heads, int vec, int grid, void* stream) {
+  const GatherOp op{static_cast<const float*>(v), static_cast<float*>(out)};
+  const bool vectors = aligned16(op.out) && (heads == 1 || aligned16(op.v));
+  return launch_edges(op, vectors, rows, nnz, heads, vec, grid, stream);
 }
 
 // K6 takes float32 [n_seg, H] scratch partial (null when n_seg is 0).
@@ -619,21 +766,6 @@ int dgll_expand_rows(const void* rows, const void* a, void* out, long long nnz, 
     expand_rows_kernel<float><<<stride_blocks(n), kThreads, 0, s>>>(
         static_cast<const int*>(rows), static_cast<const float*>(a),
         static_cast<float*>(out), n, fv);
-  return cudaGetLastError();
-}
-
-// K10's rows-to-edges: out[e] = a[rows[e]] for e < nnz; rows and out 16-byte aligned.
-int dgll_rows_to_edges(const void* rows, const void* a, void* out, long long nnz,
-                       void* stream) {
-  if (nnz < 0 || reinterpret_cast<uintptr_t>(rows) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return cudaErrorInvalidValue;
-  if (nnz == 0) return cudaSuccess;
-  const int64_t b = ((nnz >> 2) + kThreads - 1) / kThreads;
-  const int grid = (int)(b < 1 ? 1 : (b < (1 << 24) ? b : (1 << 24)));
-  rows_to_edges_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rows), static_cast<const float*>(a), static_cast<float*>(out),
-      nnz);
   return cudaGetLastError();
 }
 

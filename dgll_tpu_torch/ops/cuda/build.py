@@ -97,12 +97,12 @@ def load_library() -> ctypes.CDLL:
         "dgll_spmm_csr": [p] * 6 + [i] * 7 + [p] * 5 + [i] * 3 + [p],
         "dgll_spmm_windowed": [p] * 10 + [i] * 6 + [p],
         "dgll_gat_stats": [p] * 6 + [i] * 4 + [f] + [p] * 6 + [i] * 3 + [p],
-        "dgll_gat_alpha": [p, p, p, p, p, p, p, ll, i, f, p],
+        "dgll_gat_alpha": [p] * 7 + [ll, i, f, i, i, p],
         "dgll_edges_to_rows_sum": [p] * 4 + [i] * 4 + [p] * 5 + [i] * 3 + [p],
         "dgll_edges_to_rows_max": [p] * 4 + [i] * 4 + [p] * 5 + [i] * 3 + [p],
         "dgll_gat_bwd_softmax": [p] * 8 + [i] * 4 + [p] * 5 + [i] * 3 + [p],
         "dgll_expand_rows": [p, p, p, ll, i, i, p],
-        "dgll_rows_to_edges": [p, p, p, ll, p],
+        "dgll_rows_to_edges_multi": [p, p, p, ll, i, i, i, p],
         "dgll_sddmm": [p, p, p, p, ll, i, i, i, p],
         "dgll_probe_copy": [p, p, ll, p],
         "dgll_probe_dynread": [p, p, p, ll, i, i, p],

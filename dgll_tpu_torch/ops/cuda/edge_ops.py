@@ -12,15 +12,17 @@ tensors, or raises; ``launches[name]`` counts the launches:
 | Name | TPU kernel it replaces | Kernel launched |
 | --- | --- | --- |
 | ``edges_to_rows_max`` | K6 ``_e2r_multi_kernel``, max mode | K6, max mode |
-| ``rows_to_edges_multi`` | K6′ ``_r2e_multi_kernel`` | K7 at width H |
-| ``rows_to_edges`` | K10 ``_rows_to_edges_kernel`` | K10's width-1 kernel |
+| ``rows_to_edges_multi`` | K6′ ``_r2e_multi_kernel`` | K6′ |
+| ``rows_to_edges`` | K10 ``_rows_to_edges_kernel`` | K6′ at H = 1 |
 | ``edges_to_rows:sum`` | K10 ``_reduce_kernel``, sum and sum_all | K6 sum at H = 1 |
 | ``edges_to_rows:max`` | K10 ``_reduce_kernel``, max | K6 max at H = 1 |
 | ``sddmm_edges`` | K9 ``_sddmm_kernel`` | K9 |
 
-K6's sum and sum_all modes at H heads are ``gat_fused.edges_to_rows_sum``, counted
-in ``gat_fused.launches``. The rank of the argument tells the single-head K10
-wrappers (``[n_rows]``, ``[nnz]``) from the multi-head ones, as in the JAX package.
+K6′ runs K4's edge-major mapping (``gat_fused.edge_plan``) with a gather for its
+arithmetic. K6's sum and sum_all modes at H heads are
+``gat_fused.edges_to_rows_sum``, counted in ``gat_fused.launches``. The rank of the
+argument tells the single-head K10 wrappers (``[n_rows]``, ``[nnz]``) from the
+multi-head ones, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -75,28 +77,42 @@ def edges_to_rows_max(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
                         gat_csr.edges_to_rows_max_reference, v, c, v)
 
 
+def _rows_to_edges_launch(c: ChunkedCSR, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """Launch K6′'s kernel once on ``v`` (``[n_rows, heads]``, or ``[n_rows]`` at one
+    head): ``out[e] = v[row of e]``, in the variant of ``edge_plan``."""
+    dev, nnz = v.device, c.src.numel()
+    _check("rows", c.rows, torch.int32, dev, nnz)
+    _check("v", v, torch.float32, dev)
+    out = torch.empty((nnz, heads) if v.dim() == 2 else nnz, device=dev)
+    plan = gf.edge_plan(nnz, heads, c.rows, (out,), (v,))
+    gf._launch("rows_to_edges_multi", dev, c.rows.data_ptr(), v.data_ptr(), out.data_ptr(),
+               nnz, heads, *plan)
+    return out
+
+
+def rows_to_edges_multi_cuda(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
+    """Launch K6′ once: ``[n_rows, H] -> [nnz, H]``, ``out[e] = v[row of e]``."""
+    if v.device.type != "cuda" or v.dim() != 2 or v.shape[0] != c.n_rows:
+        raise ValueError(f"v: need a [n_rows={c.n_rows}, H] CUDA tensor, "
+                         f"got {tuple(v.shape)} on {v.device}")
+    return _rows_to_edges_launch(c, v, v.shape[1])
+
+
 def rows_to_edges_multi(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
-    """K6′: ``[n_rows, H] -> [nnz, H]``, ``out[e] = v[row of e]``, by K7's kernel."""
+    """K6′: ``[n_rows, H] -> [nnz, H]``, ``out[e] = v[row of e]``."""
     _need_rank("v", v, 2)
-    return gf._dispatch(launches, "rows_to_edges_multi", gf.expand_rows_cuda,
+    return gf._dispatch(launches, "rows_to_edges_multi", rows_to_edges_multi_cuda,
                         gat_csr.rows_to_edges_reference, v, c, v)
 
 
 def rows_to_edges_cuda(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:
-    """Launch K10's rows-to-edges kernel once: ``[n_rows] -> [nnz]``, 4 edges a
-    thread with 16-byte loads of ``c.rows`` (which must be 16-byte aligned, as a
-    layout's own tensor is)."""
+    """Launch K10's rows-to-edges once: ``[n_rows] -> [nnz]``, K6′'s kernel at one
+    head (4 edges a thread, with 16-byte loads of ``c.rows`` where it is 16-byte
+    aligned, as a layout's own tensor is)."""
     if v.device.type != "cuda" or v.dim() != 1 or v.shape[0] != c.n_rows:
         raise ValueError(f"v: need a [n_rows={c.n_rows}] CUDA tensor, "
                          f"got {tuple(v.shape)} on {v.device}")
-    dev, nnz = v.device, c.src.numel()
-    _check("rows", c.rows, torch.int32, dev, nnz)
-    _check("v", v, torch.float32, dev)
-    if c.rows.data_ptr() % 16:
-        raise ValueError("rows: need a 16-byte aligned tensor")
-    out = torch.empty(nnz, device=dev)
-    gf._launch("rows_to_edges", dev, c.rows.data_ptr(), v.data_ptr(), out.data_ptr(), nnz)
-    return out
+    return _rows_to_edges_launch(c, v, 1)
 
 
 def rows_to_edges(c: ChunkedCSR, v: torch.Tensor) -> torch.Tensor:

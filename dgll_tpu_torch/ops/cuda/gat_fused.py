@@ -25,6 +25,11 @@ max. For H a power of two up to 32 (``heads_across_lanes``) a group of
 bound by their bytes and by the latency of short rows; the launch counters still
 count one launch a wrapper call.
 
+K4 runs on an edge-major mapping whose variant ``edge_plan`` picks: float4 units of
+4 heads of an edge (H % 4 == 0), or of 4 edges at H = 1, where the pointers are
+16-byte aligned, else an edge a unit; a thread a unit. K6′ and K10's
+rows-to-edges (``edge_ops.py``) run the same mapping with a gather.
+
 Deviations from the JAX op, none of which changes the math: per-edge arrays are in
 the CSR's edge order (no padding slots), and the per-head products use ``[E, H, F]``
 views (the TPU's rank-2 ``head_proj``/``head_expand`` matrices avoid a tile padding
@@ -33,7 +38,7 @@ the GPU does not have).
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,19 +138,56 @@ def gat_stats_cuda(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor,
     return m, den
 
 
+class EdgePlan(NamedTuple):
+    """The variant of the edge-major mapping of K4, K6′ and K10's rows-to-edges
+    (``csrc/gat_csr.cu``: ``launch_edges``), as its C entries take it."""
+
+    vec: int   # 4: float4 units of 4 heads of an edge, or at H = 1 of 4 edges; 1: an edge
+    grid: int  # blocks of EDGE_THREADS threads, striding over the units
+
+
+EDGE_THREADS = 256  # a block of the edge-major kernels (gat_csr.cu: kThreads)
+EDGE_BLOCKS = 2**31 - 1  # the most blocks a grid takes
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def edge_plan(nnz: int, heads: int, rows: torch.Tensor, per_edge, per_row) -> EdgePlan:
+    """The variant of the edge-major mapping for per-edge arrays ``per_edge``
+    (``[nnz, heads]``, written or read a unit at a time) whose row values come from
+    ``per_row`` (``[n_rows, heads]``) through ``rows``: float4 units of 4 heads where
+    H % 4 == 0 and ``per_edge`` and ``per_row`` are 16-byte aligned; at H = 1, 4 edges
+    a unit where ``rows`` and ``per_edge`` are; otherwise an edge a unit. The grid
+    has a thread a unit, at most ``EDGE_BLOCKS`` blocks (the kernels stride beyond):
+    on an H100 that was fastest, or within 2% of grids of 1-4 waves."""
+    if heads == 1 and _aligned(rows, *per_edge):
+        vec, units = 4, nnz // 4
+    elif heads % 4 == 0 and _aligned(*per_edge, *per_row):
+        vec, units = 4, nnz * (heads // 4)
+    else:
+        vec, units = 1, nnz
+    blocks = -(-units // EDGE_THREADS)
+    return EdgePlan(vec, max(1, min(blocks, EDGE_BLOCKS)))
+
+
 def gat_alpha_cuda(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor,
                    m: torch.Tensor, den: torch.Tensor, negative_slope: float = 0.2
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4 once: ``(alpha, lgrad)``, each ``[nnz, H]``."""
+    """Launch K4 once: ``(alpha, lgrad)``, each ``[nnz, H]``, in the variant of
+    ``edge_plan``."""
     h, dev = _per_edge(c, sc_src)
-    _check_layout(c, dev)
+    nnz = c.src.numel()
+    _check("rows", c.rows, torch.int32, dev, nnz)  # K4 reads no indptr
     _check_f32(dev, sc_src.shape, sc_src=sc_src)
     _check_f32(dev, (c.n_rows, h), s_dst=s_dst, m=m, den=den)
     alpha = torch.empty_like(sc_src)
     lgrad = torch.empty_like(sc_src)
+    plan = edge_plan(nnz, h, c.rows, (sc_src, alpha, lgrad), (s_dst, m, den))
     _launch("gat_alpha", dev, c.rows.data_ptr(), sc_src.data_ptr(), s_dst.data_ptr(),
-            m.data_ptr(), den.data_ptr(), alpha.data_ptr(), lgrad.data_ptr(),
-            c.src.numel(), h, float(negative_slope))
+            m.data_ptr(), den.data_ptr(), alpha.data_ptr(), lgrad.data_ptr(), nnz, h,
+            float(negative_slope), *plan)
     return alpha, lgrad
 
 

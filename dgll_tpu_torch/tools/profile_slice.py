@@ -25,10 +25,10 @@ steps through the windowed layout (K2 and K1 on the residual edges) and through 
 alone, without the hub-row probe (the graph has no hubs).
 
 With ``--small`` it splits the time of each kernel under 0.15 ms at the slices'
-shapes, and of the library calls beside them, into the device time of the kernels it
-launches and the host time of its wrapper (``small_kernels``): at a few tens of
-microseconds the wrapper's host work before the launch is part of what a CUDA-event
-timing of one call reads.
+shapes (and of K4 at 8 heads beside its one head), and of the library calls beside
+them, into the device time of the kernels it launches and the host time of its
+wrapper (``small_kernels``): at a few tens of microseconds the wrapper's host work
+before the launch is part of what a CUDA-event timing of one call reads.
 
 Each result is a line; the last line is one JSON object with every number.
 """
@@ -251,7 +251,8 @@ def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS) -> dict:
     nnz, offsets = c.src.numel(), c.indptr.long()
     e1, e8, r1, r8 = r(nnz, 1), r(nnz, 8), r(c.n_rows, 1), r(c.n_rows, 8)
     v1, s1 = e1[:, 0].contiguous(), r1[:, 0].contiguous()
-    m, den = gf.gat_stats_cuda(c, e1, r1)
+    m1, den1 = gf.gat_stats_cuda(c, e1, r1)
+    m8, den8 = gf.gat_stats_cuda(c, e8, r8)
     x = r(50_000, 256)
     scale = q.column_scale(x)
     calls = {
@@ -264,9 +265,10 @@ def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS) -> dict:
         "segment_reduce max (K10 reduce)": lambda: torch.segment_reduce(
             v1, "max", offsets=offsets),
         "K3 H=1": lambda: gf.gat_stats_cuda(c, e1, r1),
-        "K4 H=1": lambda: gf.gat_alpha_cuda(c, e1, r1, m, den),
+        "K4 H=8": lambda: gf.gat_alpha_cuda(c, e8, r8, m8, den8),
+        "K4 H=1": lambda: gf.gat_alpha_cuda(c, e1, r1, m1, den1),
         "K5 H=1": lambda: gf.gat_bwd_softmax_cuda(c, e1, e1, e1, r1),
-        "K6' H=8": lambda: gf.expand_rows_cuda(c, r8),
+        "K6' H=8": lambda: tk.rows_to_edges_multi_cuda(c, r8),
         "K6 sum H=8": lambda: gf.edges_to_rows_sum_cuda(c, e8),
         "K8 fill 50000x256": lambda: quantize_int8_cuda(x, scale, "xla"),
     }
