@@ -40,19 +40,25 @@ through the primitive probe (``dgll_tpu_torch.tools.probe``):
   each kernel and both layers timed;
 * the host minibatch path (phases 16-18): the int8 quantizer K8 against its plain
   version, exactly, in both rounding modes, without noise, with supplied noise and
-  with its in-kernel Philox noise, at the int8 cache's shape, and timed there; the
+  with its in-kernel Philox noise: its pass alone at the tests' shapes and the int8
+  cache's, and its whole fill (column maxima, scales and pass in one call) on ten
+  shapes with zero and NaN columns, misaligned inputs and d % 4 != 0; both timed at
+  the cache's shape, the fill in turns with the composition it replaces, and its
+  peak memory beside the composition's; the
   CLI's minibatch GraphSAGE (with the feature cache on 25% of the rows) and GCN
   runs, 3 epochs each, with each batch's time split into sampling, copies, feature
   fetch and the device step, and the device's idle share over an epoch; the feature
   cache's scenario (``benchmarks/cache_bench.py``): a device-resident run, float32
   caches on 0, 25 and 100% of the rows, and float32 against int8 at one byte budget,
-  with the int8 fill's K8 launch counted;
+  with the int8 fill's K8 launch counted and its peak memory;
 * the primitive probes P0-P4 (phase 19): each probe's kernel against its plain
   version on ragged shapes and at the probe script's full sizes (E 2^22 rows of 128
   floats; P0, P2, P4 exact, P2b within rtol 1e-5, P3 within rtol 1e-4 and 1e-5 x
   max|ref|), each timed beside its plain version, ``copy_``, ``index_select`` or
-  ``index_add_``, and its bound; P0 against ``copy_`` and ``clone`` in alternating
-  turns; P3 again with every row sent to 64 or 1,024
+  ``index_add_``, and its bound; P4 in both of its paths (direct and bucketed) on the
+  ragged cases, at the probe's size, at GAT's ``h[src]`` gather and at item 1's
+  feature gather, timed beside ``index_select``; P0 against ``copy_`` and ``clone`` in
+  alternating turns; P3 again with every row sent to 64 or 1,024
   destination rows (contended atomics, integer values: exact); then the probe
   tool's run at those sizes, whose JSON (with ``index_select`` as P1 and P0's
   achieved bandwidth) it prints.
@@ -170,7 +176,8 @@ PROBE_KERNELS = (
     ("p2b_onehot (P2b: one-hot product on the tensor cores, TF32 hi + lo)", "p2b_onehot",
      102),
     ("p3_dynacc (P3: scatter-add through L2 atomics, zeroing included)", "p3_dynacc", 126),
-    ("p4_dma (P4: row gather by bulk copies, 8 in flight a block)", "p4_dma", 171),
+    ("p4_dma (P4: row gather, in order or bucketed by table slice, as p4_plan picks)",
+     "p4_dma", 171),
 )
 # P3 under contention (phase 19): all E message rows into this many destination rows
 P3_HUB_ROWS = (64, 1024)
@@ -1382,6 +1389,7 @@ def phase_quantize_check() -> float:
               f"exactly in both modes, without noise, with supplied and Philox noise; "
               f"scale bit-equal to the CPU's")
     torch.cuda.synchronize()
+    worst = max(worst, _fill_check(gen))
     # Philox: seeded, unbiased, within one step of round-to-nearest
     x = _quantize_inputs(50_000, 256, gen)
     det = q.quantize_int8(x)
@@ -1402,14 +1410,76 @@ def phase_quantize_check() -> float:
     return float(worst)
 
 
+# K8's fill cases (phase 16): (n, d, aligned, NaN column); n below one front of the
+# column-max pass (3 rows at d=256, 1 row), d % 4 != 0 (100, 7, 1), x misaligned
+FILL_CASES = ((300, 64, True, True), (257, 100, True, False), (1, 1, True, False),
+              (40, 7, True, True), (333, 64, False, True), (3, 256, True, False),
+              (1, 256, True, True), (5000, 2048, True, True), (50_000, 256, True, True),
+              (50_000, 256, False, False))
+
+
+def _fill_check(gen) -> int:
+    """Phase 16: K8's whole fill (``quantize_int8_fill_cuda``, one C call) against the
+    plain fill (``quantize_int8_fill_reference``: column maxima over row tiles, the
+    scale, the plain pass) on the same inputs, q exactly and the scale bit for bit, in
+    both modes, without noise, with supplied noise (aligned and a view 4 bytes into
+    its buffer) and with Philox noise, on ``FILL_CASES``: a zero column (scale
+    1e-12 / 127) and, where asked, a NaN in column 2 (scale NaN, its values 0); the
+    plain fill's scale bit-equal to ``column_scale``'s on the card. Returns the largest
+    difference (0)."""
+    from dgll_tpu_torch.ops import quantize as q
+    from dgll_tpu_torch.ops.cuda.quantize import quantize_int8_fill_cuda
+
+    worst = 0
+    for n, d, aligned, nan in FILL_CASES:
+        x = _quantize_inputs(n, d, gen, aligned)
+        if nan:
+            x[n // 2, 2] = float("nan")
+        nbuf = torch.empty(n * d + 1, device="cuda")
+        noise = nbuf[(0 if aligned else 1):][:n * d].view(n, d)
+        noise.copy_(torch.rand(n, d, generator=gen, device="cuda") - 0.5)
+        philox = torch.from_numpy(q.philox_uniform(n, d, 7)).cuda()
+        for mode in q.MODES:
+            for label, kw, u in (("none", {}, None), ("supplied", {"noise": noise}, noise),
+                                 ("philox", {"seed": 7}, philox)):
+                got_q, got_s = quantize_int8_fill_cuda(x, mode, **kw)
+                want_q, want_s = q.quantize_int8_fill_reference(x, mode, u)
+                what = f"K8's fill equals the plain fill ({n}x{d}, aligned {aligned}, NaN " \
+                       f"{nan}, {mode}, noise {label})"
+                check(torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)),
+                      what + ": scale bits")
+                diff = int((got_q.int() - want_q.int()).abs().max())
+                worst = max(worst, diff)
+                check(diff == 0, what + ": q")
+        check(torch.equal(want_s.view(torch.int32), q.column_scale(x).view(torch.int32)),
+              "the plain fill's scale is column_scale's")
+        if nan:
+            check(bool(torch.isnan(got_s[2])) and not bool(got_q[:, 2].any()),
+                  "a NaN column: scale NaN, values 0")
+        if d > 3:
+            check(got_s[3].item() == np.float32(1e-12) / np.float32(127), "zero column")
+    torch.cuda.synchronize()
+    print(f"[16 check] K8's fill equals the plain fill, q exactly and scale bit for bit, "
+          f"in both modes and all three noise sources, on {len(FILL_CASES)} shapes "
+          f"(1-50,000 rows, d 1-2,048, d % 4 != 0, misaligned x and noise, zero and NaN "
+          f"columns)")
+    return worst
+
+
 def phase_quantize_time() -> dict:
     """Phase 16: K8 at the int8 cache's fill shape (50,000 x 256, no noise, "xla"
-    mode, what ``HBMFeatureCache.fill`` runs), beside its plain version,
-    ``torch.fake_quantize_per_channel_affine`` over [-127, 127] (the same rounding to
-    a float result; the port never calls it) and its bound: x read, q written and
-    the scales, 4 float32 operations per value. Also with supplied noise."""
+    mode). The pass alone (``quantize_int8_cuda``, the scale given), beside its plain
+    version, ``torch.fake_quantize_per_channel_affine`` over [-127, 127] (the same
+    rounding to a float result; the port never calls it) and its bound: x read, q
+    written and the scales, 4 float32 operations per value; also with supplied noise.
+    Then the whole fill, what ``HBMFeatureCache.fill`` runs (``quantize_int8_fill_cuda``,
+    one C call), beside the plain fill and the parent's composition (``column_scale``
+    on the card, then the pass), in turns; there is no one library call of the whole
+    fill. Its bound is the pass's: x read once, q and the scale written. Then the
+    peak memory of one fill and of the composition above what is held."""
     from dgll_tpu_torch.ops import quantize as q
-    from dgll_tpu_torch.ops.cuda.quantize import quantize_int8_cuda
+    from dgll_tpu_torch.ops.cuda.quantize import quantize_int8_cuda, quantize_int8_fill_cuda
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     x = _quantize_inputs(50_000, 256, gen)
@@ -1417,7 +1487,7 @@ def phase_quantize_time() -> dict:
     zero = torch.zeros(256, dtype=torch.int32, device="cuda")
     noise = torch.rand(x.shape, generator=gen, device="cuda") - 0.5
     result = {}
-    for label, u in (("fill", None), ("supplied noise", noise)):
+    for label, u in (("pass alone", None), ("pass alone, supplied noise", noise)):
         kw = {} if u is None else {"noise": u}
         reads = (x, scale) if u is None else (x, scale, u)
         case = Case(lambda: quantize_int8_cuda(x, scale, "xla", **kw),
@@ -1429,6 +1499,34 @@ def phase_quantize_time() -> dict:
         gbs = (nbytes(*reads) + x.numel()) / (t["ms"] * 1e-3) / 1e9
         print(f"[16 time] 50000x256 {label}: {describe(t)}; {gbs:.1f} GB/s moved")
         result[label] = t
+    case = Case(lambda: quantize_int8_fill_cuda(x, "xla"),
+                lambda: q.quantize_int8_fill_reference(x, "xla"), None, (x,), 4 * x.numel())
+    t = timed(case, quantize_int8_fill_cuda(x, "xla"))
+    calls = {"composition": lambda: quantize_int8_cuda(x, q.column_scale(x), "xla"),
+             "fill": lambda: quantize_int8_fill_cuda(x, "xla")}
+    turns = [cuda_median_ms(calls[k]) for k in ("composition", "fill", "fill", "composition")]
+    t["composition_ms"] = (turns[0] + turns[3]) / 2
+    print(f"[16 time] 50000x256 whole fill: {describe(t)}; in turns, column_scale + pass / "
+          f"fill / fill / column_scale + pass: "
+          + " / ".join(f"{v:.4f}" for v in turns) + " ms")
+    peaks = {}
+    for name, fn in (("fill", lambda: quantize_int8_fill_cuda(x, "xla")),
+                     ("column_scale + pass", lambda: quantize_int8_cuda(x, q.column_scale(x),
+                                                                        "xla"))):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - held) / 1e6
+        del out
+    t["peak_mb"], t["composition_peak_mb"] = peaks["fill"], peaks["column_scale + pass"]
+    print(f"[16 time] 50000x256 peak memory above the held: fill {peaks['fill']:.3f} MB, "
+          f"column_scale + pass {peaks['column_scale + pass']:.3f} MB (x itself: "
+          f"{nbytes(x) / 1e6:.1f} MB)")
+    check(peaks["column_scale + pass"] - peaks["fill"] >= 0.99 * nbytes(x) / 1e6,
+          "the fill's peak is an [n, d] float32 temporary below the composition's")
+    result["whole fill"] = t
     return result
 
 
@@ -1593,7 +1691,9 @@ def phase_cache() -> dict:
     float32 against int8 at a budget of 6.25% of the rows in float32. Each run's
     first pass gives its losses, ms per batch is the best of 3 passes (one warm-up
     step first). The 100% cache's losses equal the device-resident run's within
-    1e-5; the int8 run counts exactly one K8 launch (its one fill)."""
+    1e-5; the int8 run counts exactly one K8 launch (its one fill, of 50,000 x 256).
+    Each budget run records the peak memory of its fill above what was held (the
+    rows staged in float32 on the card, then the cache)."""
     import copy
     import functools as ft
 
@@ -1650,12 +1750,18 @@ def phase_cache() -> dict:
     for quantize in (False, True):
         _zero_all_counters()
         cache = HBMFeatureCache(host_feats, quantize=quantize)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         k = cache.auto_cache(out_degree, budget)
+        torch.cuda.synchronize()
+        fill_peak_mb = (torch.cuda.max_memory_allocated() - held) / 1e6
         launches = k8.launches
         losses, ms = run(cache.fetch)
         check(k8.launches == launches, "fetch launches no K8")
         row = {"losses": losses, "ms_per_batch": ms, "miss_rate": cache.miss_rate()[0],
-               "cached_rows": k, "byte_budget_mb": budget / 1e6, "k8_launches": launches}
+               "cached_rows": k, "byte_budget_mb": budget / 1e6, "k8_launches": launches,
+               "fill_peak_mb": fill_peak_mb}
         if quantize:
             check(launches == 1, f"one K8 launch for the int8 fill, got {launches}")
             check(k == 4 * int(0.0625 * n), "int8 holds four times the rows")
@@ -1707,9 +1813,75 @@ def _probe_edge_cases() -> None:
              ("p4_dma", (ids((3, 7), 50), rows(50, 4)))]
     for key, args in cases:
         probe.max_error(key, kp.KERNELS[key](*args), getattr(pp, f"{key}_reference")(*args))
+    # P4 in both of its paths (the plan takes the direct one at these sizes): buckets of
+    # 16 rows, ids spread, in one bucket only and in the last, partial bucket
+    p4_cases = [args for key, args in cases if key == "p4_dma"]
+    p4_cases += [(ids((4, 300), 16) + 32, rows(3000, 128)), (ids((4, 300), 8) + 2992, rows(3000, 64))]
+    for idx, x in p4_cases:
+        want = pp.p4_dma_reference(idx, x)
+        for plan in (pp.P4Plan(bucketed=False), pp.p4_bucketed_plan(x.shape[0], x.shape[1],
+                                                                    16 * 4 * x.shape[1])):
+            probe.max_error("p4_dma", kp.p4_dma_cuda(idx, x, plan), want)
     torch.cuda.synchronize()
     print(f"[19 probes] {len(cases)} ragged cases (rows 21-1001, widths 4-128, an index "
-          f"outside P2b's window) agree with the plain versions")
+          f"outside P2b's window) agree with the plain versions; P4 also in both paths on "
+          f"{len(p4_cases)} cases (ids in one bucket, in the last partial bucket)")
+
+
+# P4's further shapes (phase 19) are GAT's msg = h[src] gather (the slices' graph's
+# own dst-major ids, gat_fused.py:290) and item 1's feature gather, (rows, F, E) below:
+# a [15, 10] sample of a 1024 batch; uniform ids stand in for the device sampler's,
+# which the port does not have yet
+P4_ITEM1 = (2_400_000, 100, 1024 * (1 + 15 + 150))
+
+
+def _probe_p4_shapes(x: torch.Tensor, idx: torch.Tensor) -> dict:
+    """Phase 19: P4 at the probe's size, at GAT's gather and at item 1's feature
+    gather, in both paths, each exactly against its plain version; then the two paths
+    and ``index_select`` timed in turns (direct, bucketed, index_select, index_select,
+    bucketed, direct; each a median of 15), beside the plan's choice and the bound
+    (the ids, the table rows they touch and the output, once each)."""
+    from dgll_tpu_torch.ops import probes as pp
+    from dgll_tpu_torch.ops.cuda import probes as kp
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(193)
+    c, _, n_node = slice_graph()
+    rows, f, e = P4_ITEM1
+    shapes = {
+        "probe": (x, idx.view(-1)),
+        "GAT msg = h[src]": (torch.randn(n_node, 64, generator=gen, device="cuda"), c.src),
+        "item 1 features": (torch.randn(rows, f, generator=gen, device="cuda"),
+                            torch.randint(0, rows, (e,), dtype=torch.int32, generator=gen,
+                                          device="cuda")),
+    }
+    result = {}
+    for label, (tab, ids) in shapes.items():
+        (rows, f), e = tab.shape, ids.numel()
+        want = pp.p4_dma_reference(ids, tab)
+        paths = {"direct": pp.P4Plan(bucketed=False), "bucketed": pp.p4_bucketed_plan(rows, f)}
+        for path, plan in paths.items():
+            check(torch.equal(kp.p4_dma_cuda(ids, tab, plan), want),
+                  f"P4 {path} equals its plain version exactly at {label}")
+        del want
+        calls = {"direct": lambda: kp.p4_dma_cuda(ids, tab, paths["direct"]),
+                 "bucketed": lambda: kp.p4_dma_cuda(ids, tab, paths["bucketed"]),
+                 "index_select": lambda: tab.index_select(0, ids)}
+        ms = collections.defaultdict(list)
+        for k in ("direct", "bucketed", "index_select", "index_select", "bucketed", "direct"):
+            ms[k].append(cuda_median_ms(calls[k]))
+        t = {k: sum(v) / 2 for k, v in ms.items()}
+        touched = int(torch.unique(ids).numel())
+        t["bound_ms"] = bound(nbytes(ids) + (touched + e) * f * 4, 0)[0]
+        t["plan"] = "bucketed" if pp.p4_plan(rows, f, e).bucketed else "direct"
+        result[label] = t
+        print(f"[19 probes] p4_dma at {label} ([{rows}, {f}], {e} ids, {e / rows:.2f} a "
+              f"row, {touched} rows touched): exact in both paths; direct "
+              f"{t['direct']:.4f} ms, bucketed {t['bucketed']:.4f}, index_select "
+              f"{t['index_select']:.4f}, bound {t['bound_ms']:.4f}; the plan takes "
+              f"{t['plan']} ({t['bound_ms'] / t[t['plan']]:.1%} of the bound, "
+              f"{t['index_select'] / t[t['plan']]:.2f}x index_select)")
+    return result
 
 
 def _probe_p3_contended(msg: torch.Tensor) -> None:
@@ -1766,8 +1938,9 @@ def phase_probe_kernels() -> dict:
     ``probe_calls``): P0, P2 and P4 exactly, P2b elementwise within rtol 1e-5, P3
     within rtol 1e-4 and 1e-5 x max|ref| (``tools/probe.max_error``); then each timed
     beside its plain version, one library call (``copy_``, ``index_select``,
-    ``index_add_``) and its bound; P0 against ``copy_`` and ``clone`` in turns; then
-    P3 under contention. A gather's bytes count the
+    ``index_add_``) and its bound; P4 at two further shapes (``_probe_p4_shapes``);
+    P0 against ``copy_`` and ``clone`` in turns; then P3 under contention. A gather's
+    bytes count the
     table rows its ids touch. P2b's bound is the larger of its bytes and the function's
     one product (2 x E x WIN x F operations) at TF32's 495 TFLOP/s: splitting win
     into hi + lo is the kernel's way to f32 accuracy, not work the function needs."""
@@ -1817,6 +1990,7 @@ def phase_probe_kernels() -> dict:
         result[key] = {"err": err, "times": t}
         print(f"[19 probes] {key}: max abs err {err:.3e} against its plain version; "
               f"{describe(t)}; {moved / (t['ms'] * 1e-3) / 1e9:.1f} GB/s moved")
+    result["p4_shapes"] = _probe_p4_shapes(x, idx_h)
     _probe_p0_turns(msg)
     _probe_p3_contended(msg)
     return result
@@ -1897,9 +2071,9 @@ def main() -> int:
     print(f"[12 bench] step_ms windowed {bench['auto']['step_ms']:.4f}, "
           f"K1 alone {bench['chunked']['step_ms']:.4f}")
     kernels.append(kernel_row(
-        "quantize_int8 (K8: per-column int8, the int8 cache's fill)", QUANTIZE_SOURCE,
-        QUANTIZE_REPLACES, cache["budget_6.25pct_int8"]["k8_launches"], k8_err,
-        k8_times["fill"]))
+        "quantize_int8_fill (K8: the int8 cache's whole fill in one call: column maxima, "
+        "scales, the quantize pass)", QUANTIZE_SOURCE, QUANTIZE_REPLACES,
+        cache["budget_6.25pct_int8"]["k8_launches"], k8_err, k8_times["whole fill"]))
     for name, key, line in PROBE_KERNELS:
         kernels.append(kernel_row(name, PROBES_SOURCE, f"{PROBE_SCRIPT}:{line}",
                                   probe_counts[key], probe_kernels[key]["err"],

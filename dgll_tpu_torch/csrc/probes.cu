@@ -50,14 +50,19 @@
 //   accumulator is zeroed by the same call (cudaMemsetAsync), as the TPU kernel zeroes
 //   it at grid step 0. The f32 sums depend on the order of the atomics: not bitwise
 //   repeatable.
-// * P4: the TPU's per-row DMA with DEPTH = 8 copies in flight becomes Hopper's 1-D
-//   bulk copy (cp.async.bulk ... mbarrier::complete_tx::bytes): one lane of a one-warp
-//   block issues one F * 4-byte copy a row from global into a ring of 8 shared-memory
-//   slots, each with its mbarrier; the warp waits on a slot's barrier, writes the row
-//   out, and the slot is refilled with the row 8 ahead. A block walks 512-row chunks
-//   (grid-stride); a shared-memory ring of 512 rows would be 256 KB, above the
-//   227 KB a block may have, so each row is written out as it lands instead of the
-//   whole chunk at its end.
+// * P4: the TPU's per-row DMA ring (DEPTH copies in flight, rows in id order) is not
+//   carried over. At the probe's size the table (256 MB) is five times the card's L2
+//   and the ids draw each row about 8 times, so in id order most reads miss L2. The
+//   bucketed path reads the table one slice at a time: a bucket pass (three small
+//   kernels) sorts the positions by the bucket of their row (2^shift rows, a few MB of
+//   table), and the gather walks them in that order with few warps resident (the
+//   positions in flight cover about one bucket) and many loads in flight a warp, so a
+//   row's repeated draws hit L2 and the table comes from memory about once. Its writes
+//   land at scattered rows, whole 128-byte lines each. The direct path, the same
+//   gather in id order, serves tables that L2 holds and ids that draw a row too few
+//   times to pay for the bucket pass; the plan is the wrapper's (ops/probes.py:
+//   p4_plan). Both write each output row once, so both are exact and deterministic
+//   whatever order the bucket pass leaves inside a bucket.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,8 +76,12 @@ constexpr int kOnehotWarps = 8;
 constexpr int kMTiles = 4;          // P2b: 16-row M tiles a warp takes at once
 constexpr int kNTiles = 4;          // P2b: 8-column N tiles a warp takes at once
 constexpr int kWinPad = 8;          // P2b: floats of padding after each window row
-constexpr int kDepth = 8;           // P4: copies in flight a block (the TPU's DEPTH)
-constexpr int kDmaBlocksPerSm = 16;
+constexpr int kGatherThreads = 256; // P4's gather: threads a block, at most
+constexpr int kBucketThreads = 512;
+constexpr int kSpanItems = 8;       // P4: positions a thread of the bucket pass takes
+constexpr int kSpan = kBucketThreads * kSpanItems;   // positions a block of it takes
+constexpr int kMaxBuckets = 8192;   // P4: counters of the bucket pass
+constexpr int kScanThreads = 1024;
 
 int sm_count() {
   int dev = 0, n = 0;
@@ -230,81 +239,180 @@ dynacc_kernel(const int* __restrict__ idx, const float* __restrict__ msg,
   }
 }
 
-// ------------------------------------------------- P4: per-row bulk copies
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-// one arrival that also expects `bytes` of transactions, then the copy that brings them
-__device__ __forceinline__ void bulk_row(float* dst, const float* src, uint32_t bytes,
-                                         uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@!P1 bra LAB_WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-__global__ void __launch_bounds__(32)
-dma_kernel(const int* __restrict__ idx, const float* __restrict__ x,
-           float* __restrict__ out, int64_t e, int chunk, int f) {
-  extern __shared__ __align__(128) unsigned char dma_smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(dma_smem);               // [kDepth]
-  float* ring = reinterpret_cast<float*>(dma_smem + 128);               // [kDepth, f]
-  const int lane = threadIdx.x;
-  const uint32_t bytes = static_cast<uint32_t>(f) * 4u;
-  const int64_t chunks = (e + chunk - 1) / chunk;
-  // this block's rows, in order: the rows of chunks blockIdx.x, + gridDim.x, ...
-  const int64_t my_chunks = blockIdx.x < chunks ? (chunks - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  auto row_of = [&](int64_t t) -> int64_t {   // t-th row of this block, or -1
-    const int64_t c = blockIdx.x + (t / chunk) * (int64_t)gridDim.x;
-    const int64_t row = c * chunk + t % chunk;
-    return (t / chunk < my_chunks && row < e) ? row : -1;
-  };
-  if (lane == 0) {
-    for (int s = 0; s < kDepth; ++s) bar_init(bars + s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncwarp();
-  if (lane == 0) {                      // warm up the pipeline
-    for (int s = 0; s < kDepth; ++s) {
-      const int64_t row = row_of(s);
-      if (row < 0) break;
-      bulk_row(ring + s * f, x + (int64_t)__ldg(idx + row) * f, bytes, bars + s);
-    }
-  }
-  const int f4 = f / 4;
-  for (int64_t t = 0;; ++t) {
-    const int64_t row = row_of(t);
-    if (row < 0) break;
-    const int s = static_cast<int>(t % kDepth);
-    bar_wait(bars + s, static_cast<uint32_t>((t / kDepth) & 1));
-    const float4* src = reinterpret_cast<const float4*>(ring + s * f);
-    float4* dst = reinterpret_cast<float4*>(out + row * f);
-    for (int c = lane; c < f4; c += 32) dst[c] = src[c];
-    __syncwarp();
-    if (lane == 0) {
-      const int64_t next = row_of(t + kDepth);
-      if (next >= 0) {
-        // the warp's reads of the slot (generic proxy) come before the copy's writes
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        bulk_row(ring + s * f, x + (int64_t)__ldg(idx + next) * f, bytes, bars + s);
+// ------------------------------------------------------ P4: the row gather
+// A warp takes 32 consecutive entries of its list (one a lane): each entry is the
+// output row `pos` and the table row `row` it receives. The warp's 32 rows are
+// 32 * f4 float4 units u = r * f4 + c (row r of the 32, vector c of it); lane l moves
+// units l, l + 32, l + 64, ..., kUnroll loads issued before their stores. The unit's
+// (r, c) advances by (32 / f4, 32 % f4) a step, so no lane divides by f4 in the loop.
+// Direct path (kOrdered false): the entries are positions in order, row = idx[pos].
+// Bucketed path: they are the (pos, row) pairs of the bucket pass, in bucket order.
+// The output is written with streaming stores (st.global.cs), so that its stream does
+// not push the table's current slice out of L2.
+template <bool kOrdered, int kUnroll>
+__global__ void __launch_bounds__(kGatherThreads)
+gather_rows_kernel(const int2* __restrict__ order, const int* __restrict__ idx,
+                   const float4* __restrict__ x, float4* __restrict__ out, int64_t e,
+                   int f4) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  const int r0 = lane / f4, c0 = lane - r0 * f4;
+  const int dr = 32 / f4, dc = 32 - dr * f4;
+  for (int64_t g = warp; g * 32 < e; g += warps) {
+    const int64_t base = g * 32;
+    const int rows = static_cast<int>(e - base < 32 ? e - base : 32);
+    int pos = 0, row = 0;
+    if (lane < rows) {
+      if (kOrdered) {
+        const int2 pr = __ldcs(order + base + lane);
+        pos = pr.x;
+        row = pr.y;
+      } else {
+        pos = static_cast<int>(base + lane);
+        row = __ldg(idx + base + lane);
       }
     }
+    const int units = rows * f4;
+    int r = r0, c = c0;
+    for (int u0 = lane; u0 < units + lane; u0 += 32 * kUnroll) {
+      float4 v[kUnroll];
+      int64_t dst[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int src = r < 32 ? r : 31;   // every lane takes part in the shuffles
+        const int from = __shfl_sync(0xffffffffu, row, src);
+        const int to = __shfl_sync(0xffffffffu, pos, src);
+        const bool live = u0 + 32 * k < units;
+        dst[k] = live ? static_cast<int64_t>(to) * f4 + c : -1;
+        v[k] = live ? __ldg(x + static_cast<int64_t>(from) * f4 + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        r += dr;
+        c += dc;
+        if (c >= f4) {
+          c -= f4;
+          ++r;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k)
+        if (dst[k] >= 0) __stcs(out + dst[k], v[k]);
+    }
+  }
+}
+
+// one instance a (path, unroll): unroll 4, 8 or 16
+template <bool kOrdered>
+void launch_gather(int unroll, int grid, int threads, cudaStream_t s, const int2* order,
+                   const int* idx, const float4* x, float4* out, int64_t e, int f4) {
+  if (unroll == 4) {
+    gather_rows_kernel<kOrdered, 4><<<grid, threads, 0, s>>>(order, idx, x, out, e, f4);
+  } else if (unroll == 8) {
+    gather_rows_kernel<kOrdered, 8><<<grid, threads, 0, s>>>(order, idx, x, out, e, f4);
+  } else {
+    gather_rows_kernel<kOrdered, 16><<<grid, threads, 0, s>>>(order, idx, x, out, e, f4);
+  }
+}
+
+// In-place exclusive scan of a[0, n) by the whole block (any blockDim up to 1024):
+// each thread sums a run of ceil(n / blockDim) entries, the runs' sums are scanned
+// with warp shuffles and one shared row of warp totals, and each thread rewrites its
+// run as the prefix sums. `a` may be shared or global memory.
+__device__ void block_exclusive_scan(int* a, int n) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, static_cast<int>(threadIdx.x) * per), hi = min(n, lo + per);
+  int own = 0;
+  for (int i = lo; i < hi; ++i) own += a[i];
+  int incl = own;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < static_cast<int>(blockDim.x >> 5) ? warp_sums[lane] : 0;
+    int wi = w;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, wi, off);
+      if (lane >= off) wi += v;
+    }
+    warp_sums[lane] = wi - w;
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + incl - own;
+  for (int i = lo; i < hi; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  __syncthreads();
+}
+
+// Bucket pass, step 1: block b counts the rows of its kSpan positions by bucket
+// (row >> shift) in shared memory and adds them to the totals (zeroed before).
+__global__ void __launch_bounds__(kBucketThreads)
+bucket_count_kernel(const int* __restrict__ idx, int* __restrict__ totals, int64_t e,
+                    int shift, int nb) {
+  extern __shared__ int counts[];   // [nb]
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) counts[b] = 0;
+  __syncthreads();
+  const int64_t lo = blockIdx.x * static_cast<int64_t>(kSpan);
+  const int64_t hi = lo + kSpan < e ? lo + kSpan : e;
+  for (int64_t p = lo + threadIdx.x; p < hi; p += blockDim.x)
+    atomicAdd(counts + (__ldg(idx + p) >> shift), 1);
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += blockDim.x)
+    if (counts[b]) atomicAdd(totals + b, counts[b]);
+}
+
+// Bucket pass, step 2: the totals become each bucket's first slot (one block).
+__global__ void __launch_bounds__(kScanThreads)
+bucket_starts_kernel(int* __restrict__ totals, int nb) {
+  block_exclusive_scan(totals, nb);
+}
+
+// Bucket pass, step 3: block b sorts its kSpan positions by bucket in shared memory
+// (a rank from a shared-memory atomic, the runs' offsets by a block scan), reserves
+// each bucket's run with one atomicAdd on its cursor, and writes the (pos, row) pairs
+// out run by run, so that a warp's stores are consecutive. Runs land in the order the
+// blocks reserve them, and a run's pairs in the order of the atomics: both may change
+// from call to call; the output does not, since each output row is written once.
+__global__ void __launch_bounds__(kBucketThreads)
+bucket_scatter_kernel(const int* __restrict__ idx, int* __restrict__ cursor,
+                      int2* __restrict__ order, int64_t e, int shift, int nb) {
+  extern __shared__ __align__(16) int scatter_smem[];
+  int2* stage = reinterpret_cast<int2*>(scatter_smem);   // [kSpan]
+  int* offs = scatter_smem + 2 * kSpan;                   // [nb] counts, then offsets
+  int* base = offs + nb;                                  // [nb] the runs' first slots
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) offs[b] = 0;
+  __syncthreads();
+  const int64_t lo = blockIdx.x * static_cast<int64_t>(kSpan);
+  int row[kSpanItems], rank[kSpanItems];
+#pragma unroll
+  for (int k = 0; k < kSpanItems; ++k) {
+    const int64_t p = lo + threadIdx.x + k * kBucketThreads;
+    row[k] = p < e ? __ldg(idx + p) : -1;
+    if (row[k] >= 0) rank[k] = atomicAdd(offs + (row[k] >> shift), 1);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += blockDim.x)
+    base[b] = offs[b] ? atomicAdd(cursor + b, offs[b]) : 0;
+  __syncthreads();
+  block_exclusive_scan(offs, nb);
+#pragma unroll
+  for (int k = 0; k < kSpanItems; ++k)
+    if (row[k] >= 0)
+      stage[offs[row[k] >> shift] + rank[k]] =
+          make_int2(static_cast<int>(lo + threadIdx.x + k * kBucketThreads), row[k]);
+  __syncthreads();
+  const int here = static_cast<int>(e - lo < kSpan ? e - lo : kSpan);
+  for (int i = threadIdx.x; i < here; i += blockDim.x) {
+    const int2 pr = stage[i];
+    const int b = pr.y >> shift;
+    order[base[b] + i - offs[b]] = pr;
   }
 }
 
@@ -381,25 +489,51 @@ int dgll_probe_dynacc(const void* idx, const void* msg, void* acc, long long e,
   return cudaGetLastError();
 }
 
-// P4: out[i] = x[idx[i]] for i < e, by one bulk copy a row, 8 in flight a block; a
-// block walks `chunk`-row chunks.
-int dgll_probe_dma(const void* idx, const void* x, void* out, long long e, int chunk,
-                   int f, void* stream) {
-  if (e < 0 || chunk <= 0 || f <= 0 || f % 4 != 0) return cudaErrorInvalidValue;
-  const size_t smem = 128 + static_cast<size_t>(kDepth) * f * sizeof(float);
-  if (smem > static_cast<size_t>(max_dynamic_smem())) return cudaErrorInvalidValue;
+// P4: out[i] = x[idx[i]] for i < e < 2^31, x [rows, f]. shift < 0: the direct path,
+// the gather over the positions in order. shift >= 0: the bucketed path, in one call:
+// the bucket pass (buckets of 2^shift table rows, blocks of kSpan positions) writes
+// the (pos, row) pairs in bucket order into `order` (int2 [e]) through the cursors
+// `cursor` (int [buckets]), then the gather walks them in that order. The gather runs
+// `blocks_per_sm` blocks of `threads` threads (a multiple of 32, at most 256) an SM,
+// each lane issuing `unroll` (4, 8 or 16) loads before its stores: the warps set how
+// many positions are in flight, and so how wide a slice of the table is read at once.
+int dgll_probe_gather(const void* idx, const void* x, void* out, void* order, void* cursor,
+                      long long e, int rows, int f, int shift, int blocks_per_sm, int threads,
+                      int unroll, void* stream) {
+  if (e < 0 || e > 0x7FFFFFFFLL || rows <= 0 || f <= 0 || f % 4 != 0 || shift > 30 ||
+      blocks_per_sm <= 0 || threads <= 0 || threads > kGatherThreads || threads % 32 != 0 ||
+      (unroll != 4 && unroll != 8 && unroll != 16))
+    return cudaErrorInvalidValue;
   if (e == 0) return cudaSuccess;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t cap = static_cast<int64_t>(sm_count()) * blocks_per_sm;
+  const int64_t want = ((e + 31) / 32 + threads / 32 - 1) / (threads / 32);
+  const int grid = static_cast<int>(want < cap ? want : cap);
+  const float4* x4 = static_cast<const float4*>(x);
+  float4* out4 = static_cast<float4*>(out);
+  const int* ids = static_cast<const int*>(idx);
+  if (shift < 0) {
+    launch_gather<false>(unroll, grid, threads, s, nullptr, ids, x4, out4, e, f / 4);
+    return cudaGetLastError();
+  }
+  const int nb = ((rows - 1) >> shift) + 1;
+  if (nb > kMaxBuckets) return cudaErrorInvalidValue;
+  const int spans = static_cast<int>((e + kSpan - 1) / kSpan);
+  const size_t scatter_smem = 2 * kSpan * sizeof(int) + 2 * static_cast<size_t>(nb) * sizeof(int);
+  if (scatter_smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(bucket_scatter_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(scatter_smem));
     if (err != cudaSuccess) return err;
   }
-  const int64_t chunks = (e + chunk - 1) / chunk;
-  const int64_t cap = static_cast<int64_t>(sm_count()) * kDmaBlocksPerSm;
-  dma_kernel<<<static_cast<int>(chunks < cap ? chunks : cap), 32, smem,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(x), static_cast<float*>(out), e,
-      chunk, f);
+  int* cur = static_cast<int*>(cursor);
+  int2* o = static_cast<int2*>(order);
+  cudaError_t err = cudaMemsetAsync(cur, 0, static_cast<size_t>(nb) * sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  bucket_count_kernel<<<spans, kBucketThreads, nb * sizeof(int), s>>>(ids, cur, e, shift, nb);
+  bucket_starts_kernel<<<1, kScanThreads, 0, s>>>(cur, nb);
+  bucket_scatter_kernel<<<spans, kBucketThreads, scatter_smem, s>>>(ids, cur, o, e, shift, nb);
+  launch_gather<true>(unroll, grid, threads, s, o, nullptr, x4, out4, e, f / 4);
   return cudaGetLastError();
 }
 

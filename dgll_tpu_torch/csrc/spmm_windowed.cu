@@ -28,7 +28,7 @@
 // edges (source, destination, weight), one commit group a sub-chunk. A wait on the
 // group then a barrier make a stage visible and tell that the stage summed last is
 // free, which the step refills at once. (cp.async writes through the generic proxy,
-// so no proxy fence is needed before a stage is reused, unlike P4's bulk copies.)
+// so no proxy fence is needed before a stage is reused, unlike cp.async.bulk.)
 // Warp w owns destination rows [8w, 8w+8) of the block and keeps their sums in
 // registers (8 rows x VEC columns a lane), not in shared memory: a ballot over the
 // sub-chunk's sorted destinations finds its edge range, and a loop unrolled over its

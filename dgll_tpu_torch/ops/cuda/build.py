@@ -93,7 +93,8 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     f, ll, ull = ctypes.c_float, ctypes.c_longlong, ctypes.c_ulonglong
     signatures = {
-        "dgll_quantize_int8": [p, p, p, p, ll, i, i, i, i, ull, p],
+        "dgll_quantize_int8": [p, p, p, p, ll, i, i, ull, p],
+        "dgll_quantize_int8_fill": [p] * 5 + [ll, i, i, ull, p],
         "dgll_spmm_csr": [p] * 6 + [i] * 7 + [p] * 5 + [i] * 3 + [p],
         "dgll_spmm_windowed": [p] * 10 + [i] * 6 + [p],
         "dgll_gat_stats": [p] * 6 + [i] * 4 + [f] + [p] * 6 + [i] * 3 + [p],
@@ -108,7 +109,7 @@ def load_library() -> ctypes.CDLL:
         "dgll_probe_dynread": [p, p, p, ll, i, i, p],
         "dgll_probe_onehot": [p, p, p, ll, i, i, p],
         "dgll_probe_dynacc": [p, p, p, ll, i, i, p],
-        "dgll_probe_dma": [p, p, p, ll, i, i, p],
+        "dgll_probe_gather": [p] * 5 + [ll] + [i] * 6 + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -13,11 +13,13 @@ needs a reduction and a host read, so it is not made in the timed calls;
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from dgll_tpu_torch.ops.cuda.gat_fused import _launch
 from dgll_tpu_torch.ops.cuda.segment_matmul import _check
-from dgll_tpu_torch.ops.probes import OUT_TILE
+from dgll_tpu_torch.ops.probes import OUT_TILE, P4Plan, p4_plan
 
 
 def _rows(name: str, t: torch.Tensor, align: int = 16, width: int = 4):
@@ -89,14 +91,22 @@ def p3_dynacc_cuda(idx: torch.Tensor, msg: torch.Tensor,
     return acc
 
 
-def p4_dma_cuda(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """P4: ``x[idx]`` as ``[idx.numel(), F]``, one bulk copy a row, 8 in flight a block,
-    a block walking the chunks of ``idx.shape[-1]`` rows."""
-    _, f, dev = _rows("x", x)
+def p4_dma_cuda(idx: torch.Tensor, x: torch.Tensor,
+                plan: Optional[P4Plan] = None) -> torch.Tensor:
+    """P4: ``x[idx]`` as ``[idx.numel(), F]`` in one C call, by the path of ``plan``
+    (``ops.probes.p4_plan(rows, F, E)`` unless given): the direct gather, or the
+    bucket pass and then the gather in bucket order, its scratch (the (pos, row)
+    pairs and the buckets' cursors) allocated here with the output."""
+    rows, f, dev = _rows("x", x)
     e = _index("idx", idx, dev)
+    plan = p4_plan(rows, f, e) if plan is None else plan
     out = torch.empty((e, f), dtype=torch.float32, device=dev)
-    chunk = max(int(idx.shape[-1]) if idx.dim() else 1, 1)
-    _launch("probe_dma", dev, idx.data_ptr(), x.data_ptr(), out.data_ptr(), e, chunk, f)
+    order = cursor = None
+    if plan.bucketed:
+        scratch = torch.empty(2 * e + plan.buckets, dtype=torch.int32, device=dev)
+        order, cursor = scratch.data_ptr(), scratch.data_ptr() + 8 * e
+    _launch("probe_gather", dev, idx.data_ptr(), x.data_ptr(), out.data_ptr(), order, cursor,
+            e, rows, f, plan.shift, plan.blocks_per_sm, plan.threads, plan.unroll)
     return out
 
 

@@ -3,9 +3,10 @@
 Features are stored int8 with per-column scales (``QuantizedFeatures``), which
 quadruples the rows a device-memory budget holds (the int8 ``HBMFeatureCache``).
 
-Both quantizers compute the per-column scale ``s = max(max|x|, 1e-12) / 127`` with
-``torch.amax`` (an XLA reduction in JAX) and then run the elementwise pass, kernel K8
-(``csrc/quantize.cu``) on a CUDA tensor and its plain version
+Both quantizers compute the per-column scale ``s = max(max|x|, 1e-12) / 127`` and
+then round ``x / s``: in one C call of kernel K8 (``csrc/quantize.cu``) on a CUDA
+tensor, which computes the scale on the card with no ``[n, d]`` temporary (XLA fuses
+it in one pass in JAX); with the plain versions ``column_scale`` and
 ``quantize_int8_reference`` on a CPU tensor:
 
 * ``quantize_int8`` (``quantize.py:37-46``): ``rint(x / s [+ u])``, clipped to
@@ -46,14 +47,34 @@ class QuantizedFeatures:
         return self.values.to(dtype) * self.scale.to(dtype)[None, :]
 
 
-def column_scale(x: torch.Tensor) -> torch.Tensor:
-    """Per-column symmetric scale ``max(max|x|, 1e-12) / 127`` (float32 ``[d]``).
-
-    The divisor is a tensor: on a CUDA device PyTorch divides by a Python scalar as a
-    product with its reciprocal, which can differ from the division in the last bit.
-    """
-    amax = torch.clamp_min(x.abs().amax(dim=0), 1e-12)
+def _scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-12) / 127``. The divisor is a tensor: on a CUDA device PyTorch
+    divides by a Python scalar as a product with its reciprocal, which can differ from
+    the division in the last bit."""
+    amax = torch.clamp_min(amax, 1e-12)
     return amax / torch.full_like(amax, 127.0)
+
+
+def column_scale(x: torch.Tensor) -> torch.Tensor:
+    """Per-column symmetric scale ``max(max|x|, 1e-12) / 127`` (float32 ``[d]``); a NaN
+    in a column makes its scale NaN, as in JAX."""
+    return _scale_of(x.abs().amax(dim=0))
+
+
+FILL_TILE_ROWS = 256   # the plain fill's row tiles
+
+
+def quantize_int8_fill_reference(x: torch.Tensor, mode: str = "xla",
+                                 noise: Optional[torch.Tensor] = None,
+                                 tile_rows: int = FILL_TILE_ROWS):
+    """The fill's plain version, ``(values, scale)``: the column maxima of ``|x|`` over
+    tiles of ``tile_rows`` rows and then over the tiles, as K8's fill combines them
+    (a max rounds nothing and keeps a NaN, so the scale has ``column_scale``'s bits),
+    then ``quantize_int8_reference``."""
+    n, d = x.shape
+    a = torch.nn.functional.pad(x.abs(), (0, 0, 0, (-n) % tile_rows))
+    scale = _scale_of(a.view(-1, tile_rows, d).amax(dim=1).amax(dim=0))
+    return quantize_int8_reference(x, scale, mode, noise), scale
 
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -108,8 +129,8 @@ def quantize_int8_reference(x: torch.Tensor, scale: torch.Tensor, mode: str = "x
 
 
 def _quantize(x, mode: str, noise, seed: Optional[int]) -> QuantizedFeatures:
-    """Scale, then the elementwise pass: K8 on a CUDA tensor, the plain version on a
-    CPU tensor. ``seed`` (not None) asks for Philox noise where ``noise`` is None."""
+    """Scale and values: K8's one C call on a CUDA tensor, the plain versions on a CPU
+    tensor. ``seed`` (not None) asks for Philox noise where ``noise`` is None."""
     from dgll_tpu_torch.ops.cuda import quantize as k8
 
     x = torch.as_tensor(x, dtype=torch.float32)
@@ -121,8 +142,7 @@ def _quantize(x, mode: str, noise, seed: Optional[int]) -> QuantizedFeatures:
         if noise.shape != x.shape:
             raise ValueError(f"noise: need shape {tuple(x.shape)}, got {tuple(noise.shape)}")
         seed = None
-    scale = column_scale(x)
-    values = k8.quantize_int8_values(x, scale, mode, noise, seed)
+    values, scale = k8.quantize_int8_fill(x, mode, noise, seed)
     return QuantizedFeatures(values=values, scale=scale, n=int(x.shape[0]),
                              d=int(x.shape[1]))
 

@@ -235,7 +235,8 @@ def wrapper_split(fn, reps: int = SMALL_REPS) -> dict:
 
 def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS) -> dict:
     """``wrapper_split`` of each kernel under 0.15 ms at the slices' shapes, on the
-    slices' layout ``c`` (K8 at the int8 cache's fill shape), and of the library
+    slices' layout ``c`` (K8 at the int8 cache's fill shape: its pass alone, the scale
+    given, and the whole fill the cache runs, ``quantize_int8``), and of the library
     calls that compute K10's functions."""
     from dgll_tpu_torch.ops import quantize as q
     from dgll_tpu_torch.ops.cuda import edge_ops as tk
@@ -271,6 +272,7 @@ def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS) -> dict:
         "K6' H=8": lambda: tk.rows_to_edges_multi_cuda(c, r8),
         "K6 sum H=8": lambda: gf.edges_to_rows_sum_cuda(c, e8),
         "K8 fill 50000x256": lambda: quantize_int8_cuda(x, scale, "xla"),
+        "K8 whole fill 50000x256": lambda: q.quantize_int8(x),
     }
     return {name: wrapper_split(fn, reps) for name, fn in calls.items()}
 
