@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout and drives the
-port's six slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
+port's seven slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
 200k-node power-law graph, the third through the full-graph bench
 (``dgll_tpu_torch.bench``) on a 200k-node clustered graph, the fourth through the
 round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph, the fifth
 through the CLI's host minibatch path and the library's feature cache, the sixth
-through the primitive probe (``dgll_tpu_torch.tools.probe``):
+through the primitive probe (``dgll_tpu_torch.tools.probe``), the seventh, the
+flagship, through the headline bench and the CLI's device-sampling branch:
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
   on a power-law test graph and on a planted graph whose rows cross K1's split
@@ -61,7 +62,18 @@ through the primitive probe (``dgll_tpu_torch.tools.probe``):
   alternating turns; P3 again with every row sent to 64 or 1,024
   destination rows (contended atomics, integer values: exact); then the probe
   tool's run at those sizes, whose JSON (with ``index_select`` as P1 and P0's
-  achieved bandwidth) it prints.
+  achieved bandwidth) it prints;
+* the flagship, minibatch GraphSAGE with device sampling (phase 20), on the headline
+  bench's 2.4M-node graph: the device sampler on the card equal to the same function
+  on the CPU with the same uniforms, in both modes (train seeds, seeds of degree 0
+  and masked seeds, a graph with no edges); 8 batches replayed as a CUDA graph
+  against 8 eager steps from the same state and draws, with dropout 0 and 0.5
+  (losses and parameters within 1e-6 x max|ref|); the epoch timed in turns, graph
+  against eager, block-window against per-slot draws, fused Adam against foreach;
+  one replayed epoch profiled (idle share) and split into its phases
+  (``profile_slice --device_sampling``); the bench's ``main`` (its JSON line); then
+  the CLI's ``--device_sampling`` runs on the 200k-node graph: GraphSAGE and GCN with
+  ``--exact_eval`` (GCN's exact inference launches K1) and GAT, 3 epochs each.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -2021,6 +2033,239 @@ def phase_probe_tool() -> tuple:
     return res, counts
 
 
+# the flagship path (phase 20): the CLI's device-sampling runs on the slices' graph
+# (MINIBATCH_ARGS), 3 epochs each; GAT at the published 8 heads x 8 (PERF.md §4)
+FLAGSHIP_CLI_RUNS = (
+    ("GraphSAGE, --device_sampling --exact_eval",
+     ["--Model", "GraphSAGE", "--device_sampling", "--exact_eval"]),
+    ("GCN, --device_sampling --exact_eval",
+     ["--Model", "GCN", "--device_sampling", "--exact_eval"]),
+    ("GAT, --device_sampling", ["--Model", "GAT", "--device_sampling", "--nhid", "8",
+                                "--n_heads", "8", "--dropout", "0.6", "--lr", "0.005",
+                                "--weight_decay", "0.0005"]))
+# graph replays against eager steps of one batch function on the same inputs: the same
+# kernels, but cuBLAS may pick another algorithm inside a capture, so within this of
+# max|ref| rather than bitwise (on an H100 they have read bitwise equal)
+GRAPH_TOL = 1e-6
+FLAGSHIP_BATCHES = 8  # the graph-against-eager comparison's batches
+
+
+def _same_blocks(got, want, what: str) -> None:
+    check(len(got) == len(want), f"{what}: as many blocks")
+    for t, w in zip(got, want):
+        check((t.fanout, t.n_dst) == (w.fanout, w.n_dst), f"{what}: block shapes")
+        for name in ("dst_ids", "src_ids", "neigh_mask", "dst_mask"):
+            check(torch.equal(getattr(t, name).cpu(), getattr(w, name)),
+                  f"{what}: {name} equal on the card and the CPU")
+
+
+def _flagship_sampler(data) -> None:
+    """The device sampler on the card against the same function on the CPU, on the
+    bench's graph at its shapes, with the same uniforms (drawn on the CPU): a batch
+    of 1,024 train seeds in both modes; seeds of degree 0 and masked seeds; a graph
+    with no edges."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.sampling import DeviceCSR, sample_blocks_device
+    from dgll_tpu_torch.sampling.device_sampler import draw_uniforms, layer_sizes
+
+    cpu = DeviceCSR.from_host_arrays(data.indptr, data.src, "cpu")
+    deg = np.diff(data.indptr)
+    zero = np.flatnonzero(deg == 0)[:64]
+    b = 1024
+    cases = {"train seeds": (data.train_nodes[:b], np.ones(b, bool)),
+             "degree 0 and masked": (np.concatenate([zero, data.train_nodes[:b - len(zero)]]),
+                                     np.arange(b) % 5 != 3)}
+    gen = torch.Generator().manual_seed(20)
+    for window in (True, False):
+        for name, (seeds, mask) in cases.items():
+            draws = [draw_uniforms(n, f, window, gen) for n, f in
+                     zip(layer_sizes(b, bench.FANOUTS), reversed(bench.FANOUTS))]
+            seeds_t, mask_t = torch.from_numpy(seeds.astype(np.int32)), torch.from_numpy(mask)
+            _, _, want = sample_blocks_device(cpu, seeds_t, mask_t, bench.FANOUTS,
+                                              draws=draws, window=window)
+            on_card = [tuple(t.cuda() for t in d) if window else d.cuda() for d in draws]
+            _, _, got = sample_blocks_device(data.csr, seeds_t.cuda(), mask_t.cuda(),
+                                             bench.FANOUTS, draws=on_card, window=window)
+            _same_blocks(got, want, f"sampler, {name}, window={window}")
+            if name != "train seeds":
+                check(not got[-1].neigh_mask[: len(zero)].any().item(),
+                      "degree-0 seeds draw no neighbour")
+        empty_cpu = DeviceCSR.from_host_arrays(np.zeros(11, np.int64), np.zeros(0), "cpu")
+        empty = DeviceCSR.from_host_arrays(np.zeros(11, np.int64), np.zeros(0), "cuda")
+        seeds = torch.arange(10, dtype=torch.int32)
+        draws = [draw_uniforms(n, f, window, gen) for n, f in
+                 zip(layer_sizes(10, [4, 3]), (3, 4))]
+        _, _, want = sample_blocks_device(empty_cpu, seeds, seeds % 2 == 0, [4, 3],
+                                          draws=draws, window=window)
+        _, _, got = sample_blocks_device(
+            empty, seeds.cuda(), (seeds % 2 == 0).cuda(), [4, 3], window=window,
+            draws=[tuple(t.cuda() for t in d) if window else d.cuda() for d in draws])
+        _same_blocks(got, want, f"sampler, no edges, window={window}")
+        check(not got[0].neigh_mask.any().item(), "a graph with no edges draws no neighbour")
+    print(f"[20 sampler] card == CPU on the bench's graph ({data.n_node} nodes, "
+          f"{len(data.src)} edges), both modes: 1,024 train seeds (blocks of "
+          f"{layer_sizes(b, bench.FANOUTS)[-1] * (1 + bench.FANOUTS[0])} source ids); "
+          f"{len(zero)} degree-0 seeds and every fifth masked; a graph with no edges")
+
+
+def _flagship_graph_vs_eager(data) -> dict:
+    """``FLAGSHIP_BATCHES`` batches as graph replays and as eager steps, each runner
+    from the same weights, generator seed and draws; dropout 0, then 0.5 (masks from
+    the runner's generator, registered with the graph)."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.train import draw_epoch
+
+    nodes = data.train_nodes[: FLAGSHIP_BATCHES * 1024]
+    out = {}
+    for dropout in (0.0, 0.5):
+        draws = draw_epoch(FLAGSHIP_BATCHES, 1024, bench.FANOUTS, True,
+                           torch.Generator("cuda").manual_seed(21), "cuda")
+        runs = []
+        for graph in (True, False):
+            runner, state = bench.flagship_runner(data, 1024, True, cuda_graph=graph,
+                                                  dropout=dropout, train_nodes=nodes)
+            runner.run_epoch(state, data.feats, data.labels, draws=draws)
+            runs.append((runner.batch_losses.clone(),
+                         [p.detach().clone() for p in state.model.parameters()]))
+        (lg, pg), (le, pe) = runs
+        err_l = (lg - le).abs().max().item()
+        err_p = max((a - b).abs().max().item() for a, b in zip(pg, pe))
+        scale_p = max(b.abs().max().item() for b in pe)
+        check(torch.isfinite(lg).all().item(), "finite losses")
+        check(err_l <= GRAPH_TOL * le.abs().max().item(),
+              f"dropout {dropout}: graph losses within {GRAPH_TOL} x max|ref| of eager")
+        check(err_p <= GRAPH_TOL * scale_p,
+              f"dropout {dropout}: graph parameters within {GRAPH_TOL} x max|ref| of eager")
+        out[f"dropout {dropout}"] = {"max_abs_err_loss": err_l, "max_abs_err_param": err_p}
+        print(f"[20 graph] dropout {dropout}: {FLAGSHIP_BATCHES} replays against eager "
+              f"steps: losses {' '.join(f'{v:.6f}' for v in lg.tolist())}; max abs error "
+              f"loss {err_l:.3e}, parameters {err_p:.3e}")
+    return out
+
+
+def _flagship_turns(data) -> dict:
+    """The flagship epoch, ms a batch (the bench's timing: one warm-up epoch, then
+    epochs ending in a read of the loss), in turns A B B A: graph against eager,
+    block-window against per-slot, fused Adam against foreach (both capturable)."""
+    from dgll_tpu_torch import bench
+
+    fused, foreach = dict(capturable=True, fused=True), dict(capturable=True, foreach=True)
+    configs = {"graph, window, fused": (True, True, fused),
+               "eager, window, fused": (False, True, fused),
+               "graph, per-slot, fused": (True, False, fused),
+               "graph, window, foreach": (True, True, foreach)}
+    runners = {}
+    for name, (graph, window, adam) in configs.items():
+        runner, state = bench.flagship_runner(data, 1024, window, adam, graph)
+        float(runner.run_epoch(state, data.feats, data.labels)[1])  # warm-up, capture
+        runners[name] = (runner, state)
+
+    def epoch_ms(name):
+        runner, state = runners[name]
+        t0 = time.perf_counter()
+        float(runner.run_epoch(state, data.feats, data.labels)[1])
+        return (time.perf_counter() - t0) * 1e3 / runner.n_batches
+
+    base = "graph, window, fused"
+    # no host synchronisation inside a replayed epoch: any would raise here
+    runner, state = runners[base]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, loss = runner.run_epoch(state, data.feats, data.labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(loss)), "a finite epoch loss")
+    print(f"[20 sync] one replayed epoch of {runner.n_batches} batches ran under "
+          "torch.cuda.set_sync_debug_mode('error'): no host synchronisation inside it")
+    out = {}
+    for other in ("eager, window, fused", "graph, per-slot, fused",
+                  "graph, window, foreach"):
+        ms = {base: [], other: []}
+        for name in (base, other, other, base):
+            ms[name].append(epoch_ms(name))
+        out[f"{base} | {other}"] = ms
+        print(f"[20 turns] ms a batch, in turns {base} / {other} / {other} / {base}: "
+              f"{ms[base][0]:.4f} / {ms[other][0]:.4f} / {ms[other][1]:.4f} / "
+              f"{ms[base][1]:.4f} (vs_baseline {bench.BASELINE_MS / np.mean(ms[base]):.3f}"
+              f" / {bench.BASELINE_MS / np.mean(ms[other]):.3f})")
+    out["profile"] = _flagship_profile(*runners[base], data)
+    return out
+
+
+def _flagship_profile(runner, state, data) -> dict:
+    """``profile_slice --device_sampling``'s numbers for the graph runner."""
+    from dgll_tpu_torch.tools import profile_slice
+
+    res = profile_slice.device_sampling_profile(runner, state, data.feats, data.labels)
+    per = res["ms_per_batch"]
+    print(f"[20 profile] one replayed epoch: wall {per['wall']:.4f} ms a batch, device "
+          f"busy {per['busy']:.4f}, idle {100 * res['profile']['idle_share']:.2f}%; "
+          "phases (ms a batch): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                             res["phases_ms_per_batch"].items())
+          + "; top kernels " + ", ".join(
+              f"{100 * v['share']:.1f}% {k[:60]}" for k, v in
+              list(res["profile"]["kernels"].items())[:5]))
+    return res
+
+
+def _flagship_cli() -> dict:
+    """The CLI's device-sampling runs (``FLAGSHIP_CLI_RUNS``), every counter set to 0
+    just before each and read just after: GCN's exact inference launches K1 (one call a
+    layer), and nothing else launches a kernel of the port."""
+    from dgll_tpu_torch import run
+
+    out = {}
+    for name, extra in FLAGSHIP_CLI_RUNS:
+        _zero_all_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = run.main([*MINIBATCH_ARGS, *extra, "--n_epochs", str(MINIBATCH_EPOCHS)])
+        counts = {k: v for k, v in _all_counters().items() if v}
+        trial = res["trials"][0]
+        losses = trial["epoch_loss"]
+        check(trial["epochs"] == MINIBATCH_EPOCHS and all(np.isfinite(losses)),
+              f"{name}: {MINIBATCH_EPOCHS} epochs of finite losses")
+        check(trial["test_acc"] > 2 / 16, f"{name}: test_acc above 2/16")
+        check(trial["device_sampling"] and trial["exact_eval"] == ("--exact_eval" in extra),
+              f"{name}: the device branch ran")
+        if "GCN" in name:
+            check(counts.get("K1 fwd", 0) > 0 and set(counts) == {"K1 fwd"},
+                  f"{name}: exact inference launched K1, and nothing else ran: {counts}")
+        else:
+            check(not counts, f"{name}: no kernel launch on the path, got {counts}")
+        print(f"[20 cli] {name}: loss {' -> '.join(f'{v:.4f}' for v in losses)}, test_acc "
+              f"{trial['test_acc']:.4f}, epoch s {[round(v, 3) for v in trial['epoch_s']]},"
+              f" total_s {trial['total_s']:.3f}, launches {counts}")
+        out[name] = {"test_acc": trial["test_acc"], "epoch_loss": losses,
+                     "epoch_s": trial["epoch_s"], "launches": counts}
+    return out
+
+
+def phase_flagship() -> dict:
+    """Phase 20: the flagship path. On the headline bench's data (2.4M nodes,
+    ``bench.flagship_data``): the sampler on the card against the CPU, graph replays
+    against eager steps, the epoch timed in turns and profiled, then the bench's
+    ``main`` on the same data (without its full-graph step, which phase 12 runs);
+    then the CLI's device-sampling runs on the slices' graph."""
+    import os
+
+    from dgll_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    data = bench.flagship_data("cuda")
+    print(f"[20 data] the bench's graph, features and labels in {time.perf_counter() - t0:.1f} s")
+    _flagship_sampler(data)
+    result = {"graph_vs_eager": _flagship_graph_vs_eager(data),
+              "turns": _flagship_turns(data)}
+    os.environ["BENCH_FULLGRAPH"] = "0"
+    result["bench"] = bench.main(["--device", "cuda"], data=data)
+    check(result["bench"]["detail"]["cuda_graph"], "the bench replayed a CUDA graph")
+    del data
+    result["cli"] = _flagship_cli()
+    print(f"[20 done] phase 20 in {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def kernel_row(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
@@ -2029,6 +2274,7 @@ def kernel_row(name, source, replaces, launches, err, t) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
     worst = phase_check()
@@ -2052,6 +2298,7 @@ def main() -> int:
     cache = phase_cache()
     probe_kernels = phase_probe_kernels()
     probe_res, probe_counts = phase_probe_tool()
+    flagship = phase_flagship()
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -2082,6 +2329,8 @@ def main() -> int:
     print(f"[17 cli] {json.dumps(minibatch)}")
     print(f"[18 cache] {json.dumps(cache)}")
     print(f"[19 probes] {json.dumps(probe_res)}")
+    print(f"[20 flagship] {json.dumps(flagship)}")
+    print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

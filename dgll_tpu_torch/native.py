@@ -66,6 +66,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.dgll_sample_neighbors.argtypes = [i64p, i64p, i64p, u8p, i64, i64, u64, i64p, u8p]
     lib.dgll_sample_block_fused.argtypes = [i64p, i64p, i64p, i64, i64, i64, i64, u64,
                                             i32p, u8p]
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.dgll_build_csr_apply.argtypes = [i64p, i64p, f32p, i64, i64, i64p, i32p, i32p,
+                                         f32p]
     return lib
 
 
@@ -172,6 +175,33 @@ def remap(mapping: np.ndarray, idx: np.ndarray) -> np.ndarray:
     out = np.empty(len(idx), np.int64)
     lib.dgll_remap(_p64(mapping), _p64(idx), len(idx), _p64(out))
     return out
+
+
+def build_csr_apply(dst, src, w, n_node: int):
+    """The CSR build and its permutation in one multithreaded pass: ``(indptr int64
+    [n_node + 1], src int32, dst int32, w float32 or None)``, the edges sorted by
+    destination (stable within a destination). None where the library is missing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    dst = np.ascontiguousarray(dst, np.int64)
+    src = np.ascontiguousarray(src, np.int64)
+    e = len(dst)
+    indptr = np.empty(n_node + 1, np.int64)
+    src_out = np.empty(e, np.int32)
+    dst_out = np.empty(e, np.int32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    w_out = None
+    wp = wop = ctypes.cast(None, fp)
+    if w is not None:
+        w = np.ascontiguousarray(w, np.float32)
+        w_out = np.empty(e, np.float32)
+        wp, wop = w.ctypes.data_as(fp), w_out.ctypes.data_as(fp)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.dgll_build_csr_apply(_p64(dst), _p64(src), wp, e, n_node, _p64(indptr),
+                             src_out.ctypes.data_as(i32p), dst_out.ctypes.data_as(i32p),
+                             wop)
+    return indptr, src_out, dst_out, w_out
 
 
 def label_propagation(indptr: np.ndarray, nbrs: np.ndarray, n: int, max_iters: int,

@@ -4,8 +4,8 @@ Counterpart of ``dgll_tpu/nn/conv.py``; the port holds ``GCNConv``, ``GATConv`` 
 ``SAGEConv``. A layer takes a *message structure* ``g``: a full ``Graph``, which
 carries the kernel layouts ``chunked``/``chunked_t`` when ``Graph.with_chunked``
 attached them, and ``hybrid``/``hybrid_t`` (GCN only) when ``Graph.with_windowed``
-did; or a sampled fanout-dense ``Block`` (``GCNConv`` and ``SAGEConv``), whose first
-``n_dst`` source rows are the destinations themselves.
+did; or a sampled fanout-dense ``Block``, whose first ``n_dst`` source rows are the
+destinations themselves.
 """
 from __future__ import annotations
 
@@ -195,9 +195,11 @@ class GATConv(nn.Module):
     alpha-weighted sum of ``h[src]``. Heads are concatenated or averaged; there is no
     bias, as in the JAX package.
 
-    On a graph that carries the kernel layouts (``Graph.with_chunked``) the layer is
-    the fused op ``gat_attention_fused`` (kernels K3-K7 and K1); otherwise, on the
-    CPU only, it runs the plain COO composition with ``segment_softmax``
+    On a sampled ``Block`` the attention is fanout-dense (``_dense_block``), plain
+    PyTorch on every device as XLA in the JAX package. On a graph that carries the
+    kernel layouts (``Graph.with_chunked``) the layer is the fused op
+    ``gat_attention_fused`` (kernels K3-K7 and K1); otherwise, on the CPU only, it
+    runs the plain COO composition with ``segment_softmax``
     (``kernel_layouts``). In training mode with
     ``attn_dropout > 0``, alpha is dropped with a mask drawn from the generator
     passed to ``forward`` and scaled by ``1 / (1 - attn_dropout)``.
@@ -230,11 +232,38 @@ class GATConv(nn.Module):
         mask = torch.rand(shape, generator=generator, device=device) < keep
         return mask.float() / keep
 
+    def _dense_block(self, g, h: torch.Tensor, n_dst: int,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Attention on a fanout-dense ``Block``: a softmax over each destination's
+        ``fanout`` slots (masked slots at -1e9 and weight 0), with no segment op."""
+        H, F, fo = self.num_heads, self.features, g.fanout
+        h = h.reshape(h.shape[0], H, F)
+        # per-node score halves, then the slots' (cheaper than per-edge dots)
+        s_src = torch.einsum("nhf,hf->nh", h, self.attn_src)
+        s_dst = torch.einsum("nhf,hf->nh", h, self.attn_dst)
+        neigh_h = h[n_dst: n_dst * (1 + fo)].reshape(n_dst, fo, H, F)
+        s_n = s_src[n_dst: n_dst * (1 + fo)].reshape(n_dst, fo, H)
+        e = nn.functional.leaky_relu(s_dst[:n_dst, None, :] + s_n, self.negative_slope)
+        m = g.neigh_mask[..., None]
+        e = torch.where(m, e, -1e9)
+        ex = torch.exp(e - e.amax(dim=1, keepdim=True).detach()) * m
+        alpha = ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-9)
+        mask = self._drop_mask(alpha.shape, h.device, generator)
+        if mask is not None:
+            alpha = alpha * mask
+        return torch.einsum("nfh,nfhd->nhd", alpha, neigh_h)
+
     def forward(self, g, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         H, F = self.num_heads, self.features
-        n_dst = g.n_node
+        n_dst = _n_dst(g)
         h = self.linear(x)                                   # [n, H*F]
+        if _is_dense_block(g):
+            _require_self_at_head(g, "GATConv")
+            out = self._dense_block(g, h, n_dst, generator)
+            if self.concat_heads:
+                return out.reshape(n_dst, H * F)
+            return out.mean(dim=1)
         layouts = kernel_layouts(g, n_dst, x.device)
         if layouts is not None:
             from dgll_tpu_torch.ops.cuda.gat_fused import gat_attention_fused

@@ -2,8 +2,8 @@
 ``GCN``, ``GAT`` and ``GraphSAGE``.
 
 A model's ``forward`` takes one message graph for every layer (full batch) or a list
-of sampled ``Block``s, one per layer, outermost first (minibatch; ``GCN`` and
-``GraphSAGE``), as the neighbour sampler emits them."""
+of sampled ``Block``s, one per layer, outermost first (minibatch), as the neighbour
+samplers emit them."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -89,13 +89,14 @@ class GAT(nn.Module):
 
     def forward(self, g, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        for conv in self.convs[:-1]:
+        gs = _layer_inputs(g, len(self.convs))
+        for conv, gi in zip(self.convs[:-1], gs):
             if self.training:
                 x = _dropout(x, self.dropout, generator)
-            x = nn.functional.elu(conv(g, x, generator))
+            x = nn.functional.elu(conv(gi, x, generator))
         if self.training:
             x = _dropout(x, self.dropout, generator)
-        x = self.convs[-1](g, x, generator)
+        x = self.convs[-1](gs[-1], x, generator)
         return torch.log_softmax(x, dim=-1)
 
 

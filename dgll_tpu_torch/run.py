@@ -2,12 +2,16 @@
 
 Counterpart of ``dgll_tpu/run.py``, for the part of it this package has ported, on
 the synthetic dataset and one device: full-batch GCN, GAT and GraphSAGE
-(``--samp_type full``), and the host minibatch path (``--samp_type neighbor``, the
-default) for GCN and GraphSAGE: the neighbour sampler on the host, a prefetching
-``DataLoader`` that moves each batch's blocks to the device, and
-``MiniBatchTrainer``, with the device feature cache (``--cached_nPercent``) and the
-community pipeline (``--n_parts``). It prints the same JSON keys. Everything else
-raises ``NotImplementedError`` naming the ROADMAP.md item that will port it.
+(``--samp_type full``), and the minibatch paths (``--samp_type neighbor``, the
+default) for GCN, GAT and GraphSAGE. The host path samples on the host, a
+prefetching ``DataLoader`` moves each batch's blocks to the device and
+``MiniBatchTrainer`` steps, with the device feature cache (``--cached_nPercent``)
+and the community pipeline (``--n_parts``). The device path (``--device_sampling``,
+per-slot or ``--window_sampling`` draws) keeps the CSR, features and labels on the
+device and runs ``DeviceEpochRunner``'s epochs, a CUDA-graph replay a batch.
+``--exact_eval`` takes the test accuracy of either minibatch path by exact
+full-graph inference. It prints the same JSON keys. Everything else raises
+``NotImplementedError`` naming the ROADMAP.md item that will port it.
 
 On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN run
 attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does: where
@@ -19,9 +23,9 @@ package's 100k-edge threshold is the TPU's launch-overhead rule; the port's laye
 have no plain version on the card. GraphSAGE's aggregations are plain PyTorch (XLA
 in the JAX package), so a full-batch GraphSAGE run attaches no layout.
 
-On the minibatch path the graph stays on the host for the sampler, and the features
-and labels live on the device; with the cache only the cached rows do, and the
-misses come from the host store.
+On the host minibatch path the graph stays on the host for the sampler, and the
+features and labels live on the device; with the cache only the cached rows do, and
+the misses come from the host store.
 """
 from __future__ import annotations
 
@@ -56,16 +60,6 @@ def check_supported(cfg) -> None:
     if cfg.sampler not in ("full", "neighbor"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     if cfg.sampler == "neighbor":
-        if model == "GAT":
-            raise NotImplementedError(f"--Model GAT --samp_type neighbor: {todo} 1 "
-                                      "(GAT's dense-block branch; the host minibatch "
-                                      "path of items 1 and 5 runs GCN and GraphSAGE)")
-        if cfg.device_sampling:
-            raise NotImplementedError(f"--device_sampling: {todo} 1 (device neighbour "
-                                      "sampling)")
-        if cfg.exact_eval:
-            raise NotImplementedError(f"--exact_eval: {todo} 1 (full-neighbourhood "
-                                      "inference)")
         if cfg.preprocess:
             raise NotImplementedError(f"--preprocess: {todo} 5 (host minibatch path: "
                                       "neighbour-feature preprocessing)")
@@ -125,13 +119,14 @@ def build_sampler(cfg):
     return NeighborSampler(cfg.fanouts, seed=cfg.seed)
 
 
-def make_optimizer(cfg):
+def make_optimizer(cfg, **options):
     """The optimizer factory of the JAX CLI's choice: AdamW (decoupled weight
-    decay, as ``optax.adamw``) when ``--weight_decay`` is set, else Adam."""
+    decay, as ``optax.adamw``) when ``--weight_decay`` is set, else Adam; ``options``
+    go to its constructor (``GRAPH_ADAM`` for a captured step)."""
     if cfg.weight_decay:
         return functools.partial(torch.optim.AdamW, lr=cfg.lr,
-                                 weight_decay=cfg.weight_decay)
-    return functools.partial(torch.optim.Adam, lr=cfg.lr)
+                                 weight_decay=cfg.weight_decay, **options)
+    return functools.partial(torch.optim.Adam, lr=cfg.lr, **options)
 
 
 def _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
@@ -207,13 +202,71 @@ def prepare_pipeline(cfg, g, timer, extra: dict, dev: torch.device, log):
     return g, book, cache, fetch
 
 
+def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer,
+                     extra: dict, log) -> tuple:
+    """The device-sampling path (``--device_sampling``): the CSR, the features and the
+    labels on the device, each epoch ``DeviceEpochRunner``'s (a CUDA-graph replay a
+    batch on a CUDA device), validation and test by the device-sampled sweep or, with
+    ``--exact_eval``, the test by exact inference. Returns ``(test_acc, micro_f1,
+    best_val, epochs run)``, with the per-epoch losses and times in ``extra``."""
+    from dgll_tpu_torch.sampling import DeviceCSR
+    from dgll_tpu_torch.train import GRAPH_ADAM, DeviceEpochRunner, micro_f1
+
+    if cfg.n_parts > 1 or cfg.cached_percent > 0:
+        raise ValueError("--device_sampling keeps the graph and features in device "
+                         "memory; it composes with neither --n_parts nor "
+                         "--cached_nPercent (use the host pipeline for those)")
+    if cfg.window_sampling:
+        log.info("device sampling: block-window mode (marginally uniform, draws "
+                 "within a node correlated; --no_window_sampling for exact per-slot "
+                 "draws)")
+    opt = make_optimizer(cfg, **(GRAPH_ADAM if dev.type == "cuda" else {}))
+    feats, labels = g.node_feat.to(dev), g.labels.to(dev)
+    runner = DeviceEpochRunner(model.to(dev), opt, DeviceCSR.from_graph(g, dev),
+                               cfg.fanouts, cfg.batch_size, g.get_train_nodes(),
+                               seed=trial_seed, window=cfg.window_sampling)
+    state = runner.init_state(feats)
+    labels_np = g.labels.numpy()
+    val_nodes = g.get_validation_nodes()
+    best_val, bad, losses, secs = -np.inf, 0, [], []
+    for epoch in range(cfg.n_epochs):
+        with timer.phase("train"):
+            t0 = time.perf_counter()
+            state, loss = runner.run_epoch(state, feats, labels)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t0)
+        with timer.phase("validate"):
+            val = runner.evaluate_nodes(state, feats, labels_np, val_nodes,
+                                        seed=trial_seed + 1)
+        if val > best_val:
+            best_val, bad = val, 0
+        else:
+            bad += 1
+        log.info(f"[device] epoch {epoch} loss {losses[-1]:.4f} val {val:.4f}")
+        if cfg.n_stops and bad >= cfg.n_stops:
+            break
+    test_nodes = g.get_test_nodes().astype(np.int64)
+    if cfg.exact_eval:
+        pred = runner.predict_nodes_exact(state, g, feats, test_nodes)
+    else:
+        pred = runner.predict_nodes(state, feats, test_nodes, seed=trial_seed + 2)
+    y = labels_np[test_nodes]
+    test_acc = float((pred == y).mean()) if len(pred) else 0.0
+    extra["device_sampling"] = True
+    extra["window_sampling"] = bool(cfg.window_sampling)
+    extra["exact_eval"] = bool(cfg.exact_eval)
+    extra["epoch_loss"], extra["epoch_s"] = losses, secs
+    return test_acc, micro_f1(pred, y), best_val, len(losses)
+
+
 def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer,
                         extra: dict, log) -> tuple:
     """The host minibatch path: ``(test_acc, micro_f1, best_val, epochs run)``, with
-    the per-epoch losses and times and the cache's counters in ``extra``."""
+    the per-epoch losses and times and the cache's counters in ``extra``; with
+    ``--exact_eval`` the test is by exact inference."""
     from dgll_tpu_torch.dataloader import DataLoader
     from dgll_tpu_torch.sampling import CommunityNeighborSampler
-    from dgll_tpu_torch.train import MiniBatchTrainer, micro_f1
+    from dgll_tpu_torch.train import MiniBatchTrainer, exact_predict, micro_f1
 
     g, book, cache, fetch = prepare_pipeline(cfg, g, timer, extra, dev, log)
     sampler = build_sampler(cfg)
@@ -261,9 +314,16 @@ def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer
         log.info(f"epoch {epoch} loss {losses[-1]:.4f} val {val:.4f} ({dt:.2f}s)")
         if cfg.n_stops and bad >= cfg.n_stops:
             break
-    test_loader = DataLoader(g, g.get_test_nodes(), sampler, cfg.batch_size,
-                             shuffle=False, seed=trial_seed + 2, device=dev)
-    pred, y = tr.predict_nodes(state, test_loader, feats, labels, fetch_fn=fetch)
+    if cfg.exact_eval:
+        test_nodes = g.get_test_nodes().astype(np.int64)
+        pred = exact_predict(state.model, g, g.node_feat.to(dev) if feats is None
+                             else feats, test_nodes)
+        y = g.labels.numpy()[test_nodes]
+        extra["exact_eval"] = True
+    else:
+        test_loader = DataLoader(g, g.get_test_nodes(), sampler, cfg.batch_size,
+                                 shuffle=False, seed=trial_seed + 2, device=dev)
+        pred, y = tr.predict_nodes(state, test_loader, feats, labels, fetch_fn=fetch)
     test_acc = float((pred == y).mean()) if len(pred) else 0.0
     if cache is not None:
         rate, lookups, _ = cache.miss_rate()
@@ -288,8 +348,9 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     t_start = time.perf_counter()
     extra: dict = {}
     if cfg.sampler != "full":
-        test_acc, f1, best_val, n_epochs = run_minibatch_trial(
-            cfg, g, trial_seed, dev, model, timer, extra, log)
+        trial = run_device_trial if cfg.device_sampling else run_minibatch_trial
+        test_acc, f1, best_val, n_epochs = trial(cfg, g, trial_seed, dev, model, timer,
+                                                 extra, log)
         return _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
                                n_epochs)
     if dev.type == "cuda":

@@ -4,6 +4,12 @@ from dgll_tpu_torch.sampling.base import (
     HostGraph,
     sample_neighbors_padded,
 )
+from dgll_tpu_torch.sampling.device_sampler import (
+    DeviceCSR,
+    DeviceNeighborSampler,
+    sample_blocks_device,
+    sample_layer_device,
+)
 from dgll_tpu_torch.sampling.neighbor import (
     CommunityNeighborSampler,
     DGLLNeighborSampler,
@@ -15,6 +21,10 @@ __all__ = [
     "Block",
     "HostGraph",
     "sample_neighbors_padded",
+    "DeviceCSR",
+    "DeviceNeighborSampler",
+    "sample_blocks_device",
+    "sample_layer_device",
     "NeighborSampler",
     "CommunityNeighborSampler",
     "DGLLNeighborSampler",

@@ -1,6 +1,7 @@
 """Where the time of a full-batch slice goes on a CUDA device.
 
-    python -m dgll_tpu_torch.tools.profile_slice [--gat | --clustered | --small]
+    python -m dgll_tpu_torch.tools.profile_slice [--gat | --clustered | --small |
+                                                  --device_sampling]
 
 It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph with
 16 classes: a 2-layer GCN of width 128 (``SLICE_ARGS``), or with ``--gat`` the
@@ -24,6 +25,15 @@ With ``--clustered`` it profiles the full-graph bench's GCN step instead
 steps through the windowed layout (K2 and K1 on the residual edges) and through K1
 alone, without the hub-row probe (the graph has no hubs).
 
+With ``--device_sampling`` it profiles the headline bench's flagship
+(``dgll_tpu_torch.bench``: minibatch GraphSAGE with device sampling at its sizes,
+``BENCH_NODES`` and ``BENCH_WINDOW`` as the bench reads them): one epoch replayed as
+a CUDA graph a batch under ``torch.profiler`` (wall, device busy, idle share, the
+kernels' shares), and the batch's device time split into its phases (sampling, the
+feature and label gather, forward with the loss, backward, the optimizer step) by
+CUDA events captured inside a graph of the same step, summed over an epoch of
+replays (``phase_split``).
+
 With ``--small`` it splits the time of each kernel under 0.15 ms at the slices'
 shapes (and of K4 at 8 heads beside its one head), and of the library calls beside
 them, into the device time of the kernels it launches and the host time of its
@@ -38,6 +48,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import time
 from typing import Optional
@@ -277,13 +288,69 @@ def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS) -> dict:
     return {name: wrapper_split(fn, reps) for name, fn in calls.items()}
 
 
+PHASES = ("sampling", "gather", "forward", "backward", "optimizer")
+
+
+def phase_split(runner, state, feats, labels) -> dict:
+    """ms a batch of each of ``PHASES``, over one epoch of replays of a graph of the
+    runner's step with timing events captured between the phases (each replay waited
+    for, so that its events can be read)."""
+    marks = [torch.cuda.Event(enable_timing=True, external=True)
+             for _ in range(len(PHASES) + 1)]
+    runner.load_epoch()
+    graph = runner.capture(state, feats, labels, marks)
+    total = np.zeros(len(PHASES))
+    for _ in range(runner.n_batches):
+        graph.replay()
+        marks[-1].synchronize()
+        total += [marks[k].elapsed_time(marks[k + 1]) for k in range(len(PHASES))]
+    return dict(zip(PHASES, (total / runner.n_batches).tolist()))
+
+
+def device_sampling_profile(runner, state, feats, labels) -> dict:
+    """A warm-up epoch (the capture), then one epoch of replays under the profiler
+    and ``phase_split``: every number of ``--device_sampling`` but the card's."""
+    float(runner.run_epoch(state, feats, labels)[1])
+    prof = profile(lambda: float(runner.run_epoch(state, feats, labels)[1]))
+    nb = runner.n_batches
+    return {"window": runner.window, "n_batches": nb, "profile": prof,
+            "ms_per_batch": {"wall": prof["wall_ms"] / nb, "busy": prof["busy_ms"] / nb},
+            "phases_ms_per_batch": phase_split(runner, state, feats, labels)}
+
+
+def print_device_sampling(res: dict) -> None:
+    split, per = res["phases_ms_per_batch"], res["ms_per_batch"]
+    print(f"slice: flagship GraphSAGE, device sampling "
+          f"({'block-window' if res['window'] else 'per-slot'}), {res['n_batches']} "
+          "batches an epoch")
+    _print_profile("replayed a CUDA graph a batch", res["profile"], "1 epoch")
+    print(f"per batch: wall {per['wall']:.4f} ms, busy {per['busy']:.4f} ms; phases (CUDA "
+          f"events in the graph): " + _entry_line(split)
+          + f", sum {sum(split.values()):.4f} ms")
+
+
+def profile_device_sampling(card: str) -> dict:
+    """``device_sampling_profile`` of the headline bench's flagship at its sizes."""
+    from dgll_tpu_torch import bench
+
+    data = bench.flagship_data("cuda")
+    runner, state = bench.flagship_runner(data, int(os.environ.get("BENCH_BATCH", 1024)),
+                                          os.environ.get("BENCH_WINDOW", "1") == "1")
+    result = {"card": card, "model": "GraphSAGE flagship, device sampling",
+              **device_sampling_profile(runner, state, data.feats, data.labels)}
+    print(f"card: {card}")
+    print_device_sampling(result)
+    print(json.dumps(result))
+    return result
+
+
 def _entry_line(entry: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                      for k, v in entry.items())
 
 
-def _print_profile(name: str, p: dict) -> None:
-    print(f"{STEPS} epochs, {name}: wall {p['wall_ms']:.3f} ms, device busy "
+def _print_profile(name: str, p: dict, span: str = f"{STEPS} epochs") -> None:
+    print(f"{span}, {name}: wall {p['wall_ms']:.3f} ms, device busy "
           f"{p['busy_ms']:.3f} ms, idle {100 * p['idle_share']:.2f}%")
     for k, v in p["kernels"].items():
         print(f"    {100 * v['share']:6.2f}%  {v['ms']:10.3f} ms  x{v['count']:<4d} {k}")
@@ -333,6 +400,9 @@ def main(argv=None) -> dict:
                        help="profile the full-graph bench's step on the clustered graph")
     which.add_argument("--small", action="store_true",
                        help="split the small kernels' times into device and host time")
+    which.add_argument("--device_sampling", action="store_true",
+                       help="profile the headline bench's replayed epoch and split it "
+                            "into phases")
     args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -341,6 +411,8 @@ def main(argv=None) -> dict:
         return profile_clustered(card)
     if args.small:
         return profile_small(card)
+    if args.device_sampling:
+        return profile_device_sampling(card)
     gat = args.gat
     cfg = parse_train_config(GAT_SLICE_ARGS if gat else SLICE_ARGS)
     prof, g, n_class = profile_training(cfg, STEPS)

@@ -1,3 +1,12 @@
+from dgll_tpu_torch.train.device_pipeline import (
+    GRAPH_ADAM,
+    DeviceEpochRunner,
+    EpochDraws,
+    draw_epoch,
+    make_device_eval_fn,
+    make_sample_fn,
+)
+from dgll_tpu_torch.train.exact_infer import exact_accuracy, exact_predict
 from dgll_tpu_torch.train.metrics import (
     METRIC_FOR_DATASET,
     accuracy,
@@ -19,6 +28,14 @@ from dgll_tpu_torch.train.trainer import (
 )
 
 __all__ = [
+    "GRAPH_ADAM",
+    "DeviceEpochRunner",
+    "EpochDraws",
+    "draw_epoch",
+    "make_device_eval_fn",
+    "make_sample_fn",
+    "exact_accuracy",
+    "exact_predict",
     "METRIC_FOR_DATASET",
     "accuracy",
     "masked_nll_loss",

@@ -1,0 +1,361 @@
+"""Device-resident minibatch training: sampling, feature gather and step on the card.
+
+Counterpart of ``dgll_tpu/train/device_pipeline.py`` (the single-device parts). The
+graph's CSR, the features and the labels live in device memory; each batch's
+fanout sample is a few gathers (``sampling/device_sampler.py``). The JAX package
+runs a whole epoch as one ``lax.scan`` dispatch. Its counterpart here is a CUDA
+graph of the fixed-shape batch step, captured once and replayed once a batch: the
+host enqueues one graph launch a batch and reads the epoch's loss once.
+
+An epoch's randomness is a set of explicit tensors (``EpochDraws``): the permutation
+of the padded seeds and every layer's uniforms for every batch, drawn up front from
+the runner's generator, one call a tensor. A batch step is then a deterministic
+function of its slice, which the step selects with a device scalar that it advances
+itself, so the captured graph reads a new slice on every replay and the host does
+not touch it. Tests pass the permutation and the uniforms of the JAX package's key
+chain and get its batches exactly.
+
+On a CUDA device the step runs as a graph replay unless the caller asks for the
+eager step (``cuda_graph=False``, for comparisons); a capture or a replay that fails
+raises, and nothing falls back to the eager step. The eager step is the plain version
+of the same function, and the CPU runs it. The optimizer of a captured step must be
+capturable (``capturable=True``; ``GRAPH_ADAM`` is the bench's choice).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from dgll_tpu_torch.sampling.device_sampler import (
+    DeviceCSR,
+    draw_uniforms,
+    layer_sizes,
+    sample_blocks_device,
+)
+from dgll_tpu_torch.train.metrics import masked_nll_loss
+from dgll_tpu_torch.train.trainer import TrainState, create_train_state
+
+# Adam's options for a captured step: its step count and bias correction stay on the
+# device (capturable), and one fused kernel updates every parameter
+GRAPH_ADAM = dict(capturable=True, fused=True)
+WARMUP_STEPS = 3  # eager steps on a side stream before a capture (cuBLAS, allocator)
+
+
+def make_sample_fn(fanouts: Sequence[int], window: bool = False,
+                   sampler: str = "neighbor") -> Callable:
+    """Device-sampling callable ``(csr, seeds, mask, generator=None, draws=None) ->
+    (input_nodes, output_nodes, blocks)``: uniform fanout over a ``DeviceCSR``."""
+    fanouts = [int(f) for f in fanouts]
+    if sampler in ("fastgcn", "ladies"):
+        raise NotImplementedError(f"device sampler {sampler!r}: see ROADMAP.md, Queue 1, "
+                                  "item 6 (layer-wise samplers)")
+    if sampler != "neighbor":
+        raise ValueError(f"unknown device sampler {sampler!r}")
+
+    def fn(csr, seeds, mask, generator=None, draws=None):
+        return sample_blocks_device(csr, seeds, mask, fanouts, generator, draws,
+                                    window=window)
+
+    return fn
+
+
+@dataclass
+class EpochDraws:
+    """An epoch's randomness: ``order`` [n_batches * batch_size] int64, the
+    permutation of the padded seeds; ``uniforms[li]``, layer ``li``'s uniforms for
+    every batch (innermost layer first): ``[n_batches, n_li, fanout]``, or in window
+    mode ``(ua [n_batches, n_li], ul [n_batches, n_li, fanout])``."""
+
+    order: torch.Tensor
+    uniforms: List
+
+
+def draw_epoch(n_batches: int, batch_size: int, fanouts: Sequence[int], window: bool,
+               generator: Optional[torch.Generator], device) -> EpochDraws:
+    """An epoch's draws from ``generator``: ``randperm``, then one ``torch.rand`` a
+    uniform tensor, innermost layer first."""
+    order = torch.randperm(n_batches * batch_size, generator=generator, device=device)
+    rev = list(reversed([int(f) for f in fanouts]))
+    uniforms = [draw_uniforms(n, f, window, generator, device, lead=(n_batches,))
+                for n, f in zip(layer_sizes(batch_size, fanouts), rev)]
+    return EpochDraws(order, uniforms)
+
+
+def _tensors(u) -> tuple:
+    return u if isinstance(u, tuple) else (u,)
+
+
+def _pick(u, i: torch.Tensor):
+    """Batch ``i``'s slice (``i`` a 1-element device tensor) of one layer's draws."""
+    picked = tuple(t.index_select(0, i)[0] for t in _tensors(u))
+    return picked if isinstance(u, tuple) else picked[0]
+
+
+def padded_seeds(nodes, batch_size: int):
+    """``(seeds int32, mask bool, n_batches)``: ``nodes`` padded with id 0 (mask 0)
+    to a whole number of batches, at least one."""
+    nodes = np.asarray(nodes, np.int64)
+    n_batches = max(1, -(-len(nodes) // batch_size))
+    seeds = np.zeros(n_batches * batch_size, np.int32)
+    seeds[: len(nodes)] = nodes
+    mask = np.zeros(n_batches * batch_size, bool)
+    mask[: len(nodes)] = True
+    return torch.from_numpy(seeds), torch.from_numpy(mask), n_batches
+
+
+def make_device_eval_fn(model: torch.nn.Module, fanouts: Sequence[int], batch_size: int,
+                        n_batches: int, window: bool = False, sampler: str = "neighbor"):
+    """Sampled evaluation sweep: ``evaluate(csr, feats, seeds, seed_mask,
+    generator=None, draws=None) -> (pred int32 [total], valid bool [total])``, each
+    batch sampled on the device (from ``generator``, or from ``draws[i]``, batch
+    ``i``'s per-layer uniforms) and the model applied in eval mode. Eager, one batch
+    after the other, and deterministic given the generator's seed."""
+    sample_fn = make_sample_fn(fanouts, window, sampler)
+    b = int(batch_size)
+
+    @torch.no_grad()
+    def evaluate(csr, feats, seeds, seed_mask, generator=None, draws=None):
+        was_training = model.training
+        model.eval()
+        preds, valid = [], []
+        try:
+            for i in range(n_batches):
+                _, _, blocks = sample_fn(csr, seeds[i * b:(i + 1) * b],
+                                         seed_mask[i * b:(i + 1) * b], generator,
+                                         None if draws is None else draws[i])
+                x = feats.index_select(0, blocks[0].src_ids)
+                preds.append(model(blocks, x).argmax(-1).to(torch.int32))
+                valid.append(blocks[-1].dst_mask)
+        finally:
+            model.train(was_training)
+        return torch.cat(preds), torch.cat(valid)
+
+    return evaluate
+
+
+class DeviceEpochRunner:
+    """Device-resident epochs of minibatch training.
+
+    Usage::
+
+        runner = DeviceEpochRunner(model, functools.partial(torch.optim.Adam, lr=1e-3,
+                                   **GRAPH_ADAM), csr, fanouts=[15, 10],
+                                   batch_size=1024, train_nodes=train_nodes)
+        state = runner.init_state(feats)
+        state, loss = runner.run_epoch(state, feats, labels)
+
+    ``feats``/``labels`` are tensors on the CSR's device covering all ``csr.n_node``
+    rows; ``optimizer`` is a factory taking the parameters. Dropout masks and the
+    epochs' draws come from the runner's generator (``seed``). ``cuda_graph``: replay
+    a captured step (the default on a CUDA device) or run the eager step; the CPU
+    runs the eager step only.
+    """
+
+    def __init__(self, model: torch.nn.Module, optimizer: Callable, csr: DeviceCSR,
+                 fanouts: Sequence[int], batch_size: int, train_nodes,
+                 loss_fn: Callable = masked_nll_loss, seed: int = 0,
+                 window: bool = False, sampler: str = "neighbor",
+                 cuda_graph: Optional[bool] = None):
+        self.model, self.optimizer, self.csr = model, optimizer, csr
+        self.device = csr.device
+        self.fanouts = [int(f) for f in fanouts]
+        self.batch_size = int(batch_size)
+        self.loss_fn = loss_fn
+        self.window = bool(window)
+        self.sampler = sampler
+        self.sample_fn = make_sample_fn(self.fanouts, window, sampler)
+        seeds, mask, self.n_batches = padded_seeds(train_nodes, self.batch_size)
+        self.seeds, self.seed_mask = seeds.to(self.device), mask.to(self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.cuda_graph = self.device.type == "cuda" if cuda_graph is None else cuda_graph
+        if self.cuda_graph and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
+        nb, b = self.n_batches, self.batch_size
+        # the epoch's inputs and outputs, at fixed addresses that a graph reads
+        self._seeds = torch.zeros((nb, b), dtype=torch.int32, device=self.device)
+        self._mask = torch.zeros((nb, b), dtype=torch.bool, device=self.device)
+        self._draws = [
+            tuple(torch.zeros(shape, device=self.device) for shape in
+                  ((nb, n), (nb, n, f)))
+            if self.window else torch.zeros((nb, n, f), device=self.device)
+            for n, f in zip(layer_sizes(b, self.fanouts), reversed(self.fanouts))]
+        self._i = torch.zeros(1, dtype=torch.long, device=self.device)
+        self.batch_losses = torch.zeros(nb, device=self.device)
+        self._graph = None
+        self._graph_key = None
+        self._eval_cache = {}
+
+    # -- training ------------------------------------------------------------
+    def init_state(self, feats=None) -> TrainState:
+        """The model on the CSR's device and a fresh optimizer. The model holds its
+        parameters from its construction, so no batch is traced for them."""
+        return create_train_state(self.model.to(self.device), self.optimizer)
+
+    def _step(self, state: TrainState, feats, labels, marks=None) -> None:
+        """Batch ``self._i`` of the epoch's buffers: sample, gather, forward, loss,
+        backward and optimizer step; its loss goes to ``batch_losses[i]`` and ``i``
+        advances. ``marks``: 6 CUDA events recorded around the five phases."""
+        def mark(k):
+            if marks is not None:
+                marks[k].record()
+
+        i = self._i
+        mark(0)
+        _, _, blocks = self.sample_fn(self.csr, _pick(self._seeds, i),
+                                      _pick(self._mask, i),
+                                      draws=[_pick(u, i) for u in self._draws])
+        mark(1)
+        x = feats.index_select(0, blocks[0].src_ids)
+        y = labels.index_select(0, blocks[-1].dst_ids)
+        mark(2)
+        loss = self.loss_fn(state.model(blocks, x, generator=self.generator), y,
+                            blocks[-1].dst_mask)
+        mark(3)
+        loss.backward()
+        mark(4)
+        state.optimizer.step()
+        self.batch_losses.index_copy_(0, i, loss.detach().view(1))
+        i.add_(1)
+        mark(5)
+
+    def _eager_step(self, state: TrainState, feats, labels) -> None:
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        self._step(state, feats, labels)
+
+    def _load_draws(self, draws: EpochDraws) -> None:
+        self._seeds.copy_(self.seeds.index_select(0, draws.order).view_as(self._seeds))
+        self._mask.copy_(self.seed_mask.index_select(0, draws.order).view_as(self._mask))
+        for buf, u in zip(self._draws, draws.uniforms):
+            for b, t in zip(_tensors(buf), _tensors(u)):
+                b.copy_(t)
+
+    def draw_epoch(self) -> EpochDraws:
+        """The next epoch's draws from the runner's generator."""
+        return draw_epoch(self.n_batches, self.batch_size, self.fanouts, self.window,
+                          self.generator, self.device)
+
+    def _snapshot(self, state: TrainState):
+        params = [t.detach().clone() for t in state.model.state_dict().values()]
+        opt = {id(t): t.clone() for s in state.optimizer.state.values()
+               for t in s.values() if isinstance(t, torch.Tensor)}
+        return params, opt, self.generator.get_state()
+
+    def _restore(self, state: TrainState, snap) -> None:
+        """Put back, in place, what the warm-up and the capture changed: the
+        parameters, the optimizer's state (state that the warm-up created is zeroed,
+        Adam's initial state) and the generator."""
+        params, opt, gen = snap
+        with torch.no_grad():
+            for t, s in zip(state.model.state_dict().values(), params):
+                t.copy_(s)
+            for s in state.optimizer.state.values():
+                for t in s.values():
+                    if not isinstance(t, torch.Tensor):
+                        continue
+                    if id(t) in opt:
+                        t.copy_(opt[id(t)])
+                    else:
+                        t.zero_()
+        self.generator.set_state(gen)
+
+    def capture(self, state: TrainState, feats, labels, marks=None) -> "torch.cuda.CUDAGraph":
+        """Capture the step on the current buffers as a CUDA graph, after
+        ``WARMUP_STEPS`` eager steps on a side stream; the parameters, optimizer
+        state, generator and batch index are then put back as they were. The runner's
+        generator is registered with the graph, so every replay draws new dropout
+        masks. ``marks``: see ``_step``."""
+        if not all(g.get("capturable", False) for g in state.optimizer.param_groups):
+            raise ValueError("a CUDA graph needs a capturable optimizer: build it with "
+                             "capturable=True (GRAPH_ADAM)")
+        snap = self._snapshot(state)
+        i0 = self._i.clone()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for _ in range(WARMUP_STEPS):
+                self._i.zero_()  # an epoch may hold fewer batches than the warm-up
+                self._eager_step(state, feats, labels)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph):
+            self._step(state, feats, labels, marks)
+        self._restore(state, snap)
+        self._i.copy_(i0)
+        return graph
+
+    def load_epoch(self, draws: Optional[EpochDraws] = None) -> None:
+        """Put an epoch's draws (from the runner's generator where None) into the
+        step's buffers and rewind to its first batch."""
+        self._load_draws(self.draw_epoch() if draws is None else draws)
+        self._i.zero_()
+
+    def run_epoch(self, state: TrainState, feats, labels,
+                  draws: Optional[EpochDraws] = None):
+        """One epoch: ``(state, mean loss)``, the loss a device tensor; no host
+        synchronisation inside it. ``draws``: the epoch's randomness, drawn from the
+        runner's generator where None."""
+        self.load_epoch(draws)
+        if self.cuda_graph:
+            key = (id(state.model), id(state.optimizer), feats.data_ptr(),
+                   labels.data_ptr())
+            if self._graph_key != key:
+                self._graph = self.capture(state, feats, labels)
+                self._graph_key = key
+            for _ in range(self.n_batches):
+                self._graph.replay()
+        else:
+            for _ in range(self.n_batches):
+                self._eager_step(state, feats, labels)
+        state.step += self.n_batches
+        return state, self.batch_losses.mean()
+
+    # -- evaluation -----------------------------------------------------------
+    def _eval_fn(self, n_batches: int):
+        if n_batches not in self._eval_cache:
+            self._eval_cache[n_batches] = make_device_eval_fn(
+                self.model, self.fanouts, self.batch_size, n_batches, self.window,
+                self.sampler)
+        return self._eval_cache[n_batches]
+
+    def predict_nodes(self, state: TrainState, feats, nodes, seed: int = 0,
+                      draws=None) -> np.ndarray:
+        """Argmax predictions for ``nodes`` by the sampled sweep, deterministic given
+        ``seed`` (or given ``draws``, each batch's per-layer uniforms). Returns a
+        ``[len(nodes)]`` int32 numpy array."""
+        seeds, mask, nb = padded_seeds(nodes, self.batch_size)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        pred, _ = self._eval_fn(nb)(self.csr, feats, seeds.to(self.device),
+                                    mask.to(self.device), gen, draws)
+        return pred.cpu().numpy()[: len(nodes)]
+
+    def evaluate_nodes(self, state: TrainState, feats, labels_np, nodes,
+                       seed: int = 0) -> float:
+        """Accuracy over ``nodes`` by the sampled sweep."""
+        nodes = np.asarray(nodes, np.int64)
+        if len(nodes) == 0:
+            return 0.0
+        pred = self.predict_nodes(state, feats, nodes, seed)
+        return float((pred == np.asarray(labels_np)[nodes]).mean())
+
+    def predict_nodes_exact(self, state: TrainState, graph, feats, nodes) -> np.ndarray:
+        """Predictions with no sampling noise: one full-graph forward with the
+        trained parameters (``train/exact_infer.py``); ``graph`` is the full
+        ``Graph``."""
+        from dgll_tpu_torch.train.exact_infer import exact_predict
+
+        return exact_predict(state.model, graph, feats, nodes)
+
+    def evaluate_nodes_exact(self, state: TrainState, graph, feats, labels_np,
+                             nodes) -> float:
+        nodes = np.asarray(nodes, np.int64)
+        if len(nodes) == 0:
+            return 0.0
+        pred = self.predict_nodes_exact(state, graph, feats, nodes)
+        return float((pred == np.asarray(labels_np)[nodes]).mean())

@@ -6,7 +6,8 @@ few full-batch epochs through the CLI, runs the full-graph bench on a small
 clustered graph through the windowed layout, runs the community pipeline through the
 port's own copy of the C++ host kernels, runs both round-4 GAT attention layers,
 trains GraphSAGE for two epochs on the CLI's host minibatch path with the feature
-cache, fills and fetches from the int8 cache, and runs the probe tool on the CPU. No
+cache, fills and fetches from the int8 cache, samples blocks on the device sampler
+and runs one epoch of ``DeviceEpochRunner``, and runs the probe tool on the CPU. No
 source file of the package imports them either, and none names a path inside the JAX
 package: the port reads no file of it. ``chip_smoke.py`` refuses to run, and prints
 no result, without a CUDA device.
@@ -67,6 +68,18 @@ cache = HBMFeatureCache(feats, device="cpu", quantize=True)
 cache.fill(np.arange(20))
 rows = cache.fetch(np.array([1, 30, 1]))
 assert rows.dtype == torch.float32 and torch.equal(rows[1], torch.from_numpy(feats[30]))
+from dgll_tpu_torch.nn import GraphSAGE
+from dgll_tpu_torch.sampling import DeviceCSR, sample_blocks_device
+from dgll_tpu_torch.train import DeviceEpochRunner
+g = clustered_graph(2048, 4)
+csr = DeviceCSR.from_graph(g, "cpu")
+_, _, blocks = sample_blocks_device(csr, torch.arange(16), torch.ones(16, dtype=torch.bool),
+                                    [4, 3], torch.Generator().manual_seed(0), window=True)
+assert blocks[0].n_src == 16 * 4 * 5 and blocks[-1].n_dst == 16
+runner = DeviceEpochRunner(GraphSAGE(128, 16, 128), torch.optim.Adam, csr, [4, 3], 64,
+                           np.arange(200))
+_, loss = runner.run_epoch(runner.init_state(), g.node_feat, g.labels)
+assert runner.n_batches == 4 and torch.isfinite(loss), loss
 from dgll_tpu_torch.tools import probe
 res = probe.main(["--device", "cpu"])
 assert res["p4_row_dma"]["ms"] > 0, res

@@ -100,12 +100,12 @@ def test_cli_prints_the_jax_cli_keys(capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--samp_type", "neighbor", "--device_sampling"],
+    ["--samp_type", "fastgcn", "--device_sampling"],
     ["--samp_type", "fastgcn"],
     ["--samp_type", "ladies"],
-    ["--samp_type", "neighbor", "--Model", "GAT"],
+    ["--samp_type", "neighbor", "--Model", "GIN"],
     ["--samp_type", "neighbor", "--preprocess"],
-    ["--samp_type", "neighbor", "--exact_eval"],
+    ["--samp_type", "ladies", "--device_sampling"],
     ["--samp_type", "full", "--Model", "GIN"],
     ["--samp_type", "full", "--n_devices", "2"],
     ["--samp_type", "full", "--checkpoint_dir", "ckpt"],
