@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout and drives the
-port's seven slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
+port's eight slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
 200k-node power-law graph, the third through the full-graph bench
 (``dgll_tpu_torch.bench``) on a 200k-node clustered graph, the fourth through the
 round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph, the fifth
 through the CLI's host minibatch path and the library's feature cache, the sixth
 through the primitive probe (``dgll_tpu_torch.tools.probe``), the seventh, the
-flagship, through the headline bench and the CLI's device-sampling branch:
+flagship, through the headline bench and the CLI's device-sampling branch, the
+eighth through the packed host pipeline (``MiniBatchTrainer.run_epoch_packed``),
+``PipelinedTrainer`` and the CLI's ``--preprocess``:
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
   on a power-law test graph and on a planted graph whose rows cross K1's split
@@ -73,7 +75,20 @@ flagship, through the headline bench and the CLI's device-sampling branch:
   one replayed epoch profiled (idle share) and split into its phases
   (``profile_slice --device_sampling``); the bench's ``main`` (its JSON line); then
   the CLI's ``--device_sampling`` runs on the 200k-node graph: GraphSAGE and GCN with
-  ``--exact_eval`` (GCN's exact inference launches K1) and GAT, 3 epochs each.
+  ``--exact_eval`` (GCN's exact inference launches K1) and GAT, 3 epochs each;
+* the packed host pipeline (phase 21), on the same 2.4M-node data (built once for
+  phases 20 and 21), in the configuration of ``benchmarks/epoch_bench.py:335-411``
+  (GraphSAGE, hidden 256, fanouts [15, 10], batch 1024, Adam 1e-3, a
+  ``DataLoader(packed=True)`` with two producer threads and 4 batches ahead): 8 packed
+  steps replayed as a CUDA graph against 8 eager ones (bitwise equal) and groups of 3
+  with a padded tail against single steps (within 1e-5 x max|ref|), with dropout 0
+  and 0.5; ms a batch including sampling of the packed epoch, grouped (8), routed by
+  the link probe (``group="auto"``, its group, bandwidth and round trip printed),
+  eager, and the unpacked ``run_epoch`` on the same loader settings, in turns; one
+  packed epoch profiled (``profile_slice --host_packed``); then, on the 200k-node
+  graph, one epoch of ``PipelinedTrainer`` with a 25% cache (its load/compute split
+  and miss rate), ``fused_gcn_layer`` forward and backward against the CPU at width
+  128, and the CLI's ``--preprocess`` runs on the host and the device-sampling path.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -1580,10 +1595,11 @@ def minibatch_split(args, batches: int = 10) -> dict:
     cfg = parse_train_config(args)
     dev = torch.device("cuda")
     g = run.build_dataset(cfg)
-    g, _, cache, fetch = run.prepare_pipeline(cfg, g, PhaseTimer(), {}, dev, get_logger())
     n_class = int(g.labels[: g.n_real_node].max()) + 1
     model = run.build_model(cfg, n_class, g.node_feat.shape[1],
                             generator=torch.Generator().manual_seed(0))
+    cfg, g, model, _, cache, fetch = run.prepare_pipeline(
+        cfg, g, model, n_class, 0, PhaseTimer(), {}, dev, get_logger())
     tr = MiniBatchTrainer(model, run.make_optimizer(cfg), device=dev)
     state = tr.init_state()
     feats = None if fetch is not None else g.node_feat.to(dev)
@@ -2241,7 +2257,7 @@ def _flagship_cli() -> dict:
     return out
 
 
-def phase_flagship() -> dict:
+def phase_flagship(data) -> dict:
     """Phase 20: the flagship path. On the headline bench's data (2.4M nodes,
     ``bench.flagship_data``): the sampler on the card against the CPU, graph replays
     against eager steps, the epoch timed in turns and profiled, then the bench's
@@ -2252,17 +2268,324 @@ def phase_flagship() -> dict:
     from dgll_tpu_torch import bench
 
     t0 = time.perf_counter()
-    data = bench.flagship_data("cuda")
-    print(f"[20 data] the bench's graph, features and labels in {time.perf_counter() - t0:.1f} s")
     _flagship_sampler(data)
     result = {"graph_vs_eager": _flagship_graph_vs_eager(data),
               "turns": _flagship_turns(data)}
     os.environ["BENCH_FULLGRAPH"] = "0"
     result["bench"] = bench.main(["--device", "cuda"], data=data)
     check(result["bench"]["detail"]["cuda_graph"], "the bench replayed a CUDA graph")
-    del data
     result["cli"] = _flagship_cli()
     print(f"[20 done] phase 20 in {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+# the packed host pipeline (phase 21): the configuration of
+# benchmarks/epoch_bench.py:335-411 (EB_HOST=1) on the bench's data, each epoch's ms a
+# batch including the host's sampling; (name, group, packed, CUDA graph), timed in
+# turns A B C D E E D C B A. The eager packed run against the unpacked one is two
+# copies a batch against eight, with the same eager step; the graph replays against
+# the eager packed run are the graph's share.
+HOST_GROUP = 8  # epoch_bench.py's BENCH_GROUP default
+HOST_RUNS = (("host_pipeline_packed", 1, True, None),
+             ("host_pipeline_packed_grouped", HOST_GROUP, True, None),
+             ("host_pipeline_packed_auto", "auto", True, None),
+             ("host_pipeline_packed_eager", 1, True, False),
+             ("host_pipeline_unpacked", 1, False, False))
+PACKED_BATCHES = 8  # the checks' batches, sampled once
+PACKED_TOL = 1e-5   # group 3 with a padded tail against group 1, x max|ref|
+# the CLI's --preprocess runs (phase 21) on the slices' graph, MINIBATCH_EPOCHS each
+PREPROCESS_RUNS = (("GraphSAGE, --preprocess", ["--Model", "GraphSAGE", "--preprocess"]),
+                   ("GraphSAGE, --preprocess --device_sampling",
+                    ["--Model", "GraphSAGE", "--preprocess", "--device_sampling"]))
+
+
+def _params(state) -> list:
+    return [p.detach().clone() for p in state.model.parameters()]
+
+
+def _packed_checks(data, hg) -> dict:
+    """On ``PACKED_BATCHES`` batches sampled once on the host and moved to the card,
+    from the same weights and generator seed, at dropout 0 and 0.5: the packed step
+    replayed as a CUDA graph against the eager packed step (losses and parameters
+    bitwise equal), and ``run_epoch_packed`` in groups of 3 (the last group padded)
+    against groups of 1 (within ``PACKED_TOL`` x max|ref|)."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.sampling import NeighborSampler
+    from dgll_tpu_torch.tools.profile_slice import host_packed_trainer
+    from dgll_tpu_torch.train import make_packed_block_step
+
+    sampler = NeighborSampler(bench.FANOUTS, seed=3)
+    nodes = data.train_nodes[: PACKED_BATCHES * 1024].reshape(PACKED_BATCHES, 1024)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in sampler.sample_packed(hg, b, 1024))
+               for b in nodes]
+    out = {}
+    for dropout in (0.0, 0.5):
+        runs = []
+        for graph in (True, False):
+            tr, state = host_packed_trainer(data, dropout, cuda_graph=graph)
+            step = make_packed_block_step(bench.FANOUTS, cuda_graph=graph)
+            losses = torch.stack([step(state, ids, mask, data.feats, data.labels,
+                                       tr.generator)[1] for ids, mask in batches])
+            runs.append((losses, _params(state)))
+        (lg, pg), (le, pe) = runs
+        check(torch.isfinite(lg).all().item(), "finite packed losses")
+        check(torch.equal(lg, le) and all(torch.equal(a, b) for a, b in zip(pg, pe)),
+              f"dropout {dropout}: {PACKED_BATCHES} packed graph replays bitwise equal to "
+              "eager packed steps")
+        runs = []
+        for group in (1, 3):
+            tr, state = host_packed_trainer(data, dropout)
+            _, loss, _ = tr.run_epoch_packed(state, batches, data.feats, data.labels,
+                                             bench.FANOUTS, group=group)
+            check(tr.last_group == group and state.step == PACKED_BATCHES,
+                  f"group {group} ran {PACKED_BATCHES} steps")
+            runs.append((loss, _params(state)))
+        (l1, p1), (l3, p3) = runs
+        err_l = abs(l3 - l1)
+        err_p = max((a - b).abs().max().item() for a, b in zip(p3, p1))
+        scale = max(b.abs().max().item() for b in p1)
+        check(err_l <= PACKED_TOL * abs(l1) and err_p <= PACKED_TOL * scale,
+              f"dropout {dropout}: group 3 with a padded tail within {PACKED_TOL} x "
+              "max|ref| of group 1")
+        out[f"dropout {dropout}"] = {"graph_vs_eager": "bitwise equal",
+                                     "group3_vs_group1": {"loss": err_l, "params": err_p}}
+        print(f"[21 check] dropout {dropout}: {PACKED_BATCHES} packed graph replays "
+              f"bitwise equal to eager steps (losses {' '.join(f'{v:.6f}' for v in lg.tolist())}); "
+              f"group 3 (padded tail) against group 1: max abs error loss {err_l:.3e}, "
+              f"parameters {err_p:.3e}")
+    return out
+
+
+def _host_turns(data, hg) -> dict:
+    """``HOST_RUNS``, each from the bench's weights after a warm-up epoch on a short
+    loader (the captures), timed in turns: ms a batch of each epoch, host clock, the
+    epoch ending in its read of the loss."""
+    from dgll_tpu_torch.tools.profile_slice import host_packed_loader, host_packed_trainer
+
+    _zero_all_counters()
+    runs = {}
+    for name, group, packed, graph in HOST_RUNS:
+        tr, state = host_packed_trainer(data, cuda_graph=graph)
+        short = data.train_nodes[: 2 * HOST_GROUP * 1024]
+        loader = host_packed_loader(data, hg, packed=packed)
+        runs[name] = (tr, state, group, packed, loader)
+        _host_epoch(runs[name], data, host_packed_loader(data, hg, short, 1, packed))
+
+    out = {name: [] for name in runs}
+    for name in [*runs, *reversed(runs)]:
+        out[name].append(_host_epoch(runs[name], data))
+    counts = {k: v for k, v in _all_counters().items() if v}
+    check(not counts, f"the host pipeline launches no kernel of the port, got {counts}")
+    tr = runs["host_pipeline_packed_auto"][0]
+    bw, rtt = tr._link
+    result = {name: {"ms_per_batch": float(np.median(v)), "epochs": v} for name, v in out.items()}
+    result["host_pipeline_packed_auto"].update(
+        chosen_group=tr.last_group, probed_bandwidth_mb_s=bw / 1e6, probed_rtt_ms=rtt * 1e3)
+    result["host_pipeline_packed_grouped"]["group"] = HOST_GROUP
+    n_batches = len(runs["host_pipeline_packed"][4])
+    for name, r in result.items():
+        extra = ""
+        if name == "host_pipeline_packed_auto":
+            extra = (f", chosen group {r['chosen_group']}, probed bandwidth "
+                     f"{r['probed_bandwidth_mb_s']:.1f} MB/s, RTT {r['probed_rtt_ms']:.4f} ms")
+        print(f"[21 turns] {name}: {r['ms_per_batch']:.4f} ms a batch including sampling "
+              f"(median of {' / '.join(f'{v:.4f}' for v in r['epochs'])}, {n_batches} "
+              f"batches an epoch){extra}")
+    result["profile"] = _host_profile(runs["host_pipeline_packed"], data)
+    result["sample_packed_ms"] = _sample_ms(data, hg)
+    return result
+
+
+def _sample_ms(data, hg, batches: int = 10) -> float:
+    """ms of one ``sample_packed`` of a 1,024-seed batch on one host thread, the mean
+    of ``batches`` after one warm-up: the producers' work a batch."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.sampling import NeighborSampler
+
+    sampler = NeighborSampler(bench.FANOUTS, seed=5)
+    seeds = data.train_nodes[: (batches + 1) * 1024].reshape(batches + 1, 1024)
+    sampler.sample_packed(hg, seeds[0], 1024)
+    t0 = time.perf_counter()
+    for b in seeds[1:]:
+        sampler.sample_packed(hg, b, 1024)
+    ms = (time.perf_counter() - t0) * 1e3 / batches
+    print(f"[21 sample] sample_packed on one host thread: {ms:.4f} ms a batch of 1,024 "
+          f"seeds ({1024 * 11 * 16} ids)")
+    return ms
+
+
+def _host_epoch(run, data, loader=None) -> float:
+    """One epoch of ``run`` (``_host_turns``' tuple) over ``loader`` (its own by
+    default): ms a batch on the host clock."""
+    from dgll_tpu_torch import bench
+
+    tr, state, group, packed, own = run
+    loader = own if loader is None else loader
+    t0 = time.perf_counter()
+    if packed:
+        _, loss, _ = tr.run_epoch_packed(state, loader, data.feats, data.labels,
+                                         bench.FANOUTS, group=group)
+    else:
+        _, loss, _ = tr.run_epoch(state, loader, data.feats, data.labels)
+    ms = (time.perf_counter() - t0) * 1e3 / len(loader)
+    check(np.isfinite(loss), "a finite epoch loss")
+    return ms
+
+
+def _host_profile(run, data) -> dict:
+    """``profile_slice --host_packed``'s numbers for the packed run."""
+    from dgll_tpu_torch.tools import profile_slice
+
+    tr, state, _, _, loader = run
+    res = profile_slice.host_packed_profile(tr, state, loader, data)
+    per = res["ms_per_batch"]
+    print(f"[21 profile] one packed epoch: wall {per['wall']:.4f} ms a batch, device busy "
+          f"{per['busy']:.4f}, idle {100 * res['profile']['idle_share']:.2f}%; top kernels "
+          + ", ".join(f"{100 * v['share']:.1f}% {k[:60]}" for k, v in
+                      list(res["profile"]["kernels"].items())[:5]))
+    return res
+
+
+def _pipelined_trainer() -> dict:
+    """One epoch of ``MQTrainer`` (``PipelinedTrainer``) with the CLI's
+    ``--cached_nPercent 25`` cache on the slices' graph (GraphSAGE, hidden 256,
+    fanouts [10, 5], batch 1024), and its validation."""
+    from dgll_tpu_torch import run
+    from dgll_tpu_torch.cache import HBMFeatureCache
+    from dgll_tpu_torch.train import MQTrainer
+    from dgll_tpu_torch.utils import parse_train_config
+
+    cfg = parse_train_config([*MINIBATCH_ARGS, "--Model", "GraphSAGE",
+                              "--cached_nPercent", "25"])
+    g = run.build_dataset(cfg)
+    host = g.node_feat.numpy()
+    cache = HBMFeatureCache(host, device="cuda")
+    k = int(cfg.cached_percent / 100.0 * g.n_real_node)
+    cache.auto_cache(g.out_degrees_np(), k * host.shape[1] * host.itemsize)
+    n_class = int(g.labels[: g.n_real_node].max()) + 1
+    model = run.build_model(cfg, n_class, host.shape[1],
+                            generator=torch.Generator().manual_seed(0))
+    tr = MQTrainer(model, run.make_optimizer(cfg), g, run.build_sampler(cfg),
+                   cfg.batch_size, cache, g.labels, device="cuda").init(g.get_train_nodes())
+    res = tr.fit(g.get_train_nodes(), g.get_validation_nodes(), epochs=1)
+    phases, loss = res["phases"], res["history"][0]["loss"]
+    n_batches = -(-len(g.get_train_nodes()) // cfg.batch_size)
+    check(np.isfinite(loss) and {"load", "compute"} <= set(phases),
+          "PipelinedTrainer: a finite loss, load and compute timed")
+    check(cache.k == 50_000 and 0 < res["cache_miss_rate"] < 1,
+          "PipelinedTrainer: the cache holds 25% of the rows and misses some")
+    print(f"[21 pipelined] MQTrainer, cache 25%: one epoch of {n_batches} batches in "
+          f"{res['history'][0]['s']:.3f} s, loss {loss:.4f}, val {res['best_val']:.4f}; "
+          f"host time a batch: load {1e3 * phases['load'] / n_batches:.3f} ms, compute "
+          f"{1e3 * phases['compute'] / n_batches:.3f} ms; cache_miss_rate "
+          f"{res['cache_miss_rate']:.4f}")
+    return {"epoch_s": res["history"][0]["s"], "loss": loss, "best_val": res["best_val"],
+            "load_ms_per_batch": 1e3 * phases["load"] / n_batches,
+            "compute_ms_per_batch": 1e3 * phases["compute"] / n_batches,
+            "cache_miss_rate": res["cache_miss_rate"]}
+
+
+def _fused_gcn() -> dict:
+    """``fused_gcn_layer`` forward and backward on the card against the same on the
+    CPU (plain PyTorch both), on the slices' GCN graph (normalised weights) at width
+    128, within 1e-4 x max|ref|; then timed on the card beside the autograd
+    composition ``relu(spmm_coo(x @ w))``.
+
+    The card's ``index_add_`` sums in atomic order, the CPU's in edge order, so a
+    pre-activation within float32 rounding of 0 may fall on either side of the
+    ReLU, and the backward's mask with it: the cotangent is zeroed where the
+    pre-activation (float64, on the card) lies within 1e-4 x its max of 0, so that
+    both devices mask the same elements."""
+    from dgll_tpu_torch import run
+    from dgll_tpu_torch.ops import fused_gcn_layer, spmm_coo
+    from dgll_tpu_torch.utils import parse_train_config
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    g = run.build_dataset(parse_train_config([*MINIBATCH_ARGS, "--Model", "GCN"]))
+    gen = torch.Generator().manual_seed(21)
+    n, f = g.n_node, 128
+    x, cot = torch.randn(n, f, generator=gen), torch.randn(n, f, generator=gen)
+    w = torch.randn(f, f, generator=gen) / f ** 0.5
+    edges = (g.src, g.dst, g.edge_weight)
+    agg = spmm_coo(g.src.cuda(), g.dst.cuda(), x.cuda().double() @ w.cuda().double(), n,
+                   g.edge_weight.cuda().double())
+    kink = (agg.abs() <= 1e-4 * agg.abs().max()).cpu()
+    cot = torch.where(kink, 0.0, cot)
+
+    def layer(dev, fn=fused_gcn_layer):
+        xs, ws = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+        e = [t.to(dev) for t in edges]
+        return xs, ws, e, lambda: fn(*e, xs, ws, n)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xs, ws, _, fwd = layer(dev)
+        y = fwd()
+        y.backward(cot.to(dev))
+        out[dev] = [t.detach().cpu() for t in (y, xs.grad, ws.grad)]
+    errs = {}
+    for name, got, want in zip(("out", "grad_x", "grad_w"), out["cuda"], out["cpu"]):
+        errs[name] = (got - want).abs().max().item()
+        check(errs[name] <= 1e-4 * want.abs().max().item(),
+              f"fused_gcn_layer {name}: card within 1e-4 x max|ref| of the CPU")
+    cot_d = cot.cuda()
+    times = {}
+    for name, fn in (("fused", fused_gcn_layer),
+                     ("autograd", lambda s, d, ew, xs, ws, n_dst: torch.relu(
+                         spmm_coo(s, d, xs @ ws, n_dst, ew)))):
+        xs, ws, _, fwd = layer("cuda", fn)
+        times[name] = cuda_median_ms(lambda: fwd().backward(cot_d))
+    print(f"[21 fused_gcn] fused_gcn_layer on the slices' graph ({n} nodes, {g.n_edge} edges, "
+          f"width {f}; {int(kink.sum())} cotangents at the ReLU's kink zeroed): card "
+          f"against CPU max abs error out {errs['out']:.3e}, grad_x "
+          f"{errs['grad_x']:.3e}, grad_w {errs['grad_w']:.3e}; forward + backward "
+          f"{times['fused']:.4f} ms, autograd composition {times['autograd']:.4f} ms")
+    return {"max_abs_err": errs, "fwd_bwd_ms": times, "kink_zeroed": int(kink.sum())}
+
+
+def _preprocess_cli() -> dict:
+    """The CLI's ``PREPROCESS_RUNS`` on the slices' graph, every counter set to 0 just
+    before each and read just after (the path launches no kernel of the port)."""
+    from dgll_tpu_torch import run
+
+    out = {}
+    for name, extra in PREPROCESS_RUNS:
+        _zero_all_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = run.main([*MINIBATCH_ARGS, *extra, "--n_epochs", str(MINIBATCH_EPOCHS)])
+        counts = {k: v for k, v in _all_counters().items() if v}
+        trial = res["trials"][0]
+        losses = trial["epoch_loss"]
+        check(trial["epochs"] == MINIBATCH_EPOCHS and all(np.isfinite(losses)),
+              f"{name}: {MINIBATCH_EPOCHS} epochs of finite losses")
+        check(trial["preprocess"] is True and trial["test_acc"] > 2 / 16,
+              f"{name}: preprocessed, test_acc above 2/16")
+        check(not counts, f"{name}: no kernel launch on the path, got {counts}")
+        print(f"[21 cli] {name}: loss {' -> '.join(f'{v:.4f}' for v in losses)}, test_acc "
+              f"{trial['test_acc']:.4f}, epoch s {[round(v, 3) for v in trial['epoch_s']]},"
+              f" total_s {trial['total_s']:.3f}")
+        out[name] = {"test_acc": trial["test_acc"], "epoch_loss": losses,
+                     "epoch_s": trial["epoch_s"]}
+    return out
+
+
+def phase_host_packed(data) -> dict:
+    """Phase 21: the packed host pipeline on the headline bench's data (2.4M nodes,
+    shared with phase 20): the packed step's graph against its eager step and groups
+    against single steps (``_packed_checks``), the runs of ``HOST_RUNS`` in turns and
+    one packed epoch profiled (``_host_turns``); then, on the slices' graph,
+    ``PipelinedTrainer`` with the cache, ``fused_gcn_layer`` against the CPU and the
+    CLI's ``--preprocess`` runs."""
+    from dgll_tpu_torch.sampling import HostGraph
+
+    t0 = time.perf_counter()
+    hg = HostGraph(data.indptr, data.src, data.n_node)
+    result = {"checks": _packed_checks(data, hg), "turns": _host_turns(data, hg)}
+    del hg
+    result["pipelined"] = _pipelined_trainer()
+    result["fused_gcn"] = _fused_gcn()
+    result["cli"] = _preprocess_cli()
+    print(f"[21 done] phase 21 in {time.perf_counter() - t0:.1f} s")
     return result
 
 
@@ -2298,7 +2621,15 @@ def main() -> int:
     cache = phase_cache()
     probe_kernels = phase_probe_kernels()
     probe_res, probe_counts = phase_probe_tool()
-    flagship = phase_flagship()
+    from dgll_tpu_torch import bench as flagship_bench
+
+    t_data = time.perf_counter()
+    data = flagship_bench.flagship_data("cuda")  # phases 20 and 21
+    print(f"[20 data] the bench's graph, features and labels in "
+          f"{time.perf_counter() - t_data:.1f} s")
+    flagship = phase_flagship(data)
+    host_packed = phase_host_packed(data)
+    del data
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -2330,6 +2661,7 @@ def main() -> int:
     print(f"[18 cache] {json.dumps(cache)}")
     print(f"[19 probes] {json.dumps(probe_res)}")
     print(f"[20 flagship] {json.dumps(flagship)}")
+    print(f"[21 host_packed] {json.dumps(host_packed)}")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

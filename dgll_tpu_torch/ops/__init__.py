@@ -12,7 +12,7 @@ from dgll_tpu_torch.ops.segment import (
     segment_softmax,
     segment_sum,
 )
-from dgll_tpu_torch.ops.spmm import sddmm_coo, spmm_coo
+from dgll_tpu_torch.ops.spmm import fused_gcn_layer, sddmm_coo, spmm_coo
 from dgll_tpu_torch.ops.gat import (
     gat_attention_chunked,
     gat_attention_chunked_fused,
@@ -22,6 +22,7 @@ from dgll_tpu_torch.ops.gat import (
 __all__ = [
     "ChunkedCSR",
     "build_chunked",
+    "fused_gcn_layer",
     "build_chunked_pair",
     "gat_attention_chunked",
     "gat_attention_chunked_fused",

@@ -4,9 +4,9 @@ Counterpart of ``dgll_tpu/ops/spmm.py``: ``spmm_coo`` is a gather of source rows
 per-edge weight and a scatter-add into the destinations, the aggregation for graphs
 that carry no kernel layout; ``spmm_mean_coo`` and ``spmm_max_coo`` are SAGE's mean
 and max over a COO edge list; ``block_aggregate`` is the fanout-dense reduction over
-a sampled ``Block``; ``sddmm_coo`` the per-edge scores. All are differentiable
-through autograd. The JAX package computes these in XLA, outside any Pallas kernel,
-so they stay plain PyTorch on every device.
+a sampled ``Block``; ``sddmm_coo`` the per-edge scores; ``fused_gcn_layer`` a whole
+GCN layer with its own backward. All are differentiable. The JAX package computes
+these in XLA, outside any Pallas kernel, so they stay plain PyTorch on every device.
 """
 from __future__ import annotations
 
@@ -113,3 +113,33 @@ def sddmm_coo(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
     """Sampled dense-dense matmul: per-edge ``e_k = <a[dst_k], b[src_k]>``, ``[E]``
     (counterpart of ``dgll_tpu/ops/spmm.py:sddmm_coo``; the COO oracle of K9)."""
     return (a.index_select(0, dst) * b.index_select(0, src)).sum(-1)
+
+
+class _FusedGCN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, dst, edge_weight, x, w, n_dst):
+        agg = spmm_coo(src, dst, x @ w, n_dst, edge_weight)
+        ctx.save_for_backward(src, dst, edge_weight, x, w, agg > 0)
+        return torch.relu(agg)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst, edge_weight, x, w, relu_mask = ctx.saved_tensors
+        g = torch.where(relu_mask, g, 0.0)
+        gh = spmm_coo(dst, src, g, x.shape[0], edge_weight)  # A^T g: roles swapped
+        return None, None, None, gh @ w.T, x.T @ gh, None
+
+
+def fused_gcn_layer(src: torch.Tensor, dst: torch.Tensor,
+                    edge_weight: Optional[torch.Tensor], x: torch.Tensor,
+                    w: torch.Tensor, n_dst: int) -> torch.Tensor:
+    """``relu(A (X W))`` with a hand-written backward: the semantic twin of the
+    reference's fused GCN kernel (``gcn_extension.cpp:22-57`` forward).
+
+    The backward masks the output gradient by ``A (X W) > 0``, then computes
+    ``gh = A^T g``, ``grad_X = gh W^T`` and ``grad_W = X^T gh``, as
+    ``gcn_fused_kernel.cu:77-188`` does except for the mask: the reference's CUDA
+    backward omits the ReLU mask, and both packages apply it. ``src``, ``dst`` and
+    ``edge_weight`` get no gradient.
+    """
+    return _FusedGCN.apply(src, dst, edge_weight, x, w, int(n_dst))

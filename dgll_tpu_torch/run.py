@@ -10,8 +10,10 @@ and the community pipeline (``--n_parts``). The device path (``--device_sampling
 per-slot or ``--window_sampling`` draws) keeps the CSR, features and labels on the
 device and runs ``DeviceEpochRunner``'s epochs, a CUDA-graph replay a batch.
 ``--exact_eval`` takes the test accuracy of either minibatch path by exact
-full-graph inference. It prints the same JSON keys. Everything else raises
-``NotImplementedError`` naming the ROADMAP.md item that will port it.
+full-graph inference. ``--preprocess`` precomputes each node's neighbour-mean
+features, concatenates them to the raw ones and drops the outermost sampled hop and
+one layer, on either minibatch path. It prints the same JSON keys. Everything else
+raises ``NotImplementedError`` naming the ROADMAP.md item that will port it.
 
 On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN run
 attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does: where
@@ -29,6 +31,7 @@ the misses come from the host store.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import time
@@ -59,10 +62,6 @@ def check_supported(cfg) -> None:
                                   "samplers)")
     if cfg.sampler not in ("full", "neighbor"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
-    if cfg.sampler == "neighbor":
-        if cfg.preprocess:
-            raise NotImplementedError(f"--preprocess: {todo} 5 (host minibatch path: "
-                                      "neighbour-feature preprocessing)")
     if cfg.n_devices > 1:
         raise NotImplementedError(f"--n_devices {cfg.n_devices}: {todo} 8 (parallel)")
     if cfg.checkpoint_dir:
@@ -171,11 +170,39 @@ def attach_kernel_layouts(cfg, g):
     return g, extra
 
 
-def prepare_pipeline(cfg, g, timer, extra: dict, dev: torch.device, log):
-    """The community relabelling (``--n_parts`` > 1) and the device feature cache
-    (``--cached_nPercent``) of the minibatch path, in the JAX CLI's order. Returns
-    ``(g, book, cache, fetch)``: the (relabelled) graph, the community book or None,
-    and the cache and its fetch function or None."""
+def preprocess_features(cfg, g, model, n_class: int, trial_seed: int, extra: dict,
+                        dev: torch.device):
+    """``--preprocess`` (the reference's ``FeatureCache/gs.py:43-56``): each node's
+    neighbour-mean features (``precompute_neighbor_features``, computed on ``dev``)
+    concatenated to its raw features, padded rows kept padded; where there are two
+    fanouts or more the outermost one and one layer go. The model is built anew for
+    the wider input, from the trial's seed. Returns ``(cfg, g, model)``, unchanged
+    without the flag."""
+    if not cfg.preprocess:
+        return cfg, g, model
+    from dgll_tpu_torch.data import precompute_neighbor_features
+
+    feats = g.node_feat.to(torch.float32)
+    neigh = precompute_neighbor_features(g.to(dev)).to(feats.device)
+    neigh = torch.nn.functional.pad(neigh, (0, 0, 0, g.n_node - g.n_real_node))
+    g = g.replace(node_feat=torch.cat([feats, neigh], dim=1))
+    if len(cfg.fanouts) > 1:
+        cfg = dataclasses.replace(cfg, fanouts=list(cfg.fanouts[1:]),
+                                  n_layers=max(cfg.n_layers - 1, 1))
+    model = build_model(cfg, n_class, g.node_feat.shape[1],
+                        generator=torch.Generator().manual_seed(trial_seed))
+    extra["preprocess"] = True
+    return cfg, g, model
+
+
+def prepare_pipeline(cfg, g, model, n_class: int, trial_seed: int, timer, extra: dict,
+                     dev: torch.device, log):
+    """The community relabelling (``--n_parts`` > 1), the neighbour-feature
+    preprocessing (``--preprocess``, ``preprocess_features``) and the device feature
+    cache (``--cached_nPercent``) of the host minibatch path, in the JAX CLI's order.
+    Returns ``(cfg, g, model, book, cache, fetch)``: the configuration, graph and
+    model as preprocessing left them (the graph relabelled), the community book or
+    None, and the cache and its fetch function or None."""
     book = None
     if cfg.n_parts > 1:
         from dgll_tpu_torch.parallel.community import run_cog
@@ -189,6 +216,7 @@ def prepare_pipeline(cfg, g, timer, extra: dict, dev: torch.device, log):
         extra["cog_s"] = float(sum(cog_t.values()))
         log.info(f"COG: {len(book)} communities in {extra['cog_s']:.2f}s")
 
+    cfg, g, model = preprocess_features(cfg, g, model, n_class, trial_seed, extra, dev)
     cache = fetch = None
     if cfg.cached_percent > 0:
         from dgll_tpu_torch.cache import HBMFeatureCache
@@ -199,16 +227,17 @@ def prepare_pipeline(cfg, g, timer, extra: dict, dev: torch.device, log):
         cache.auto_cache(g.out_degrees_np(), k * host_feats.shape[1] * host_feats.itemsize)
         fetch = cache.fetch
         log.info(f"cache: {cache.k}/{g.n_real_node} rows resident")
-    return g, book, cache, fetch
+    return cfg, g, model, book, cache, fetch
 
 
-def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer,
-                     extra: dict, log) -> tuple:
-    """The device-sampling path (``--device_sampling``): the CSR, the features and the
-    labels on the device, each epoch ``DeviceEpochRunner``'s (a CUDA-graph replay a
-    batch on a CUDA device), validation and test by the device-sampled sweep or, with
-    ``--exact_eval``, the test by exact inference. Returns ``(test_acc, micro_f1,
-    best_val, epochs run)``, with the per-epoch losses and times in ``extra``."""
+def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class: int,
+                     timer, extra: dict, log) -> tuple:
+    """The device-sampling path (``--device_sampling``): the CSR, the features
+    (widened by ``--preprocess``) and the labels on the device, each epoch
+    ``DeviceEpochRunner``'s (a CUDA-graph replay a batch on a CUDA device), validation
+    and test by the device-sampled sweep or, with ``--exact_eval``, the test by exact
+    inference. Returns ``(test_acc, micro_f1, best_val, epochs run)``, with the
+    per-epoch losses and times in ``extra``."""
     from dgll_tpu_torch.sampling import DeviceCSR
     from dgll_tpu_torch.train import GRAPH_ADAM, DeviceEpochRunner, micro_f1
 
@@ -216,6 +245,7 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer,
         raise ValueError("--device_sampling keeps the graph and features in device "
                          "memory; it composes with neither --n_parts nor "
                          "--cached_nPercent (use the host pipeline for those)")
+    cfg, g, model = preprocess_features(cfg, g, model, n_class, trial_seed, extra, dev)
     if cfg.window_sampling:
         log.info("device sampling: block-window mode (marginally uniform, draws "
                  "within a node correlated; --no_window_sampling for exact per-slot "
@@ -259,8 +289,8 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer,
     return test_acc, micro_f1(pred, y), best_val, len(losses)
 
 
-def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer,
-                        extra: dict, log) -> tuple:
+def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class: int,
+                        timer, extra: dict, log) -> tuple:
     """The host minibatch path: ``(test_acc, micro_f1, best_val, epochs run)``, with
     the per-epoch losses and times and the cache's counters in ``extra``; with
     ``--exact_eval`` the test is by exact inference."""
@@ -268,7 +298,8 @@ def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, timer
     from dgll_tpu_torch.sampling import CommunityNeighborSampler
     from dgll_tpu_torch.train import MiniBatchTrainer, exact_predict, micro_f1
 
-    g, book, cache, fetch = prepare_pipeline(cfg, g, timer, extra, dev, log)
+    cfg, g, model, book, cache, fetch = prepare_pipeline(cfg, g, model, n_class,
+                                                         trial_seed, timer, extra, dev, log)
     sampler = build_sampler(cfg)
     train_nodes = g.get_train_nodes()
     if book is not None:
@@ -349,8 +380,8 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     extra: dict = {}
     if cfg.sampler != "full":
         trial = run_device_trial if cfg.device_sampling else run_minibatch_trial
-        test_acc, f1, best_val, n_epochs = trial(cfg, g, trial_seed, dev, model, timer,
-                                                 extra, log)
+        test_acc, f1, best_val, n_epochs = trial(cfg, g, trial_seed, dev, model, n_class,
+                                                 timer, extra, log)
         return _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
                                n_epochs)
     if dev.type == "cuda":

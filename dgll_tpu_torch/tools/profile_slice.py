@@ -1,7 +1,7 @@
 """Where the time of a full-batch slice goes on a CUDA device.
 
     python -m dgll_tpu_torch.tools.profile_slice [--gat | --clustered | --small |
-                                                  --device_sampling]
+                                                  --device_sampling | --host_packed]
 
 It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph with
 16 classes: a 2-layer GCN of width 128 (``SLICE_ARGS``), or with ``--gat`` the
@@ -33,6 +33,13 @@ kernels' shares), and the batch's device time split into its phases (sampling, t
 feature and label gather, forward with the loss, backward, the optimizer step) by
 CUDA events captured inside a graph of the same step, summed over an epoch of
 replays (``phase_split``).
+
+With ``--host_packed`` it profiles the packed host pipeline at the same sizes (the
+configuration of ``benchmarks/epoch_bench.py:335-411``: the bench's graph sampled on
+the host by two producer threads, ``DataLoader(packed=True, prefetch=4)``, each batch's
+``(ids, mask)`` copied to the card and ``MiniBatchTrainer.run_epoch_packed``'s step
+replayed as a CUDA graph): one epoch under ``torch.profiler`` after a warm-up epoch
+(wall, device busy, idle share, the kernels' shares).
 
 With ``--small`` it splits the time of each kernel under 0.15 ms at the slices'
 shapes (and of K4 at 8 heads beside its one head), and of the library calls beside
@@ -344,6 +351,76 @@ def profile_device_sampling(card: str) -> dict:
     return result
 
 
+# the packed host pipeline's loader (benchmarks/epoch_bench.py:335-411)
+HOST_PREFETCH, HOST_PRODUCERS = 4, 2
+
+
+def host_packed_trainer(data, dropout: float = 0.0, cuda_graph=None):
+    """``(trainer, state)``: the bench's GraphSAGE (weights from its ``SEED``) under a
+    ``MiniBatchTrainer`` on the features' device, Adam 1e-3 (capturable and fused on
+    a CUDA device), for the packed host pipeline on ``data`` (``bench.Flagship``)."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.nn import GraphSAGE
+    from dgll_tpu_torch.train import GRAPH_ADAM, MiniBatchTrainer
+
+    dev = data.feats.device
+    model = GraphSAGE(bench.SAGE_FEAT, bench.SAGE_HIDDEN, bench.SAGE_CLASSES,
+                      dropout=dropout, generator=torch.Generator().manual_seed(bench.SEED))
+    adam = GRAPH_ADAM if dev.type == "cuda" else {}
+    tr = MiniBatchTrainer(model, functools.partial(torch.optim.Adam, lr=1e-3, **adam),
+                          seed=bench.SEED, device=dev, cuda_graph=cuda_graph)
+    return tr, tr.init_state()
+
+
+def host_packed_loader(data, host_graph, nodes=None, seed: int = 0, packed: bool = True):
+    """The packed host pipeline's loader over ``nodes`` (the bench's train nodes by
+    default): batch 1024, ``HOST_PRODUCERS`` producer threads, ``HOST_PREFETCH``
+    batches ahead, each moved to the features' device by the producer; with
+    ``packed=False`` the same loader yielding blocks."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.dataloader import DataLoader
+    from dgll_tpu_torch.sampling import NeighborSampler
+
+    return DataLoader(host_graph, data.train_nodes if nodes is None else nodes,
+                      NeighborSampler(bench.FANOUTS, seed=0), 1024,
+                      prefetch=HOST_PREFETCH, seed=seed, device=data.feats.device,
+                      n_producers=HOST_PRODUCERS, packed=packed)
+
+
+def host_packed_profile(tr, state, loader, data) -> dict:
+    """A warm-up epoch (the capture), then one packed epoch under the profiler: every
+    number of ``--host_packed`` but the card's."""
+    from dgll_tpu_torch import bench
+
+    def epoch():
+        return tr.run_epoch_packed(state, loader, data.feats, data.labels, bench.FANOUTS)
+
+    epoch()
+    prof = profile(epoch)
+    nb = len(loader)
+    return {"n_batches": nb, "profile": prof,
+            "ms_per_batch": {"wall": prof["wall_ms"] / nb, "busy": prof["busy_ms"] / nb}}
+
+
+def profile_host_packed(card: str) -> dict:
+    """``host_packed_profile`` on the headline bench's data."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.sampling import HostGraph
+
+    data = bench.flagship_data("cuda")
+    tr, state = host_packed_trainer(data)
+    loader = host_packed_loader(data, HostGraph(data.indptr, data.src, data.n_node))
+    result = {"card": card, "model": "GraphSAGE flagship, packed host pipeline",
+              **host_packed_profile(tr, state, loader, data)}
+    print(f"card: {card}")
+    _print_profile("packed host pipeline, a CUDA-graph replay a batch", result["profile"],
+                   f"1 epoch of {result['n_batches']} batches")
+    per = result["ms_per_batch"]
+    print(f"per batch: wall {per['wall']:.4f} ms, busy {per['busy']:.4f} ms")
+    print(json.dumps(result))
+    return result
+
+
 def _entry_line(entry: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                      for k, v in entry.items())
@@ -403,6 +480,9 @@ def main(argv=None) -> dict:
     which.add_argument("--device_sampling", action="store_true",
                        help="profile the headline bench's replayed epoch and split it "
                             "into phases")
+    which.add_argument("--host_packed", action="store_true",
+                       help="profile an epoch of the packed host pipeline at the "
+                            "headline bench's sizes")
     args = p.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -413,6 +493,8 @@ def main(argv=None) -> dict:
         return profile_small(card)
     if args.device_sampling:
         return profile_device_sampling(card)
+    if args.host_packed:
+        return profile_host_packed(card)
     gat = args.gat
     cfg = parse_train_config(GAT_SLICE_ARGS if gat else SLICE_ARGS)
     prof, g, n_class = profile_training(cfg, STEPS)

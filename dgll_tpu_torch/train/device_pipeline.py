@@ -35,13 +35,9 @@ from dgll_tpu_torch.sampling.device_sampler import (
     layer_sizes,
     sample_blocks_device,
 )
+from dgll_tpu_torch.train import cuda_graph
 from dgll_tpu_torch.train.metrics import masked_nll_loss
 from dgll_tpu_torch.train.trainer import TrainState, create_train_state
-
-# Adam's options for a captured step: its step count and bias correction stay on the
-# device (capturable), and one fused kernel updates every parameter
-GRAPH_ADAM = dict(capturable=True, fused=True)
-WARMUP_STEPS = 3  # eager steps on a side stream before a capture (cuBLAS, allocator)
 
 
 def make_sample_fn(fanouts: Sequence[int], window: bool = False,
@@ -238,55 +234,21 @@ class DeviceEpochRunner:
         return draw_epoch(self.n_batches, self.batch_size, self.fanouts, self.window,
                           self.generator, self.device)
 
-    def _snapshot(self, state: TrainState):
-        params = [t.detach().clone() for t in state.model.state_dict().values()]
-        opt = {id(t): t.clone() for s in state.optimizer.state.values()
-               for t in s.values() if isinstance(t, torch.Tensor)}
-        return params, opt, self.generator.get_state()
-
-    def _restore(self, state: TrainState, snap) -> None:
-        """Put back, in place, what the warm-up and the capture changed: the
-        parameters, the optimizer's state (state that the warm-up created is zeroed,
-        Adam's initial state) and the generator."""
-        params, opt, gen = snap
-        with torch.no_grad():
-            for t, s in zip(state.model.state_dict().values(), params):
-                t.copy_(s)
-            for s in state.optimizer.state.values():
-                for t in s.values():
-                    if not isinstance(t, torch.Tensor):
-                        continue
-                    if id(t) in opt:
-                        t.copy_(opt[id(t)])
-                    else:
-                        t.zero_()
-        self.generator.set_state(gen)
-
     def capture(self, state: TrainState, feats, labels, marks=None) -> "torch.cuda.CUDAGraph":
-        """Capture the step on the current buffers as a CUDA graph, after
-        ``WARMUP_STEPS`` eager steps on a side stream; the parameters, optimizer
-        state, generator and batch index are then put back as they were. The runner's
-        generator is registered with the graph, so every replay draws new dropout
-        masks. ``marks``: see ``_step``."""
-        if not all(g.get("capturable", False) for g in state.optimizer.param_groups):
-            raise ValueError("a CUDA graph needs a capturable optimizer: build it with "
-                             "capturable=True (GRAPH_ADAM)")
-        snap = self._snapshot(state)
+        """Capture the step on the current buffers as a CUDA graph
+        (``cuda_graph.capture``: eager warm-up steps on a side stream, then the
+        parameters, optimizer state and generator put back), and rewind the batch
+        index. The runner's generator is registered with the graph, so every replay
+        draws new dropout masks. ``marks``: see ``_step``."""
         i0 = self._i.clone()
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP_STEPS):
-                self._i.zero_()  # an epoch may hold fewer batches than the warm-up
-                self._eager_step(state, feats, labels)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
-            self._step(state, feats, labels, marks)
-        self._restore(state, snap)
+
+        def warmup():
+            self._i.zero_()  # an epoch may hold fewer batches than the warm-up
+            self._eager_step(state, feats, labels)
+
+        graph, _ = cuda_graph.capture(state, self.generator,
+                                      lambda: self._step(state, feats, labels, marks),
+                                      warmup)
         self._i.copy_(i0)
         return graph
 

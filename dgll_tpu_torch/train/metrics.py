@@ -45,6 +45,45 @@ def micro_f1(pred, target, mask=None) -> float:
     return 2 * tp / denom if denom else 0.0
 
 
+def macro_f1(pred, target, n_class: int, mask=None) -> float:
+    """Unweighted mean over classes ``0 .. n_class - 1`` of each class's F1 (0 for a
+    class that is neither predicted nor present); ``pred`` may be logits."""
+    pred = _t(pred)
+    if pred.dim() > 1:
+        pred = pred.argmax(-1)
+    target = _t(target).to(pred.device)
+    if mask is not None:
+        m = _t(mask).to(pred.device).bool()
+        pred, target = pred[m], target[m]
+    classes = torch.arange(n_class, device=pred.device)[:, None]
+    p, t = pred[None, :] == classes, target[None, :] == classes
+    tp = (p & t).sum(1).double()
+    denom = 2 * tp + (p & ~t).sum(1) + (~p & t).sum(1)
+    f1 = torch.where(denom > 0, 2 * tp / denom.clamp_min(1), 0.0)
+    return float(f1.mean())
+
+
+def roc_auc(scores, target, mask=None) -> float:
+    """Binary ROC-AUC by the rank statistic, tied scores taking their average rank;
+    a target of ``1`` is positive and anything else negative, and a set with one
+    class only gives 0.5."""
+    scores = _t(scores).double().reshape(-1)
+    target = _t(target).to(scores.device).reshape(-1)
+    if mask is not None:
+        m = _t(mask).to(scores.device).bool().reshape(-1)
+        scores, target = scores[m], target[m]
+    pos = target == 1
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    _, inv, counts = torch.unique(scores, sorted=True, return_inverse=True,
+                                  return_counts=True)
+    # a tie group holding ranks end - count + 1 .. end takes their mean
+    last = counts.cumsum(0).double()
+    ranks = (last - (counts - 1) / 2.0)[inv]
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
 METRIC_FOR_DATASET = {
     "reddit": "f1",
     "ogbn-proteins": "roc-auc",
@@ -73,3 +112,17 @@ def masked_nll_loss(log_probs: torch.Tensor, labels: torch.Tensor, mask=None) ->
         return nll.mean()
     m = mask.to(nll.dtype)
     return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def masked_bce_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
+    """Multilabel sigmoid cross-entropy (PPI-style), the mean over labels and then
+    over the masked nodes; the logits are clipped to [-30, 30] and the loss is
+    ``max(z, 0) - z t + log1p(exp(-|z|))``, which does not overflow."""
+    z = logits.clamp(-30, 30)
+    loss = (torch.maximum(z, torch.zeros_like(z)) - z * targets
+            + torch.log1p(torch.exp(-z.abs())))
+    loss = loss.mean(-1)
+    if mask is None:
+        return loss.mean()
+    m = mask.to(loss.dtype)
+    return (loss * m).sum() / m.sum().clamp_min(1.0)

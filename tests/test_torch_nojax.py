@@ -7,7 +7,9 @@ clustered graph through the windowed layout, runs the community pipeline through
 port's own copy of the C++ host kernels, runs both round-4 GAT attention layers,
 trains GraphSAGE for two epochs on the CLI's host minibatch path with the feature
 cache, fills and fetches from the int8 cache, samples blocks on the device sampler
-and runs one epoch of ``DeviceEpochRunner``, and runs the probe tool on the CPU. No
+and runs one epoch of ``DeviceEpochRunner``, one packed epoch in groups of 2, one
+epoch of ``PipelinedTrainer`` and a ``--preprocess`` run of the CLI, and runs the
+probe tool on the CPU. No
 source file of the package imports them either, and none names a path inside the JAX
 package: the port reads no file of it. ``chip_smoke.py`` refuses to run, and prints
 no result, without a CUDA device.
@@ -80,6 +82,22 @@ runner = DeviceEpochRunner(GraphSAGE(128, 16, 128), torch.optim.Adam, csr, [4, 3
                            np.arange(200))
 _, loss = runner.run_epoch(runner.init_state(), g.node_feat, g.labels)
 assert runner.n_batches == 4 and torch.isfinite(loss), loss
+from dgll_tpu_torch.dataloader import DataLoader
+from dgll_tpu_torch.sampling import NeighborSampler
+from dgll_tpu_torch.train import MiniBatchTrainer, PipelinedTrainer
+tr = MiniBatchTrainer(GraphSAGE(128, 16, 128), torch.optim.Adam, device="cpu")
+loader = DataLoader(g, np.arange(96), NeighborSampler([4, 3]), 32, packed=True)
+_, loss, _ = tr.run_epoch_packed(tr.init_state(), loader, g.node_feat, g.labels, [4, 3],
+                                 group=2)
+assert np.isfinite(loss), loss
+res = PipelinedTrainer(GraphSAGE(128, 16, 128), torch.optim.Adam, g, NeighborSampler([4, 3]),
+                       32, g.node_feat, g.labels, device="cpu").init(np.arange(64)).fit(
+                           np.arange(64), epochs=1)
+assert np.isfinite(res["history"][0]["loss"]), res
+out = main(["--Model", "GraphSAGE", "--samp_type", "neighbor", "--device", "cpu",
+            "--n_node", "300", "--n_epochs", "1", "--nhid", "16", "--feat_dim", "8",
+            "--batch_size", "64", "--preprocess"])
+assert out["trials"][0]["preprocess"] is True
 from dgll_tpu_torch.tools import probe
 res = probe.main(["--device", "cpu"])
 assert res["p4_row_dma"]["ms"] > 0, res

@@ -184,8 +184,12 @@ def test_dataloader_producers_and_device(graphs):
     outs = sorted(tuple(out) for _, out, _ in many)
     assert outs == sorted(tuple(out) for _, out, _ in one)
     assert all(b.src_ids.device.type == "cpu" for _, _, bl in many for b in bl)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DataLoader(gt, seeds, NeighborSampler([2]), 10, packed=True)
+    packed = list(DataLoader(gt, seeds, NeighborSampler([2], seed=0), 10, shuffle=False,
+                             packed=True, n_producers=3, device="cpu"))
+    assert len(packed) == 10
+    assert all(ids.dtype == torch.int32 and mask.dtype == torch.uint8
+               and ids.shape == mask.shape == (30,) for ids, mask in packed)
+    assert sorted(tuple(ids[:10].tolist()) for ids, _ in packed) == outs
 
 
 def test_split_node_ids_match_jax(graphs):

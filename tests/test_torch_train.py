@@ -104,7 +104,7 @@ def test_cli_prints_the_jax_cli_keys(capsys):
     ["--samp_type", "fastgcn"],
     ["--samp_type", "ladies"],
     ["--samp_type", "neighbor", "--Model", "GIN"],
-    ["--samp_type", "neighbor", "--preprocess"],
+    ["--samp_type", "neighbor", "--n_devices", "2"],
     ["--samp_type", "ladies", "--device_sampling"],
     ["--samp_type", "full", "--Model", "GIN"],
     ["--samp_type", "full", "--n_devices", "2"],
