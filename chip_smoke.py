@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout and drives the
-port's eight slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
+port's nine slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
 200k-node power-law graph, the third through the full-graph bench
 (``dgll_tpu_torch.bench``) on a 200k-node clustered graph, the fourth through the
 round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph, the fifth
@@ -12,7 +12,9 @@ through the CLI's host minibatch path and the library's feature cache, the sixth
 through the primitive probe (``dgll_tpu_torch.tools.probe``), the seventh, the
 flagship, through the headline bench and the CLI's device-sampling branch, the
 eighth through the packed host pipeline (``MiniBatchTrainer.run_epoch_packed``),
-``PipelinedTrainer`` and the CLI's ``--preprocess``:
+``PipelinedTrainer`` and the CLI's ``--preprocess``, the ninth through the layer-wise
+samplers' device epoch, the CLI's layer-wise and GIN branches and GIN graph
+classification:
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
   on a power-law test graph and on a planted graph whose rows cross K1's split
@@ -88,7 +90,22 @@ eighth through the packed host pipeline (``MiniBatchTrainer.run_epoch_packed``),
   packed epoch profiled (``profile_slice --host_packed``); then, on the 200k-node
   graph, one epoch of ``PipelinedTrainer`` with a 25% cache (its load/compute split
   and miss rate), ``fused_gcn_layer`` forward and backward against the CPU at width
-  128, and the CLI's ``--preprocess`` runs on the host and the device-sampling path.
+  128, and the CLI's ``--preprocess`` runs on the host and the device-sampling path;
+* the layer-wise samplers and GIN (phase 22), on the same 2.4M-node data:
+  ``build_device_lap`` timed; FastGCN and LADIES on the card against the CPU with the
+  same uniforms, layer by layer (train seeds, seeds of in-degree 0 and masked seeds;
+  FastGCN's ids and slots exact, weights within 1e-6 relative; LADIES's ids exact but
+  where a uniform lies within rounding of a prefix-sum boundary, counted); 8 batches
+  replayed as a CUDA graph against 8 eager steps for each, dropout 0 and 0.5; the
+  products-scale epoch of ``benchmarks/epoch_bench.py:195-271`` (GCN, hidden 256,
+  layer sizes [2048, 1024], ELL width 32, batch 1024), ms a batch including sampling
+  beside the reference's 6.12 ms (``vs_dgll_products_batch``), its peak memory, one
+  profiled epoch's idle share and phases; then, on the 200k-node graph, the CLI's
+  FastGCN and LADIES runs on the host and the device path (``--flatten``; LADIES's
+  ``--exact_eval`` launches K1), ``--Model GIN --samp_type full`` for 20 epochs with
+  K1's launches held to the model's count, ``--Model GIN --device_sampling``, and GIN
+  graph classification on 128 synthetic graphs (the example's width 32, 3 layers,
+  sum and mean pooling) through K1, its forward on the card against the CPU's.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -2064,6 +2081,7 @@ FLAGSHIP_CLI_RUNS = (
 # max|ref| rather than bitwise (on an H100 they have read bitwise equal)
 GRAPH_TOL = 1e-6
 FLAGSHIP_BATCHES = 8  # the graph-against-eager comparison's batches
+GIN_TOL = 1e-5  # phase 22: the GIN classifier's forward on the card, x max|ref|
 
 
 def _same_blocks(got, want, what: str) -> None:
@@ -2589,6 +2607,339 @@ def phase_host_packed(data) -> dict:
     return result
 
 
+# the layer-wise samplers and GIN (phase 22). On the bench's data: the configuration of
+# benchmarks/epoch_bench.py:195-271 (bench.layerwise_runner), beside the reference's
+# MQ-FastGCN+f+d batch time (bench.BASELINE_MS)
+LAYERWISE_MODES = ("fastgcn", "ladies")
+LAYERWISE_BATCHES = 8  # the graph-against-eager comparison's batches
+# the CLI's layer-wise runs on the slices' graph (MINIBATCH_ARGS), MINIBATCH_EPOCHS
+# each, at the epoch's layer sizes ([2048, 1024]: 1024 grown by 2 a layer outwards);
+# the default model (GCN) with --exact_eval, whose exact inference launches K1
+LAYERWISE_CLI_ARGS = ["--n_samp", "1024", "--samp_growth_rate", "2"]
+LAYERWISE_CLI_RUNS = (
+    ("FastGCN, host", ["--samp_type", "fastgcn"]),
+    ("LADIES --flatten, host", ["--samp_type", "ladies", "--flatten"]),
+    ("FastGCN --flatten, --device_sampling",
+     ["--samp_type", "fastgcn", "--device_sampling", "--flatten"]),
+    ("LADIES, --device_sampling --exact_eval",
+     ["--samp_type", "ladies", "--device_sampling", "--exact_eval"]))
+GIN_EPOCHS = 20  # the full-batch GIN run, as the GCN slice's
+GIN_CLASSIFY = dict(n_graph=128, hidden=32, n_layers=3, pooling=("sum", "mean"),
+                    dropout=0.1, lr=5e-3, epochs=100)  # examples/graph_classification_gin.py
+
+
+def _ladies_ties(lap_cpu, prev_ids, prev_mask, u, got, want) -> int:
+    """The LADIES draws of one layer that differ between the card and the CPU, each
+    checked to lie within rounding of a boundary of the prefix sum: ``|u tot -
+    cum[j]| <= nK 2^-52 tot`` for some ``j`` (the float64 bound of a sum of ``nK``
+    non-negative terms: both sum in float64), ``cum`` in float64 on the host."""
+    differ = np.flatnonzero(got != want)
+    if len(differ) == 0:
+        return 0
+    prev_mask = prev_mask.numpy()
+    safe = np.where(prev_mask, prev_ids.numpy(), 0)
+    vals = lap_cpu.ell_val.numpy()[safe].astype(np.float64)
+    vals[(lap_cpu.ell_col.numpy()[safe] < 0) | ~prev_mask[:, None]] = 0
+    cum = np.cumsum((vals * vals).reshape(-1))
+    tol = len(cum) * 2.0 ** -52 * cum[-1]
+    for i in differ:
+        check(np.abs(cum - u[i] * cum[-1]).min() <= tol,
+              f"LADIES draw {i} differs off a boundary of the prefix sum")
+    return len(differ)
+
+
+def _layerwise_sampler(data, lap) -> dict:
+    """Both layer-wise samplers on the card against the same function on the CPU,
+    layer by layer from the CPU's previous layer, with the same uniforms (drawn on
+    the CPU), on the flagship's Laplacian at the bench's sizes: 1,024 train seeds;
+    seeds of in-degree 0 and every fifth masked. FastGCN: ids and slots exact,
+    weights within 1e-6 relative (a slot's multiplicity enters its weight as a
+    factor, so it is held exactly there); LADIES: a drawn id may differ only where
+    its uniform lies within rounding of a prefix-sum boundary (counted), and a layer
+    where none does is held as FastGCN's, its weights within 1e-5 relative (its
+    column sums are a scatter in another order)."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.sampling.device_layerwise import _layer, draw_layer_uniforms
+
+    lap_cpu = lap.to("cpu")
+    zero = np.flatnonzero(np.diff(data.indptr) == 0)[:64]
+    b = 1024
+    cases = {"train seeds": (data.train_nodes[:b], np.ones(b, bool)),
+             "degree 0 and masked": (np.concatenate([zero, data.train_nodes[:b - len(zero)]]),
+                                     np.arange(b) % 5 != 3)}
+    gen = torch.Generator().manual_seed(22)
+    out = {}
+    for mode in LAYERWISE_MODES:
+        ties = 0
+        for name, (seeds, mask) in cases.items():
+            prev_ids = torch.from_numpy(seeds.astype(np.int32))
+            prev_mask = torch.from_numpy(mask)
+            for li, s in enumerate(reversed(bench.LAYERWISE_SIZES)):
+                d = draw_layer_uniforms(s, mode, gen)
+                want = _layer(lap_cpu, prev_ids, prev_mask, s, d, mode)
+                on_card = tuple(t.cuda() for t in d) if mode == "fastgcn" else d.cuda()
+                got = _layer(lap, prev_ids.cuda(), prev_mask.cuda(), s, on_card, mode)
+                n = len(prev_ids)
+                ids_t, ids_c = got.src_ids.cpu().numpy(), want.src_ids.numpy()
+                if mode == "ladies":
+                    layer_ties = _ladies_ties(lap_cpu, prev_ids, prev_mask, d.numpy(),
+                                              ids_t[n:], ids_c[n:])
+                    ties += layer_ties
+                    if layer_ties:
+                        break  # the blocks differ from here on
+                check(np.array_equal(ids_t, ids_c), f"{mode}, {name}, layer {li}: ids")
+                check(torch.equal(got.slot.cpu(), want.slot), f"{mode}, {name}: slots")
+                check(torch.equal(got.src_mask.cpu(), want.src_mask), f"{mode}: src_mask")
+                rtol = 1e-6 if mode == "fastgcn" else 1e-5
+                err = (got.weight.cpu() - want.weight).abs()
+                check(bool((err <= rtol * want.weight.abs()).all()),
+                      f"{mode}, {name}, layer {li}: weights within {rtol} relative")
+                if name != "train seeds" and li == 0:
+                    check(bool((got.weight.cpu()[torch.from_numpy(~mask)] == 0).all()),
+                          f"{mode}: masked seeds carry no weight")
+                prev_ids, prev_mask = want.src_ids, want.src_mask
+        out[mode] = {"ladies_ties": ties} if mode == "ladies" else {}
+        print(f"[22 sampler] {mode}: card == CPU on the flagship's Laplacian "
+              f"({lap.n_node} nodes, ELL width {lap.k}), layer sizes "
+              f"{bench.LAYERWISE_SIZES}: 1,024 train seeds; {len(zero)} seeds of "
+              "in-degree 0 and every fifth masked"
+              + (f"; draws differing at a prefix-sum tie: {ties}" if mode == "ladies"
+                 else ""))
+    return out
+
+
+def _layerwise_graph_vs_eager(data, lap) -> dict:
+    """``LAYERWISE_BATCHES`` batches of each sampler as graph replays and as eager
+    steps, from the same weights, generator seed and draws; dropout 0 and 0.5."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.train import draw_epoch
+
+    nodes = data.train_nodes[: LAYERWISE_BATCHES * 1024]
+    out = {}
+    for mode in LAYERWISE_MODES:
+        for dropout in (0.0, 0.5):
+            draws = draw_epoch(LAYERWISE_BATCHES, 1024, bench.LAYERWISE_SIZES, False,
+                               torch.Generator("cuda").manual_seed(22), "cuda", mode)
+            runs = []
+            for graph in (True, False):
+                runner, state = bench.layerwise_runner(data, lap, mode, cuda_graph=graph,
+                                                       dropout=dropout, train_nodes=nodes)
+                runner.run_epoch(state, data.feats, data.labels, draws=draws)
+                runs.append((runner.batch_losses.clone(), _params(state)))
+            (lg, pg), (le, pe) = runs
+            err_l = (lg - le).abs().max().item()
+            err_p = max((a - b).abs().max().item() for a, b in zip(pg, pe))
+            check(torch.isfinite(lg).all().item(), "finite losses")
+            check(err_l <= GRAPH_TOL * le.abs().max().item(),
+                  f"{mode}, dropout {dropout}: graph losses within {GRAPH_TOL} x max|ref|")
+            check(err_p <= GRAPH_TOL * max(b.abs().max().item() for b in pe),
+                  f"{mode}, dropout {dropout}: graph parameters within {GRAPH_TOL} x "
+                  "max|ref|")
+            out[f"{mode}, dropout {dropout}"] = {"max_abs_err_loss": err_l,
+                                                 "max_abs_err_param": err_p}
+            print(f"[22 graph] {mode}, dropout {dropout}: {LAYERWISE_BATCHES} replays "
+                  f"against eager steps: losses "
+                  f"{' '.join(f'{v:.6f}' for v in lg.tolist())}; max abs error loss "
+                  f"{err_l:.3e}, parameters {err_p:.3e}")
+    return out
+
+
+def _layerwise_epochs(data, lap, smi: str) -> dict:
+    """Each sampler's products-scale epoch (``bench.layerwise_runner``, uncut): ms a
+    batch including sampling (the bench's timing: a warm-up epoch, the capture, then
+    ``bench.TIMED_EPOCHS`` epochs ending in a read of the loss), beside
+    ``bench.BASELINE_MS / ms`` as ``vs_dgll_products_batch``; the peak device memory
+    of the run; then one epoch profiled and split into phases
+    (``profile_slice --device_sampling --sampler``)."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.tools import profile_slice
+
+    out = {}
+    for mode in LAYERWISE_MODES:
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runner, state = bench.layerwise_runner(data, lap, mode)
+        ms = bench.time_epochs(runner, state, data)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        check(runner.cuda_graph and all(np.isfinite(ms)), f"{mode}: a replayed epoch")
+        res = profile_slice.device_sampling_profile(runner, state, data.feats, data.labels)
+        per = res["ms_per_batch"]
+        out[mode] = {"ms_per_batch": ms, "vs_dgll_products_batch": bench.BASELINE_MS / ms[-1],
+                     "n_batches": runner.n_batches, "peak_gib_above_held": peak,
+                     "idle_share": res["profile"]["idle_share"], "wall_busy": per,
+                     "phases_ms_per_batch": res["phases_ms_per_batch"]}
+        print(f"[22 epoch] {mode} ({smi}): GCN hidden {bench.SAGE_HIDDEN}, layer sizes "
+              f"{bench.LAYERWISE_SIZES}, batch 1024, {runner.n_batches} batches: "
+              f"{' / '.join(f'{v:.4f}' for v in ms)} ms a batch including sampling, "
+              f"vs_dgll_products_batch {bench.BASELINE_MS / ms[-1]:.3f}; peak memory "
+              f"{peak:.2f} GiB above the {held / 2**30:.2f} GiB held; profiled epoch: "
+              f"wall {per['wall']:.4f} / busy {per['busy']:.4f} ms a batch, idle "
+              f"{100 * res['profile']['idle_share']:.2f}%; phases (ms a batch) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in res["phases_ms_per_batch"].items()))
+        del runner, state
+    return out
+
+
+def _cli_run(name: str, args: list) -> tuple:
+    """One CLI run, every counter set to 0 just before it and read just after:
+    ``(trial, launches)``."""
+    from dgll_tpu_torch import run
+
+    _zero_all_counters()
+    with contextlib.redirect_stdout(io.StringIO()):  # the CLI's own JSON line
+        res = run.main(args)
+    counts = {k: v for k, v in _all_counters().items() if v}
+    trial = res["trials"][0]
+    check(all(np.isfinite(trial["epoch_loss"])), f"{name}: finite losses")
+    check(trial["test_acc"] > 2 / 16, f"{name}: test_acc above 2/16")
+    return trial, counts
+
+
+def _layerwise_cli() -> dict:
+    """``LAYERWISE_CLI_RUNS``: exact inference launches K1 (one forward a layer), and
+    nothing else launches a kernel of the port."""
+    out = {}
+    for name, extra in LAYERWISE_CLI_RUNS:
+        trial, counts = _cli_run(name, [*MINIBATCH_ARGS, *LAYERWISE_CLI_ARGS, *extra,
+                                        "--n_epochs", str(MINIBATCH_EPOCHS)])
+        device = "--device_sampling" in extra
+        check(trial["epochs"] == MINIBATCH_EPOCHS, f"{name}: {MINIBATCH_EPOCHS} epochs")
+        check(trial.get("device_sampling", False) == device,
+              f"{name}: the {'device' if device else 'host'} path")
+        if "--exact_eval" in extra:
+            check(counts == {"K1 fwd": 2}, f"{name}: exact inference launched K1 once a "
+                                            f"layer, and nothing else ran: {counts}")
+        else:
+            check(not counts, f"{name}: no kernel launch on the path, got {counts}")
+        print(f"[22 cli] {name}: loss "
+              f"{' -> '.join(f'{v:.4f}' for v in trial['epoch_loss'])}, test_acc "
+              f"{trial['test_acc']:.4f}, epoch s {[round(v, 3) for v in trial['epoch_s']]}"
+              f", total_s {trial['total_s']:.3f}, launches {counts}")
+        out[name] = {k: trial[k] for k in ("test_acc", "epoch_loss", "epoch_s", "total_s")}
+        out[name]["launches"] = counts
+    return out
+
+
+def _gin_cli(smi: str) -> dict:
+    """``--Model GIN --samp_type full`` for ``GIN_EPOCHS`` epochs on the slices' graph
+    (the CLI tries the windowed layout and declines it, as for GCN): K1's launches
+    against the count the model gives (an epoch: 2 forward and 1 backward in training,
+    the first layer's input being the features, which need no gradient; 2 forward in
+    validation; 2 forward in the final test), the steady epoch time and the test
+    accuracy; then ``--Model GIN --device_sampling``, which launches no kernel."""
+    from dgll_tpu_torch import run
+    from dgll_tpu_torch.tools.profile_slice import SLICE_ARGS
+
+    trial, counts = _cli_run("GIN, full", [*SLICE_ARGS, "--Model", "GIN", "--n_epochs",
+                                           str(GIN_EPOCHS)])
+    e = trial["epochs"]
+    want = {"K1 fwd": 4 * e + 2, "K1 bwd": e}
+    check(e == GIN_EPOCHS and trial["spmm_kernel"] == run.SPMM_KERNEL,
+          f"GIN: {GIN_EPOCHS} epochs through K1")
+    check(counts == want, f"GIN: K1 launched {want}, got {counts}")
+    losses, secs = trial["epoch_loss"], trial["epoch_s"]
+    check(losses[-1] < losses[0], "GIN: the last loss is below the first")
+    steady = 1e3 * float(np.mean(secs[1:]))
+    print(f"[22 gin] full batch ({smi}): {e} epochs, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, test_acc {trial['test_acc']:.4f}, steady epoch "
+          f"{steady:.3f} ms (median {1e3 * float(np.median(secs[1:])):.3f}), "
+          f"layout_preprocess_s {trial['layout_preprocess_s']:.3f}, K1 launches {counts} "
+          f"(4 x {e} + 2 forward, {e} backward)")
+    out = {"full": {"test_acc": trial["test_acc"], "epoch_loss": losses, "epoch_s": secs,
+                    "steady_epoch_ms": steady, "launches": counts}}
+    name = "GIN, --device_sampling"
+    trial, counts = _cli_run(name, [*MINIBATCH_ARGS, "--Model", "GIN", "--device_sampling",
+                                    "--n_epochs", str(MINIBATCH_EPOCHS)])
+    check(trial["device_sampling"] and not counts, f"{name}: the device path, no launch")
+    print(f"[22 gin] {name}: loss {' -> '.join(f'{v:.4f}' for v in trial['epoch_loss'])}, "
+          f"test_acc {trial['test_acc']:.4f}, epoch s "
+          f"{[round(v, 3) for v in trial['epoch_s']]}")
+    out["device_sampling"] = {k: trial[k] for k in ("test_acc", "epoch_loss", "epoch_s")}
+    return out
+
+
+def _gin_classify() -> dict:
+    """GIN graph classification as ``examples/graph_classification_gin.py`` sets it up
+    (``GIN_CLASSIFY``) on ``synthetic_graph_classification``'s 128 graphs batched into
+    one graph with the kernel layouts: the forward on the card against the CPU's (the
+    plain COO sum) from the same weights, within ``GIN_TOL`` x max|ref|, then the
+    example's training with every K1 launch counted (a step: one forward a layer, one
+    backward for each layer but the first), the loss falling."""
+    from dgll_tpu_torch.data import synthetic_graph_classification
+    from dgll_tpu_torch.nn import GIN, batch_graphs
+
+    c = GIN_CLASSIFY
+    g, gid, y = batch_graphs(synthetic_graph_classification(n_graph=c["n_graph"]))
+    n, feat = c["n_graph"], g.node_feat.shape[1]
+    model = GIN(feat, c["hidden"], 2, n_layers=c["n_layers"], pooling=c["pooling"],
+                dropout=c["dropout"], generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        want = model(g, g.node_feat, gid, n)
+    gc, gidc, yc = g.with_chunked().to("cuda"), gid.cuda(), y.cuda().long()
+    model.cuda()
+    _zero_all_counters()
+    with torch.no_grad():
+        got = model(gc, gc.node_feat, gidc, n).cpu()
+    err = (got - want).abs().max().item()
+    check(err <= GIN_TOL * want.abs().max().item(),
+          f"GIN classifier: card within {GIN_TOL} x max|ref| of the CPU")
+    opt = torch.optim.Adam(model.parameters(), lr=c["lr"])
+    gen = torch.Generator("cuda").manual_seed(1)
+    model.train()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["epochs"]):
+        opt.zero_grad(set_to_none=True)
+        loss = -model(gc, gc.node_feat, gidc, n, generator=gen).gather(1, yc[:, None]).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    losses = torch.stack(losses).tolist()
+    step_ms = 1e3 * (time.perf_counter() - t0) / c["epochs"]
+    model.eval()
+    with torch.no_grad():
+        acc = (model(gc, gc.node_feat, gidc, n).argmax(-1) == yc).float().mean().item()
+    counts = {k: v for k, v in _all_counters().items() if v}
+    layers, steps = c["n_layers"], c["epochs"]
+    want_counts = {"K1 fwd": layers * (steps + 2), "K1 bwd": (layers - 1) * steps}
+    check(counts == want_counts, f"GIN classifier: K1 launched {want_counts}, got {counts}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "GIN classifier: the loss falls")
+    print(f"[22 gin] graph classification ({n} graphs, {g.n_real_node} nodes, width "
+          f"{c['hidden']}, {layers} layers, {'+'.join(c['pooling'])} pooling): card "
+          f"against CPU max abs error {err:.3e}; {steps} Adam steps {step_ms:.3f} ms a "
+          f"step, loss {losses[0]:.4f} -> {losses[-1]:.4f}, train accuracy {acc:.4f}; "
+          f"K1 launches {counts}")
+    return {"max_abs_err": err, "step_ms": step_ms, "losses": [losses[0], losses[-1]],
+            "train_acc": acc, "launches": counts}
+
+
+def phase_layerwise(data, smi: str) -> dict:
+    """Phase 22: the layer-wise samplers and GIN. On the headline bench's data (shared
+    with phases 20 and 21): ``build_device_lap`` timed, the samplers on the card
+    against the CPU, graph replays against eager steps and the products-scale epochs;
+    then, on the slices' graph, the CLI's layer-wise runs, GIN's full-batch and device
+    runs, and GIN graph classification."""
+    from dgll_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    lap = bench.layerwise_lap(data)
+    build_s = time.perf_counter() - t0
+    print(f"[22 lap] build_device_lap on the flagship graph ({data.n_node} nodes, "
+          f"{len(data.src)} edges, ELL width {lap.k}): {build_s:.3f} s")
+    result = {"build_device_lap_s": build_s,
+              "sampler": _layerwise_sampler(data, lap),
+              "graph_vs_eager": _layerwise_graph_vs_eager(data, lap),
+              "epochs": _layerwise_epochs(data, lap, smi)}
+    del lap
+    result["cli"] = _layerwise_cli()
+    result["gin"] = _gin_cli(smi)
+    result["gin_classify"] = _gin_classify()
+    print(f"[22 done] phase 22 in {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def kernel_row(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
@@ -2629,6 +2980,7 @@ def main() -> int:
           f"{time.perf_counter() - t_data:.1f} s")
     flagship = phase_flagship(data)
     host_packed = phase_host_packed(data)
+    layerwise = phase_layerwise(data, smi)
     del data
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
@@ -2662,6 +3014,7 @@ def main() -> int:
     print(f"[19 probes] {json.dumps(probe_res)}")
     print(f"[20 flagship] {json.dumps(flagship)}")
     print(f"[21 host_packed] {json.dumps(host_packed)}")
+    print(f"[22 layerwise] {json.dumps(layerwise)}")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -66,6 +66,10 @@ FANOUTS = [15, 10]
 TRAIN_FRAC = 0.08  # products-like split
 SEED = 0  # the headline's weights and draws
 TIMED_EPOCHS = 2  # after one warm-up epoch
+# the layer-wise samplers' configuration (benchmarks/epoch_bench.py:195-271): layer
+# sizes outermost first, and the ELL width of the device Laplacian
+LAYERWISE_SIZES = [2048, 1024]
+ELL_K = 32
 # the full-graph step's widths
 FEAT, HIDDEN, N_CLASS = 128, 128, 128
 CSIZE, LOCAL = 2048, 0.9
@@ -290,6 +294,41 @@ def flagship_runner(data: Flagship, batch: int, window: bool,
         model, functools.partial(torch.optim.Adam, lr=1e-3, **adam), data.csr, FANOUTS,
         batch, data.train_nodes if train_nodes is None else train_nodes, seed=SEED,
         window=window, cuda_graph=cuda_graph)
+    return runner, runner.init_state(data.feats)
+
+
+def layerwise_lap(data: Flagship, k: int = ELL_K):
+    """The flagship graph's normalised Laplacian in the device ELL layout
+    (``build_device_lap`` over a ``Graph`` view of its CSR), on the CSR's device."""
+    from dgll_tpu_torch.graph import Graph
+    from dgll_tpu_torch.sampling import build_device_lap
+
+    n_edge = len(data.src)
+    dst = np.repeat(np.arange(data.n_node, dtype=np.int32), np.diff(data.indptr))
+    g = Graph(indptr=torch.from_numpy(data.indptr.astype(np.int32)),
+              src=torch.from_numpy(data.src.astype(np.int32)), dst=torch.from_numpy(dst),
+              n_node=data.n_node, n_edge=n_edge, n_real_node=data.n_node,
+              n_real_edge=n_edge)
+    return build_device_lap(g, k, device=data.csr.device)
+
+
+def layerwise_runner(data: Flagship, lap, mode: str, cuda_graph: Optional[bool] = None,
+                     dropout: float = 0.0, train_nodes=None):
+    """``(runner, state)``: the layer-wise configuration of the JAX package's
+    ``benchmarks/epoch_bench.py:195-271`` on the flagship's data: a 2-layer GCN of
+    hidden width 256 (weights from ``SEED``), Adam 1e-3 (capturable on a CUDA
+    device), FastGCN or LADIES (``mode``) with layer sizes ``LAYERWISE_SIZES`` over
+    ``lap`` (``layerwise_lap``), batches of 1,024."""
+    from dgll_tpu_torch.nn import GCN
+    from dgll_tpu_torch.train import GRAPH_ADAM, DeviceEpochRunner
+
+    adam = GRAPH_ADAM if lap.device.type == "cuda" else {}
+    model = GCN(SAGE_FEAT, SAGE_HIDDEN, SAGE_CLASSES, dropout=dropout,
+                generator=torch.Generator().manual_seed(SEED))
+    runner = DeviceEpochRunner(
+        model, functools.partial(torch.optim.Adam, lr=1e-3, **adam), lap,
+        LAYERWISE_SIZES, 1024, data.train_nodes if train_nodes is None else train_nodes,
+        seed=SEED, sampler=mode, cuda_graph=cuda_graph)
     return runner, runner.init_state(data.feats)
 
 

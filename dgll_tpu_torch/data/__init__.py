@@ -1,4 +1,7 @@
-from dgll_tpu_torch.data.datasets import synthetic_classification_graph
+from dgll_tpu_torch.data.datasets import (
+    synthetic_classification_graph,
+    synthetic_graph_classification,
+)
 from dgll_tpu_torch.data.transforms import (
     gcn_normalize,
     precompute_neighbor_features,
@@ -8,6 +11,7 @@ from dgll_tpu_torch.data.transforms import (
 
 __all__ = [
     "synthetic_classification_graph",
+    "synthetic_graph_classification",
     "gcn_normalize",
     "precompute_neighbor_features",
     "row_normalize_adj",

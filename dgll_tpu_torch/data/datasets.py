@@ -1,10 +1,12 @@
-"""Synthetic node-classification graphs.
+"""Synthetic node- and graph-classification data.
 
-Counterpart of ``dgll_tpu/data/datasets.py:synthetic_classification_graph``. The
-generator is pure numpy and draws in the same order, so one seed gives the same
-graph, features, labels and masks in both packages.
+Counterpart of ``dgll_tpu/data/datasets.py:synthetic_classification_graph`` and
+``synthetic_graph_classification``. The generators are pure numpy and draw in the
+same order, so one seed gives the same data in both packages.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -77,3 +79,27 @@ def synthetic_classification_graph(
         make_bidirected=True,
         add_self_loops=True,
     )
+
+
+def synthetic_graph_classification(
+    n_graph: int = 128,
+    n_node_range: Tuple[int, int] = (10, 40),
+    n_class: int = 2,
+    feat_dim: int = 8,
+    seed: int = 0,
+):
+    """A list of ``(src, dst, feats, label)`` small graphs whose label sets their
+    edge density (a learnable task); feature 0 is a scaled degree. Host numpy; batch
+    them with ``dgll_tpu_torch.nn.batch_graphs``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_graph):
+        n = int(rng.integers(*n_node_range))
+        label = int(rng.integers(0, n_class))
+        p = 0.15 + 0.5 * label / max(n_class - 1, 1)  # density tied to the label
+        m = np.maximum((rng.random((n, n)) < p), np.eye(n, dtype=bool))
+        src, dst = np.nonzero(m)
+        feats = rng.normal(0, 1, size=(n, feat_dim)).astype(np.float32)
+        feats[:, 0] = 0.1 * (m.sum(0) - 1)  # degree feature
+        out.append((src.astype(np.int64), dst.astype(np.int64), feats, label))
+    return out

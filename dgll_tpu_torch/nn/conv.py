@@ -1,22 +1,29 @@
 """Graph convolution layers.
 
-Counterpart of ``dgll_tpu/nn/conv.py``; the port holds ``GCNConv``, ``GATConv`` and
-``SAGEConv``. A layer takes a *message structure* ``g``: a full ``Graph``, which
+Counterpart of ``dgll_tpu/nn/conv.py``: ``GCNConv``, ``GATConv``, ``SAGEConv`` and
+``GINConv``. A layer takes a *message structure* ``g``: a full ``Graph``, which
 carries the kernel layouts ``chunked``/``chunked_t`` when ``Graph.with_chunked``
-attached them, and ``hybrid``/``hybrid_t`` (GCN only) when ``Graph.with_windowed``
-did; or a sampled fanout-dense ``Block``, whose first ``n_dst`` source rows are the
-destinations themselves.
+attached them, and ``hybrid``/``hybrid_t`` (GCN and GIN) when
+``Graph.with_windowed`` did; a sampled fanout-dense ``Block``; or a layer-wise
+sampler's ``SparseBlock`` (host) or ``WeightedBlock`` (device). A block's first
+``n_dst`` source rows are the destinations themselves, where ``self_at_head`` holds.
+
+The layer-wise blocks are chosen by their type, not as a fallback: the JAX package
+runs no Pallas kernel on them either. A ``WeightedBlock`` aggregates by a gather
+of its slots and an einsum, a ``SparseBlock`` by ``spmm_coo`` with its edge
+weights, and ``GATConv`` reads either through its COO view.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from dgll_tpu_torch.ops.gat_csr import gat_attention_coo
 from dgll_tpu_torch.ops.spmm import block_aggregate, spmm_coo, spmm_max_coo, spmm_mean_coo
+from dgll_tpu_torch.sampling.base import SparseBlock, WeightedBlock
 
 
 def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None):
@@ -60,6 +67,11 @@ def _is_dense_block(g) -> bool:
     return getattr(g, "neigh_mask", None) is not None and getattr(g, "fanout", 0) > 0
 
 
+def _is_layerwise_block(g) -> bool:
+    """A layer-wise sampler's block: a ``SparseBlock`` or a ``WeightedBlock``."""
+    return isinstance(g, (SparseBlock, WeightedBlock))
+
+
 def _n_dst(g) -> int:
     return g.n_dst if hasattr(g, "n_dst") else g.n_node
 
@@ -90,17 +102,24 @@ def kernel_layouts(g, n_dst: int, device: torch.device):
 
 
 def _weighted_aggregate(g, h: torch.Tensor, n_dst: int) -> torch.Tensor:
-    """Weighted-sum aggregation: through the windowed kernel K2 and K1 on the
-    residual edges when the graph carries the windowed layouts
-    (``Graph.with_windowed``), else through K1 when it carries the chunked ones
-    (``Graph.with_chunked``), else on a ``Block`` through ``block_aggregate``'s
-    "sum" (the mask-weighted mean, on any device), else, on the CPU, through
-    ``spmm_coo``. This is the JAX package's order of the branches.
+    """Weighted-sum aggregation: on a ``WeightedBlock`` a gather of its slots and an
+    einsum, on a ``SparseBlock`` ``spmm_coo`` with its edge weights (both on any
+    device); else through the windowed kernel K2 and K1 on the residual edges when
+    the graph carries the windowed layouts (``Graph.with_windowed``), else through
+    K1 when it carries the chunked ones (``Graph.with_chunked``), else on a
+    ``Block`` through ``block_aggregate``'s "sum" (the mask-weighted mean, on any
+    device), else, on the CPU, through ``spmm_coo``. This is the JAX package's order
+    of the branches.
 
     Unlike the JAX package, every feature width goes through the kernels: the
     ``F % 128`` condition there is the TPU matrix unit's tiling rule, and the GPU
     kernels mask a ragged column tile instead. The math is the same.
     """
+    if isinstance(g, WeightedBlock):
+        rows = h.index_select(0, g.slot.reshape(-1)).reshape(n_dst, g.k, -1)
+        return torch.einsum("nk,nkf->nf", g.weight.to(h.dtype), rows)
+    if isinstance(g, SparseBlock):
+        return spmm_coo(g.src, g.dst, h, n_dst, g.edge_weight)
     hy = getattr(g, "hybrid", None)
     if hy is not None and hy.win.n_rows >= n_dst:
         from dgll_tpu_torch.ops.cuda.spmm_windowed import spmm_hybrid
@@ -195,7 +214,8 @@ class GATConv(nn.Module):
     alpha-weighted sum of ``h[src]``. Heads are concatenated or averaged; there is no
     bias, as in the JAX package.
 
-    On a sampled ``Block`` the attention is fanout-dense (``_dense_block``), plain
+    On a sampled ``Block`` the attention is fanout-dense (``_dense_block``), on a
+    layer-wise block it is the COO composition over the block's COO view, both plain
     PyTorch on every device as XLA in the JAX package. On a graph that carries the
     kernel layouts (``Graph.with_chunked``) the layer is the fused op
     ``gat_attention_fused`` (kernels K3-K7 and K1); otherwise, on the CPU only, it
@@ -257,14 +277,14 @@ class GATConv(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         H, F = self.num_heads, self.features
         n_dst = _n_dst(g)
+        _require_self_at_head(g, "GATConv")
         h = self.linear(x)                                   # [n, H*F]
         if _is_dense_block(g):
-            _require_self_at_head(g, "GATConv")
             out = self._dense_block(g, h, n_dst, generator)
             if self.concat_heads:
                 return out.reshape(n_dst, H * F)
             return out.mean(dim=1)
-        layouts = kernel_layouts(g, n_dst, x.device)
+        layouts = None if _is_layerwise_block(g) else kernel_layouts(g, n_dst, x.device)
         if layouts is not None:
             from dgll_tpu_torch.ops.cuda.gat_fused import gat_attention_fused
 
@@ -279,3 +299,29 @@ class GATConv(nn.Module):
         if self.concat_heads:
             return out.reshape(n_dst, H * F)
         return out.mean(dim=1)
+
+
+class GINConv(nn.Module):
+    """GIN: ``act(mlp((1 + eps) x[:n_dst] + A x))``, the aggregation at the input
+    width through ``_weighted_aggregate`` (K1, or K2 and K1, on a graph with the
+    kernel layouts). ``eps`` is a learned scalar with ``learn_eps``, else 0;
+    ``activation`` None is the identity."""
+
+    def __init__(self, in_features: int, features: int, learn_eps: bool = False,
+                 activation: Optional[Callable] = torch.relu,
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mlp = nn.Linear(in_features, features, device=device)
+        lecun_normal_(self.mlp.weight, generator)
+        nn.init.zeros_(self.mlp.bias)
+        self.eps = nn.Parameter(torch.zeros((), device=device)) if learn_eps else None
+        self.activation, self.dtype = activation, dtype
+
+    def forward(self, g, x: torch.Tensor) -> torch.Tensor:
+        n_dst = _n_dst(g)
+        _require_self_at_head(g, "GINConv")
+        agg = _weighted_aggregate(g, x, n_dst)
+        eps = 0.0 if self.eps is None else self.eps
+        h = _dense(self.mlp, (1.0 + eps) * x[:n_dst] + agg, self.dtype)
+        return h if self.activation is None else self.activation(h)

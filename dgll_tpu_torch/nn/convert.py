@@ -1,6 +1,7 @@
 """Carry parameters across from the JAX package.
 
-``params_from_flax`` takes a flax ``GCN``, ``GAT`` or ``GraphSAGE`` parameter tree as
+``params_from_flax`` takes a flax ``GCN``, ``GAT``, ``GraphSAGE``, ``GINNode`` or
+``GIN`` parameter tree as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side)
 and returns a ``state_dict`` for this package's model of the same name. A flax
 ``Dense`` kernel is ``[in, out]``; a torch ``Linear`` weight is ``[out, in]``.
@@ -25,19 +26,30 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     ``convs.i.attn_dst``; ``SAGEConv_i/{neigh,self}/kernel`` and
     ``SAGEConv_i/self/bias`` -> ``convs.i.{neigh,self}.weight`` (transposed) and
     ``convs.i.self.bias``; GraphSAGE's ``out_proj/{kernel,bias}`` ->
-    ``out_proj.weight`` (transposed) and ``out_proj.bias``."""
+    ``out_proj.weight`` (transposed) and ``out_proj.bias``; ``GINConv_i/mlp/{kernel,
+    bias}`` and ``GINConv_i/eps`` -> ``convs.i.mlp.{weight,bias}`` (transposed) and
+    ``convs.i.eps``; GIN's readout ``Dense_0/{kernel,bias}`` -> ``readout.weight``
+    (transposed) and ``readout.bias``."""
     state = {}
+    if "Dense_0" in params and not any(k.startswith("GINConv_") for k in params):
+        raise ValueError("not a GCN, GAT, GraphSAGE or GIN parameter tree: a readout "
+                         "'Dense_0' without GIN layers")
     for name, layer in params.items():
-        if name == "out_proj":
-            state.update(_dense(name, layer))
+        if name in ("out_proj", "Dense_0"):
+            state.update(_dense("readout" if name == "Dense_0" else name, layer))
             continue
         kind, _, idx = name.rpartition("_")
-        if kind not in ("GCNConv", "GATConv", "SAGEConv") or not idx.isdigit():
-            raise ValueError(f"not a GCN, GAT or GraphSAGE parameter tree: unexpected "
-                             f"entry {name!r}")
+        if kind not in ("GCNConv", "GATConv", "SAGEConv", "GINConv") or not idx.isdigit():
+            raise ValueError(f"not a GCN, GAT, GraphSAGE or GIN parameter tree: "
+                             f"unexpected entry {name!r}")
         if kind == "SAGEConv":
             for part in ("neigh", "self"):
                 state.update(_dense(f"convs.{idx}.{part}", layer[part]))
+            continue
+        if kind == "GINConv":
+            state.update(_dense(f"convs.{idx}.mlp", layer["mlp"]))
+            if "eps" in layer:
+                state[f"convs.{idx}.eps"] = _tensor(layer["eps"])
             continue
         state[f"convs.{idx}.linear.weight"] = _tensor(layer["weight"]["kernel"]).T.contiguous()
         for key in ("bias", "attn_src", "attn_dst"):

@@ -1,17 +1,26 @@
-"""End-to-end models. Counterpart of ``dgll_tpu/nn/models.py``; the port holds
-``GCN``, ``GAT`` and ``GraphSAGE``.
+"""End-to-end models. Counterpart of ``dgll_tpu/nn/models.py``: ``GCN``, ``GAT``,
+``GraphSAGE``, ``GINNode`` and ``GIN``.
 
-A model's ``forward`` takes one message graph for every layer (full batch) or a list
-of sampled ``Block``s, one per layer, outermost first (minibatch), as the neighbour
-samplers emit them."""
+A node classifier's ``forward`` takes one message graph for every layer (full batch)
+or a list of sampled blocks, one per layer, outermost first (minibatch), as the
+samplers emit them. ``GIN`` classifies whole graphs: one batched graph
+(``nn.pooling.batch_graphs``) and its ``graph_id``."""
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from dgll_tpu_torch.nn.conv import GATConv, GCNConv, SAGEConv, _dense, lecun_normal_
+from dgll_tpu_torch.nn.conv import (
+    GATConv,
+    GCNConv,
+    GINConv,
+    SAGEConv,
+    _dense,
+    lecun_normal_,
+)
+from dgll_tpu_torch.nn.pooling import Pooling
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
@@ -137,3 +146,68 @@ class GraphSAGE(nn.Module):
         if self.out_proj is not None:
             x = _dense(self.out_proj, x, self.dtype)
         return torch.log_softmax(x, dim=-1)
+
+
+class GINNode(nn.Module):
+    """Node classification with ``n_layers`` GINConvs (the CLI's ``--Model GIN``):
+    ReLU GINConvs with dropout after each, then a GINConv of ``n_class`` without an
+    activation, and ``log_softmax``."""
+
+    def __init__(self, in_features: int, hidden: int, n_class: int, n_layers: int = 2,
+                 learn_eps: bool = False, dropout: float = 0.5,
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dims = [in_features] + [hidden] * (n_layers - 1) + [n_class]
+        self.convs = nn.ModuleList(
+            GINConv(dims[i], dims[i + 1], learn_eps=learn_eps,
+                    activation=None if i == n_layers - 1 else torch.relu, dtype=dtype,
+                    device=device, generator=generator)
+            for i in range(n_layers)
+        )
+        self.dropout = dropout
+
+    def forward(self, g, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        gs = _layer_inputs(g, len(self.convs))
+        for conv, gi in zip(self.convs[:-1], gs):
+            x = conv(gi, x)
+            if self.training:
+                x = _dropout(x, self.dropout, generator)
+        x = self.convs[-1](gs[-1], x)
+        return torch.log_softmax(x, dim=-1)
+
+
+class GIN(nn.Module):
+    """Graph classification: ``n_layers`` ReLU GINConvs on one batched graph; the
+    readout pools the input and every layer's output per graph (``pooling``, one
+    kind or several concatenated), concatenates them, applies dropout and a Dense
+    layer (``readout``), then ``log_softmax``: ``[n_graph, n_class]``."""
+
+    def __init__(self, in_features: int, hidden: int, n_class: int, n_layers: int = 3,
+                 learn_eps: bool = False, pooling: Tuple[str, ...] = ("sum",),
+                 dropout: float = 0.5, dtype: Optional[torch.dtype] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            GINConv(in_features if i == 0 else hidden, hidden, learn_eps=learn_eps,
+                    dtype=dtype, device=device, generator=generator)
+            for i in range(n_layers)
+        )
+        self.pool = Pooling(tuple(pooling))
+        width = len(self.pool.kinds) * (in_features + n_layers * hidden)
+        self.readout = nn.Linear(width, n_class, device=device)
+        lecun_normal_(self.readout.weight, generator)
+        nn.init.zeros_(self.readout.bias)
+        self.dropout, self.dtype = dropout, dtype
+
+    def forward(self, g, x: torch.Tensor, graph_id: torch.Tensor, n_graph: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        readouts = [self.pool(x, graph_id, n_graph)]
+        for conv in self.convs:
+            x = conv(g, x)
+            readouts.append(self.pool(x, graph_id, n_graph))
+        h = torch.cat(readouts, dim=-1)
+        if self.training:
+            h = _dropout(h, self.dropout, generator)
+        return torch.log_softmax(_dense(self.readout, h, self.dtype), dim=-1)

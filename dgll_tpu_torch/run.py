@@ -1,24 +1,28 @@
-"""Training CLI: ``python -m dgll_tpu_torch.run --Model GCN|GAT|GraphSAGE ...``
+"""Training CLI: ``python -m dgll_tpu_torch.run --Model GCN|GAT|GraphSAGE|GIN ...``
 
 Counterpart of ``dgll_tpu/run.py``, for the part of it this package has ported, on
-the synthetic dataset and one device: full-batch GCN, GAT and GraphSAGE
-(``--samp_type full``), and the minibatch paths (``--samp_type neighbor``, the
-default) for GCN, GAT and GraphSAGE. The host path samples on the host, a
-prefetching ``DataLoader`` moves each batch's blocks to the device and
+the synthetic dataset and one device: full-batch GCN, GAT, GraphSAGE and GIN
+(``--samp_type full``), and the minibatch paths for all four, with the uniform
+neighbour sampler (``--samp_type neighbor``, the default) or the layer-wise FastGCN
+and LADIES samplers (``--samp_type fastgcn|ladies``, layer sizes from ``--n_samp``
+and ``--samp_growth_rate``, with ``--flatten`` and ``--wrs``). The host path samples
+on the host, a prefetching ``DataLoader`` moves each batch's blocks to the device and
 ``MiniBatchTrainer`` steps, with the device feature cache (``--cached_nPercent``)
-and the community pipeline (``--n_parts``). The device path (``--device_sampling``,
-per-slot or ``--window_sampling`` draws) keeps the CSR, features and labels on the
-device and runs ``DeviceEpochRunner``'s epochs, a CUDA-graph replay a batch.
+and the community pipeline (``--n_parts``). The device path (``--device_sampling``)
+keeps the CSR (or, for the layer-wise samplers, the normalised Laplacian), features
+and labels on the device and runs ``DeviceEpochRunner``'s epochs, a CUDA-graph
+replay a batch; its neighbour draws are per-slot or ``--window_sampling``, its
+layer-wise draws with replacement (``--wrs`` is the host path's).
 ``--exact_eval`` takes the test accuracy of either minibatch path by exact
 full-graph inference. ``--preprocess`` precomputes each node's neighbour-mean
 features, concatenates them to the raw ones and drops the outermost sampled hop and
 one layer, on either minibatch path. It prints the same JSON keys. Everything else
 raises ``NotImplementedError`` naming the ROADMAP.md item that will port it.
 
-On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN run
-attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does: where
-the graph has source locality, or a relabelling gives it some, both GCN layers
-aggregate through the windowed kernel K2 and K1 on the residual edges; where it
+On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN or GIN
+run attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does:
+where the graph has source locality, or a relabelling gives it some, every layer
+aggregates through the windowed kernel K2 and K1 on the residual edges; where it
 declines, through K1 alone. Every GAT layer runs the fused attention op (K3-K7 and
 K1) on ``with_chunked()`` only, since GAT never reads the windowed layout. The JAX
 package's 100k-edge threshold is the TPU's launch-overhead rule; the port's layers
@@ -50,17 +54,12 @@ def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration outside the ported slices."""
     todo = "see ROADMAP.md, Queue 1, item"
     model = cfg.model.upper()
-    if model == "GIN":
-        raise NotImplementedError(f"--Model {cfg.model}: {todo} 4 (GIN layers and pooling)")
-    if model not in ("GCN", "GAT", "GRAPHSAGE", "SAGE"):
+    if model not in ("GCN", "GAT", "GRAPHSAGE", "SAGE", "GIN"):
         raise ValueError(f"unknown model {cfg.model!r}")
     if model == "GAT" and _dtype(cfg) is not None:
         raise NotImplementedError(f"--dtype {cfg.dtype} with --Model GAT: {todo} 2 "
                                   "(GAT's bf16 path)")
-    if cfg.sampler in ("fastgcn", "ladies"):
-        raise NotImplementedError(f"--samp_type {cfg.sampler}: {todo} 6 (layer-wise "
-                                  "samplers)")
-    if cfg.sampler not in ("full", "neighbor"):
+    if cfg.sampler not in ("full", "neighbor", "fastgcn", "ladies"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     if cfg.n_devices > 1:
         raise NotImplementedError(f"--n_devices {cfg.n_devices}: {todo} 8 (parallel)")
@@ -98,7 +97,7 @@ def _dtype(cfg):
 
 
 def build_model(cfg, n_class: int, in_features: int, generator=None):
-    from dgll_tpu_torch.nn import GAT, GCN, GraphSAGE
+    from dgll_tpu_torch.nn import GAT, GCN, GINNode, GraphSAGE
 
     if cfg.model.upper() == "GAT":
         return GAT(in_features, hidden=cfg.nhid, n_class=n_class, num_heads=cfg.n_heads,
@@ -108,14 +107,52 @@ def build_model(cfg, n_class: int, in_features: int, generator=None):
                          n_layers=cfg.n_layers, aggregator=cfg.sage_aggregator,
                          combine=cfg.sage_combine, dropout=cfg.dropout,
                          dtype=_dtype(cfg), generator=generator)
+    if cfg.model.upper() == "GIN":
+        return GINNode(in_features, hidden=cfg.nhid, n_class=n_class,
+                       n_layers=cfg.n_layers, dropout=cfg.dropout, dtype=_dtype(cfg),
+                       generator=generator)
     return GCN(in_features, hidden=cfg.nhid, n_class=n_class, n_layers=cfg.n_layers,
                dropout=cfg.dropout, dtype=_dtype(cfg), generator=generator)
 
 
-def build_sampler(cfg):
-    from dgll_tpu_torch.sampling import NeighborSampler
+def build_sampler(cfg, g=None):
+    """The host sampler: uniform neighbour fanout, or FastGCN/LADIES over ``g``'s
+    normalised Laplacian with the geometric layer sizes."""
+    from dgll_tpu_torch.sampling import (
+        FastGCNSampler,
+        LadiesSampler,
+        NeighborSampler,
+        geometric_layer_sizes,
+        normalized_laplacian,
+    )
 
-    return NeighborSampler(cfg.fanouts, seed=cfg.seed)
+    if cfg.sampler == "neighbor":
+        return NeighborSampler(cfg.fanouts, seed=cfg.seed)
+    sizes = geometric_layer_sizes(cfg.n_samp, cfg.samp_growth_rate, cfg.n_layers)
+    cls = FastGCNSampler if cfg.sampler == "fastgcn" else LadiesSampler
+    return cls(normalized_laplacian(g), sizes, flatten=cfg.flatten, wrs=cfg.wrs,
+               seed=cfg.seed)
+
+
+def device_sampling_graph(cfg, g, dev: torch.device, log):
+    """The device sampler's graph and its per-layer sizes for ``--device_sampling``:
+    the CSR and the fanouts (``neighbor``), or the ELL-packed normalised Laplacian
+    (``build_device_lap``, K 32, ``--flatten`` baked in) and the geometric layer
+    sizes (``fastgcn``/``ladies``)."""
+    from dgll_tpu_torch.sampling import DeviceCSR, build_device_lap, geometric_layer_sizes
+
+    if cfg.sampler == "neighbor":
+        if cfg.window_sampling:
+            log.info("device sampling: block-window mode (marginally uniform, draws "
+                     "within a node correlated; --no_window_sampling for exact "
+                     "per-slot draws)")
+        return DeviceCSR.from_graph(g, dev), cfg.fanouts
+    if cfg.wrs:
+        log.info("device layer-wise sampling draws WITH replacement (multiplicity-"
+                 "weighted unbiased estimator); --wrs's without-replacement draw is "
+                 "host-path only")
+    sizes = geometric_layer_sizes(cfg.n_samp, cfg.samp_growth_rate, cfg.n_layers)
+    return build_device_lap(g, k=32, flatten=cfg.flatten, device=dev), sizes
 
 
 def make_optimizer(cfg, **options):
@@ -151,9 +188,9 @@ def _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
 
 def attach_kernel_layouts(cfg, g):
     """The graph with the kernel layouts of ``cfg``'s model attached, and what the
-    CLI reports of them: GCN tries the windowed layouts (relabelling for locality
-    where needed) and keeps the chunked ones for a decline; GAT takes the chunked
-    ones only."""
+    CLI reports of them: GCN and GIN try the windowed layouts (relabelling for
+    locality where needed) and keep the chunked ones for a decline; GAT takes the
+    chunked ones only."""
     t_pre = time.perf_counter()
     extra: dict = {}
     if cfg.model.upper() in ("GRAPHSAGE", "SAGE"):
@@ -238,7 +275,6 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class:
     and test by the device-sampled sweep or, with ``--exact_eval``, the test by exact
     inference. Returns ``(test_acc, micro_f1, best_val, epochs run)``, with the
     per-epoch losses and times in ``extra``."""
-    from dgll_tpu_torch.sampling import DeviceCSR
     from dgll_tpu_torch.train import GRAPH_ADAM, DeviceEpochRunner, micro_f1
 
     if cfg.n_parts > 1 or cfg.cached_percent > 0:
@@ -246,15 +282,12 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class:
                          "memory; it composes with neither --n_parts nor "
                          "--cached_nPercent (use the host pipeline for those)")
     cfg, g, model = preprocess_features(cfg, g, model, n_class, trial_seed, extra, dev)
-    if cfg.window_sampling:
-        log.info("device sampling: block-window mode (marginally uniform, draws "
-                 "within a node correlated; --no_window_sampling for exact per-slot "
-                 "draws)")
+    dgraph, sizes = device_sampling_graph(cfg, g, dev, log)
     opt = make_optimizer(cfg, **(GRAPH_ADAM if dev.type == "cuda" else {}))
     feats, labels = g.node_feat.to(dev), g.labels.to(dev)
-    runner = DeviceEpochRunner(model.to(dev), opt, DeviceCSR.from_graph(g, dev),
-                               cfg.fanouts, cfg.batch_size, g.get_train_nodes(),
-                               seed=trial_seed, window=cfg.window_sampling)
+    runner = DeviceEpochRunner(model.to(dev), opt, dgraph, sizes, cfg.batch_size,
+                               g.get_train_nodes(), seed=trial_seed,
+                               window=cfg.window_sampling, sampler=cfg.sampler)
     state = runner.init_state(feats)
     labels_np = g.labels.numpy()
     val_nodes = g.get_validation_nodes()
@@ -300,7 +333,7 @@ def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_cla
 
     cfg, g, model, book, cache, fetch = prepare_pipeline(cfg, g, model, n_class,
                                                          trial_seed, timer, extra, dev, log)
-    sampler = build_sampler(cfg)
+    sampler = build_sampler(cfg, g)
     train_nodes = g.get_train_nodes()
     if book is not None:
         loaders = []

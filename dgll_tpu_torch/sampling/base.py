@@ -1,17 +1,25 @@
-"""Sampling base structures: a host-side CSR view and fanout-dense message blocks.
+"""Sampling base structures: a host-side CSR view and the message blocks.
 
 Counterpart of ``dgll_tpu/sampling/base.py`` (``HostGraph``, ``Block``,
-``BaseSampler``, ``sample_neighbors_padded``). A ``Block`` keeps the JAX layout:
+``SparseBlock``, ``WeightedBlock``, ``BaseSampler``, ``sample_neighbors_padded``).
+A ``Block`` keeps the JAX layout:
 every destination owns exactly ``fanout`` sampled source slots (drawn with
 replacement; slots without a real neighbour are masked and alias the destination),
 and ``src_ids = [dst_ids | sampled.flatten()]``, so source slot ``i < n_dst`` is
 destination ``i`` itself and aggregation is a reshape and a reduction over the
 fanout axis. The block's tensors are views of the sampler's numpy buffers until
 ``Block.to`` moves them to a device.
+
+The layer-wise samplers emit the other two: a ``SparseBlock`` (the host FastGCN and
+LADIES samplers) is a padded COO with per-edge weights, a slice of the normalised
+Laplacian; a ``WeightedBlock`` (their device twins) gives every destination exactly
+``k`` weighted source slots. Both keep the layer protocol of ``src_ids = [dst_ids |
+...]`` where ``self_at_head`` holds, and expose the COO view ``src``, ``dst``,
+``edge_weight``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Tuple
 
 import numpy as np
@@ -46,6 +54,14 @@ def _move(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _move_fields(block, device):
+    """``block`` with every tensor field moved to ``device`` (``_move``)."""
+    device = torch.device(device)
+    return replace(block, **{f.name: _move(getattr(block, f.name), device)
+                             for f in fields(block)
+                             if isinstance(getattr(block, f.name), torch.Tensor)})
 
 
 @dataclass
@@ -99,11 +115,90 @@ class Block:
         return self.n_dst
 
     def to(self, device) -> "Block":
-        device = torch.device(device)
-        return replace(self, dst_ids=_move(self.dst_ids, device),
-                       src_ids=_move(self.src_ids, device),
-                       neigh_mask=_move(self.neigh_mask, device),
-                       dst_mask=_move(self.dst_mask, device))
+        return _move_fields(self, device)
+
+
+@dataclass
+class SparseBlock:
+    """General bipartite sparse block (the host layer-wise samplers): a padded COO
+    with per-edge weights. ``src``/``dst`` index ``src_ids``/``dst_ids``; padded
+    edges are ``0 -> 0`` with weight 0. ``self_at_head`` is True iff source slot
+    ``i < n_dst`` is destination ``i`` itself; layers that read self features (SAGE,
+    GIN, GAT) refuse a block without it (``include_seeds=False``)."""
+
+    dst_ids: torch.Tensor      # [n_dst] int32
+    src_ids: torch.Tensor      # [n_src] int32
+    src: torch.Tensor          # [n_edge] int32, local into src_ids
+    dst: torch.Tensor          # [n_edge] int32, local into dst_ids
+    edge_weight: torch.Tensor  # [n_edge] float32 (0 on padded edges)
+    dst_mask: torch.Tensor     # [n_dst] bool
+    src_mask: torch.Tensor     # [n_src] bool
+    n_dst: int = 0
+    n_src: int = 0
+    n_edge: int = 0
+    self_at_head: bool = True
+
+    @property
+    def num_src_nodes(self) -> int:
+        return self.n_src
+
+    @property
+    def num_dst_nodes(self) -> int:
+        return self.n_dst
+
+    def to(self, device) -> "SparseBlock":
+        return _move_fields(self, device)
+
+
+@dataclass
+class WeightedBlock:
+    """Fixed-K weighted bipartite block (the device layer-wise samplers).
+
+    Destination ``i`` owns ``k`` source slots: ``slot[i, j]`` indexes ``src_ids``
+    and ``weight[i, j]`` is the rescaled Laplacian value (0 on an invalid slot, whose
+    ``slot`` is 0). Aggregation is a gather and an einsum. ``src_ids = [dst_ids |
+    drawn]``, so ``self_at_head`` always holds. The COO view (``src``, ``dst``,
+    ``edge_weight``) serves layers without a dense form; it counts every slot as an
+    edge, invalid ones included."""
+
+    dst_ids: torch.Tensor      # [n_dst] int32 global ids
+    src_ids: torch.Tensor      # [n_dst + s] int32 global ids (head: dst_ids)
+    slot: torch.Tensor         # [n_dst, k] int32 local into src_ids (0 when weight 0)
+    weight: torch.Tensor       # [n_dst, k] float32 (0 on invalid slots)
+    dst_mask: torch.Tensor     # [n_dst] bool
+    src_mask: torch.Tensor     # [n_dst + s] bool
+    n_dst: int = 0
+    n_src: int = 0
+    k: int = 0
+    self_at_head: bool = True
+
+    @property
+    def n_edge(self) -> int:
+        return self.n_dst * self.k
+
+    @property
+    def src(self) -> torch.Tensor:
+        return self.slot.reshape(-1)
+
+    @property
+    def dst(self) -> torch.Tensor:
+        return torch.arange(self.n_dst, dtype=torch.int32,
+                            device=self.slot.device).repeat_interleave(self.k)
+
+    @property
+    def edge_weight(self) -> torch.Tensor:
+        return self.weight.reshape(-1)
+
+    @property
+    def num_src_nodes(self) -> int:
+        return self.n_src
+
+    @property
+    def num_dst_nodes(self) -> int:
+        return self.n_dst
+
+    def to(self, device) -> "WeightedBlock":
+        return _move_fields(self, device)
 
 
 class BaseSampler:

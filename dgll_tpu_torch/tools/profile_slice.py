@@ -2,6 +2,7 @@
 
     python -m dgll_tpu_torch.tools.profile_slice [--gat | --clustered | --small |
                                                   --device_sampling | --host_packed]
+                                                 [--sampler neighbor|fastgcn|ladies]
 
 It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph with
 16 classes: a 2-layer GCN of width 128 (``SLICE_ARGS``), or with ``--gat`` the
@@ -32,7 +33,10 @@ a CUDA graph a batch under ``torch.profiler`` (wall, device busy, idle share, th
 kernels' shares), and the batch's device time split into its phases (sampling, the
 feature and label gather, forward with the loss, backward, the optimizer step) by
 CUDA events captured inside a graph of the same step, summed over an epoch of
-replays (``phase_split``).
+replays (``phase_split``). ``--sampler fastgcn`` or ``ladies`` profiles the
+layer-wise configuration on the same data instead (``bench.layerwise_runner``: GCN of
+hidden width 256, layer sizes [2048, 1024], the device Laplacian of ELL width 32,
+whose build time it prints).
 
 With ``--host_packed`` it profiles the packed host pipeline at the same sizes (the
 configuration of ``benchmarks/epoch_bench.py:335-411``: the bench's graph sampled on
@@ -320,15 +324,17 @@ def device_sampling_profile(runner, state, feats, labels) -> dict:
     float(runner.run_epoch(state, feats, labels)[1])
     prof = profile(lambda: float(runner.run_epoch(state, feats, labels)[1]))
     nb = runner.n_batches
-    return {"window": runner.window, "n_batches": nb, "profile": prof,
+    return {"window": runner.window, "sampler": runner.sampler, "n_batches": nb,
+            "profile": prof,
             "ms_per_batch": {"wall": prof["wall_ms"] / nb, "busy": prof["busy_ms"] / nb},
             "phases_ms_per_batch": phase_split(runner, state, feats, labels)}
 
 
 def print_device_sampling(res: dict) -> None:
     split, per = res["phases_ms_per_batch"], res["ms_per_batch"]
-    print(f"slice: flagship GraphSAGE, device sampling "
-          f"({'block-window' if res['window'] else 'per-slot'}), {res['n_batches']} "
+    draws = (("block-window" if res["window"] else "per-slot")
+             if res["sampler"] == "neighbor" else res["sampler"])
+    print(f"slice: {res['model']}, device sampling ({draws}), {res['n_batches']} "
           "batches an epoch")
     _print_profile("replayed a CUDA graph a batch", res["profile"], "1 epoch")
     print(f"per batch: wall {per['wall']:.4f} ms, busy {per['busy']:.4f} ms; phases (CUDA "
@@ -336,14 +342,26 @@ def print_device_sampling(res: dict) -> None:
           + f", sum {sum(split.values()):.4f} ms")
 
 
-def profile_device_sampling(card: str) -> dict:
-    """``device_sampling_profile`` of the headline bench's flagship at its sizes."""
+def profile_device_sampling(card: str, sampler: str = "neighbor") -> dict:
+    """``device_sampling_profile`` of the headline bench's flagship at its sizes, or
+    with ``sampler`` fastgcn or ladies of the layer-wise configuration on its data."""
     from dgll_tpu_torch import bench
 
     data = bench.flagship_data("cuda")
-    runner, state = bench.flagship_runner(data, int(os.environ.get("BENCH_BATCH", 1024)),
-                                          os.environ.get("BENCH_WINDOW", "1") == "1")
-    result = {"card": card, "model": "GraphSAGE flagship, device sampling",
+    extra = {}
+    if sampler == "neighbor":
+        runner, state = bench.flagship_runner(
+            data, int(os.environ.get("BENCH_BATCH", 1024)),
+            os.environ.get("BENCH_WINDOW", "1") == "1")
+        model = "GraphSAGE flagship"
+    else:
+        t0 = time.perf_counter()
+        lap = bench.layerwise_lap(data)
+        extra["build_device_lap_s"] = time.perf_counter() - t0
+        print(f"build_device_lap: {extra['build_device_lap_s']:.3f} s")
+        runner, state = bench.layerwise_runner(data, lap, sampler)
+        model = f"GCN, layer sizes {bench.LAYERWISE_SIZES}"
+    result = {"card": card, "model": model, **extra,
               **device_sampling_profile(runner, state, data.feats, data.labels)}
     print(f"card: {card}")
     print_device_sampling(result)
@@ -483,7 +501,12 @@ def main(argv=None) -> dict:
     which.add_argument("--host_packed", action="store_true",
                        help="profile an epoch of the packed host pipeline at the "
                             "headline bench's sizes")
+    p.add_argument("--sampler", default="neighbor", choices=("neighbor", "fastgcn", "ladies"),
+                   help="with --device_sampling: the flagship's neighbour sampler, or "
+                        "the layer-wise configuration's FastGCN or LADIES")
     args = p.parse_args(argv)
+    if args.sampler != "neighbor" and not args.device_sampling:
+        p.error("--sampler goes with --device_sampling")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -492,7 +515,7 @@ def main(argv=None) -> dict:
     if args.small:
         return profile_small(card)
     if args.device_sampling:
-        return profile_device_sampling(card)
+        return profile_device_sampling(card, args.sampler)
     if args.host_packed:
         return profile_host_packed(card)
     gat = args.gat

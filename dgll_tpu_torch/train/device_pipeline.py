@@ -1,8 +1,10 @@
 """Device-resident minibatch training: sampling, feature gather and step on the card.
 
 Counterpart of ``dgll_tpu/train/device_pipeline.py`` (the single-device parts). The
-graph's CSR, the features and the labels live in device memory; each batch's
-fanout sample is a few gathers (``sampling/device_sampler.py``). The JAX package
+graph's CSR (or, for the layer-wise samplers, its normalised Laplacian, a
+``DeviceLap``), the features and the labels live in device memory; each batch's
+sample is a few gathers (``sampling/device_sampler.py``), or gathers, a sort and
+binary searches (``sampling/device_layerwise.py``). The JAX package
 runs a whole epoch as one ``lax.scan`` dispatch. Its counterpart here is a CUDA
 graph of the fixed-shape batch step, captured once and replayed once a batch: the
 host enqueues one graph launch a batch and reads the epoch's loss once.
@@ -29,12 +31,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from dgll_tpu_torch.sampling.device_sampler import (
-    DeviceCSR,
-    draw_uniforms,
-    layer_sizes,
-    sample_blocks_device,
-)
+from dgll_tpu_torch.sampling.device_layerwise import MODES as LAYERWISE
+from dgll_tpu_torch.sampling.device_layerwise import sample_blocks_device_layerwise
+from dgll_tpu_torch.sampling.device_sampler import layer_sizes, sample_blocks_device
 from dgll_tpu_torch.train import cuda_graph
 from dgll_tpu_torch.train.metrics import masked_nll_loss
 from dgll_tpu_torch.train.trainer import TrainState, create_train_state
@@ -42,41 +41,64 @@ from dgll_tpu_torch.train.trainer import TrainState, create_train_state
 
 def make_sample_fn(fanouts: Sequence[int], window: bool = False,
                    sampler: str = "neighbor") -> Callable:
-    """Device-sampling callable ``(csr, seeds, mask, generator=None, draws=None) ->
-    (input_nodes, output_nodes, blocks)``: uniform fanout over a ``DeviceCSR``."""
+    """Device-sampling callable ``(graph, seeds, mask, generator=None, draws=None) ->
+    (input_nodes, output_nodes, blocks)``: ``neighbor``, uniform fanout over a
+    ``DeviceCSR``; ``fastgcn`` or ``ladies``, layer-wise importance draws over a
+    ``DeviceLap``, with ``fanouts`` read as the layer sizes, outermost first."""
     fanouts = [int(f) for f in fanouts]
-    if sampler in ("fastgcn", "ladies"):
-        raise NotImplementedError(f"device sampler {sampler!r}: see ROADMAP.md, Queue 1, "
-                                  "item 6 (layer-wise samplers)")
-    if sampler != "neighbor":
+    if sampler == "neighbor":
+        def fn(csr, seeds, mask, generator=None, draws=None):
+            return sample_blocks_device(csr, seeds, mask, fanouts, generator, draws,
+                                        window=window)
+    elif sampler in LAYERWISE:
+        def fn(lap, seeds, mask, generator=None, draws=None):
+            return sample_blocks_device_layerwise(lap, seeds, mask, fanouts, generator,
+                                                  draws, mode=sampler)
+    else:
         raise ValueError(f"unknown device sampler {sampler!r}")
-
-    def fn(csr, seeds, mask, generator=None, draws=None):
-        return sample_blocks_device(csr, seeds, mask, fanouts, generator, draws,
-                                    window=window)
-
     return fn
+
+
+def draw_shapes(batch_size: int, fanouts: Sequence[int], window: bool = False,
+                sampler: str = "neighbor") -> List:
+    """The shapes of one batch's uniforms, layer by layer, innermost first: a tuple
+    of shapes where a layer reads several tensors, else one shape. ``neighbor``:
+    ``(n, fanout)``, or ``((n,), (n, fanout))`` in window mode; ``fastgcn``:
+    ``((s,), (s,))``; ``ladies``: ``(s,)``."""
+    rev = list(reversed([int(f) for f in fanouts]))
+    if sampler == "neighbor":
+        return [((n,), (n, f)) if window else (n, f)
+                for n, f in zip(layer_sizes(batch_size, fanouts), rev)]
+    return [((s,), (s,)) if sampler == "fastgcn" else (s,) for s in rev]
+
+
+def _is_several(shape) -> bool:
+    return isinstance(shape[0], tuple)
 
 
 @dataclass
 class EpochDraws:
     """An epoch's randomness: ``order`` [n_batches * batch_size] int64, the
     permutation of the padded seeds; ``uniforms[li]``, layer ``li``'s uniforms for
-    every batch (innermost layer first): ``[n_batches, n_li, fanout]``, or in window
-    mode ``(ua [n_batches, n_li], ul [n_batches, n_li, fanout])``."""
+    every batch (innermost layer first), each of ``draw_shapes``' shapes with a
+    leading ``n_batches``."""
 
     order: torch.Tensor
     uniforms: List
 
 
 def draw_epoch(n_batches: int, batch_size: int, fanouts: Sequence[int], window: bool,
-               generator: Optional[torch.Generator], device) -> EpochDraws:
+               generator: Optional[torch.Generator], device,
+               sampler: str = "neighbor") -> EpochDraws:
     """An epoch's draws from ``generator``: ``randperm``, then one ``torch.rand`` a
     uniform tensor, innermost layer first."""
     order = torch.randperm(n_batches * batch_size, generator=generator, device=device)
-    rev = list(reversed([int(f) for f in fanouts]))
-    uniforms = [draw_uniforms(n, f, window, generator, device, lead=(n_batches,))
-                for n, f in zip(layer_sizes(batch_size, fanouts), rev)]
+
+    def rand(shape):
+        return torch.rand(n_batches, *shape, generator=generator, device=device)
+
+    uniforms = [tuple(rand(sh) for sh in shape) if _is_several(shape) else rand(shape)
+                for shape in draw_shapes(batch_size, fanouts, window, sampler)]
     return EpochDraws(order, uniforms)
 
 
@@ -135,6 +157,10 @@ def make_device_eval_fn(model: torch.nn.Module, fanouts: Sequence[int], batch_si
 class DeviceEpochRunner:
     """Device-resident epochs of minibatch training.
 
+    ``csr`` is the sampler's graph: a ``DeviceCSR`` for ``sampler="neighbor"``, a
+    ``DeviceLap`` for ``fastgcn`` and ``ladies`` (``fanouts`` then the layer sizes,
+    outermost first).
+
     Usage::
 
         runner = DeviceEpochRunner(model, functools.partial(torch.optim.Adam, lr=1e-3,
@@ -150,7 +176,7 @@ class DeviceEpochRunner:
     runs the eager step only.
     """
 
-    def __init__(self, model: torch.nn.Module, optimizer: Callable, csr: DeviceCSR,
+    def __init__(self, model: torch.nn.Module, optimizer: Callable, csr,
                  fanouts: Sequence[int], batch_size: int, train_nodes,
                  loss_fn: Callable = masked_nll_loss, seed: int = 0,
                  window: bool = False, sampler: str = "neighbor",
@@ -174,10 +200,9 @@ class DeviceEpochRunner:
         self._seeds = torch.zeros((nb, b), dtype=torch.int32, device=self.device)
         self._mask = torch.zeros((nb, b), dtype=torch.bool, device=self.device)
         self._draws = [
-            tuple(torch.zeros(shape, device=self.device) for shape in
-                  ((nb, n), (nb, n, f)))
-            if self.window else torch.zeros((nb, n, f), device=self.device)
-            for n, f in zip(layer_sizes(b, self.fanouts), reversed(self.fanouts))]
+            tuple(torch.zeros((nb, *sh), device=self.device) for sh in shape)
+            if _is_several(shape) else torch.zeros((nb, *shape), device=self.device)
+            for shape in draw_shapes(b, self.fanouts, self.window, sampler)]
         self._i = torch.zeros(1, dtype=torch.long, device=self.device)
         self.batch_losses = torch.zeros(nb, device=self.device)
         self._graph = None
@@ -232,7 +257,7 @@ class DeviceEpochRunner:
     def draw_epoch(self) -> EpochDraws:
         """The next epoch's draws from the runner's generator."""
         return draw_epoch(self.n_batches, self.batch_size, self.fanouts, self.window,
-                          self.generator, self.device)
+                          self.generator, self.device, self.sampler)
 
     def capture(self, state: TrainState, feats, labels, marks=None) -> "torch.cuda.CUDAGraph":
         """Capture the step on the current buffers as a CUDA graph

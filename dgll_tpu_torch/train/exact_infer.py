@@ -5,9 +5,9 @@ full ``Graph`` for all its layers, so exact inference is one full-graph forward 
 the minibatch-trained parameters, under ``torch.no_grad()`` and in eval mode: each
 layer aggregates over the complete in-neighbourhood, with no sampling noise.
 
-On a CUDA device a GCN or GAT layer runs its kernels (K1; K3-K7 for GAT), which read
-the chunked layouts: they are attached to the graph first where it lacks them
-(``Graph.with_chunked``). GraphSAGE's full-graph aggregation is plain PyTorch on
+On a CUDA device a GCN, GIN or GAT layer runs its kernels (K1; K3-K7 for GAT),
+which read the chunked layouts: they are attached to the graph first where it lacks
+them (``Graph.with_chunked``). GraphSAGE's full-graph aggregation is plain PyTorch on
 every device, as the JAX package computes it in XLA.
 """
 from __future__ import annotations
@@ -19,9 +19,9 @@ import torch
 
 
 def _uses_kernels(model: torch.nn.Module) -> bool:
-    from dgll_tpu_torch.nn.conv import GATConv, GCNConv
+    from dgll_tpu_torch.nn.conv import GATConv, GCNConv, GINConv
 
-    return any(isinstance(m, (GCNConv, GATConv)) for m in model.modules())
+    return any(isinstance(m, (GCNConv, GATConv, GINConv)) for m in model.modules())
 
 
 def exact_logits(model: torch.nn.Module, graph, feats: torch.Tensor) -> torch.Tensor:

@@ -60,8 +60,10 @@ def test_cli_minibatch_branches_print_the_jax_cli_keys(args):
 
 
 @pytest.mark.parametrize("args, error, match", [
-    (["--samp_type", "fastgcn", "--device_sampling"], NotImplementedError, "item 6"),
-    (["--samp_type", "ladies", "--device_sampling"], NotImplementedError, "item 6"),
+    (["--samp_type", "fastgcn", "--device_sampling", "--n_devices", "2"],
+     NotImplementedError, "item 8"),
+    (["--samp_type", "ladies", "--device_sampling", "--checkpoint_dir", "ckpt"],
+     NotImplementedError, "item 11"),
     (["--device_sampling", "--cached_nPercent", "25"], ValueError, "--cached_nPercent"),
     (["--device_sampling", "--n_parts", "2"], ValueError, "--n_parts"),
 ])

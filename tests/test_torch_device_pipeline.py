@@ -286,8 +286,8 @@ def test_gat_model_on_blocks_matches_jax(data):
 
 def test_runner_refuses_what_it_cannot_run(data):
     gt, _, ct, _ = data
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_sample_fn(FANOUTS, sampler="ladies")
+    with pytest.raises(ValueError, match="unknown device sampler"):
+        make_sample_fn(FANOUTS, sampler="graphsaint")
     with pytest.raises(ValueError, match="CUDA graph needs a CUDA device"):
         DeviceEpochRunner(GraphSAGE(16, 16, 4), torch.optim.Adam, ct, FANOUTS, BATCH,
                           gt.get_train_nodes(), cuda_graph=True)

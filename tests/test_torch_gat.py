@@ -464,7 +464,7 @@ def test_cli_trains_gat_with_the_jax_cli_keys():
 
 @pytest.mark.parametrize("args,item", [
     (["--samp_type", "neighbor", "--n_devices", "2"], "item 8"),
-    (["--samp_type", "fastgcn"], "item 6"),
+    (["--samp_type", "fastgcn", "--dataset", "cora.graph"], "item 10"),
     (["--samp_type", "full", "--dtype", "bfloat16"], "item 2"),
 ])
 def test_cli_gat_outside_the_slice_raises(args, item):

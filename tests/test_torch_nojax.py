@@ -8,7 +8,8 @@ port's own copy of the C++ host kernels, runs both round-4 GAT attention layers,
 trains GraphSAGE for two epochs on the CLI's host minibatch path with the feature
 cache, fills and fetches from the int8 cache, samples blocks on the device sampler
 and runs one epoch of ``DeviceEpochRunner``, one packed epoch in groups of 2, one
-epoch of ``PipelinedTrainer`` and a ``--preprocess`` run of the CLI, and runs the
+epoch of ``PipelinedTrainer``, a ``--preprocess`` run of the CLI, the CLI's device
+LADIES and host FastGCN GIN runs and a GIN graph classifier's forward, and runs the
 probe tool on the CPU. No
 source file of the package imports them either, and none names a path inside the JAX
 package: the port reads no file of it. ``chip_smoke.py`` refuses to run, and prints
@@ -98,6 +99,15 @@ out = main(["--Model", "GraphSAGE", "--samp_type", "neighbor", "--device", "cpu"
             "--n_node", "300", "--n_epochs", "1", "--nhid", "16", "--feat_dim", "8",
             "--batch_size", "64", "--preprocess"])
 assert out["trials"][0]["preprocess"] is True
+for extra in (["--samp_type", "ladies", "--device_sampling"],
+              ["--samp_type", "fastgcn", "--Model", "GIN"]):
+    out = main(["--device", "cpu", "--n_node", "300", "--n_epochs", "1", "--nhid", "16",
+                "--feat_dim", "8", "--batch_size", "64", "--n_samp", "64", *extra])
+    assert np.isfinite(out["trials"][0]["epoch_loss"]).all(), out
+from dgll_tpu_torch.data import synthetic_graph_classification
+from dgll_tpu_torch.nn import GIN, batch_graphs
+gb, gid, y = batch_graphs(synthetic_graph_classification(n_graph=6))
+assert GIN(8, 8, 2, pooling=("sum", "max"))(gb, gb.node_feat, gid, 6).shape == (6, 2)
 from dgll_tpu_torch.tools import probe
 res = probe.main(["--device", "cpu"])
 assert res["p4_row_dma"]["ms"] > 0, res

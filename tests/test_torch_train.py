@@ -100,13 +100,13 @@ def test_cli_prints_the_jax_cli_keys(capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--samp_type", "fastgcn", "--device_sampling"],
-    ["--samp_type", "fastgcn"],
-    ["--samp_type", "ladies"],
-    ["--samp_type", "neighbor", "--Model", "GIN"],
+    ["--samp_type", "fastgcn", "--device_sampling", "--n_devices", "2"],
+    ["--samp_type", "fastgcn", "--dataset", "cora.graph"],
+    ["--samp_type", "ladies", "--checkpoint_dir", "ckpt"],
+    ["--samp_type", "neighbor", "--Model", "GIN", "--n_devices", "2"],
     ["--samp_type", "neighbor", "--n_devices", "2"],
-    ["--samp_type", "ladies", "--device_sampling"],
-    ["--samp_type", "full", "--Model", "GIN"],
+    ["--samp_type", "ladies", "--device_sampling", "--dataset", "cora.graph"],
+    ["--samp_type", "full", "--Model", "GIN", "--checkpoint_dir", "ckpt"],
     ["--samp_type", "full", "--n_devices", "2"],
     ["--samp_type", "full", "--checkpoint_dir", "ckpt"],
     ["--samp_type", "full", "--dataset", "cora.graph"],
