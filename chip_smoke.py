@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout and drives the
-port's nine slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
+port's ten slices: two through the port's CLI (``dgll_tpu_torch.run.main``) on a
 200k-node power-law graph, the third through the full-graph bench
 (``dgll_tpu_torch.bench``) on a 200k-node clustered graph, the fourth through the
 round-4 attention ops (``dgll_tpu_torch.ops``) on the power-law graph, the fifth
@@ -14,7 +14,8 @@ flagship, through the headline bench and the CLI's device-sampling branch, the
 eighth through the packed host pipeline (``MiniBatchTrainer.run_epoch_packed``),
 ``PipelinedTrainer`` and the CLI's ``--preprocess``, the ninth through the layer-wise
 samplers' device epoch, the CLI's layer-wise and GIN branches and GIN graph
-classification:
+classification, the tenth through the CLI's bfloat16 GAT, its dataset files,
+checkpoints and ``device_trace``:
 
 * full-batch GCN (phases 3-5): the SpMM kernel K1 against its plain PyTorch version
   on a power-law test graph and on a planted graph whose rows cross K1's split
@@ -105,7 +106,18 @@ classification:
   ``--exact_eval`` launches K1), ``--Model GIN --samp_type full`` for 20 epochs with
   K1's launches held to the model's count, ``--Model GIN --device_sampling``, and GIN
   graph classification on 128 synthetic graphs (the example's width 32, 3 layers,
-  sum and mean pooling) through K1, its forward on the card against the CPU's.
+  sum and mean pooling) through K1, its forward on the card against the CPU's;
+* GAT in bfloat16 (phase 23), on the slices' graph: K7 on bf16 rows against its
+  plain version, bitwise, in 16-byte units and an element a unit (unaligned, F=12);
+  K1 on bf16 messages with identity columns on A and ``t_slot_perm`` columns on A^T,
+  within 1 bf16 ulp of the float64 sum beyond the bound of the float32 sum in K1's
+  own order (a segment of at most 512 edges, then the segments); both at
+  widths 64 and 16, timed beside ``index_select`` or ``sparse.mm`` on a bf16 CSR; the
+  CLI's GAT slice under ``--dtype bfloat16`` for 20 epochs (K1 and K7 launches
+  counted) beside phase 9's float32 run, and a bf16 ``--device_sampling`` run; then
+  ``save_graph``/``load_graph`` of the slice's graph, a ``--checkpoint_dir`` run and
+  its ``--resume`` (the restored parameters equal those saved), and two resumed
+  epochs on the loaded graph inside ``device_trace``, whose trace names K1 and K7.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -127,6 +139,7 @@ import contextlib
 import functools
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -575,7 +588,8 @@ def _gat_cases(c, ct, heads, width, gen) -> dict:
     The inputs of K4 and K5 are the plain versions' own outputs, so that each kernel
     is checked alone. Operations count 8 per edge and head for K3 and K4 (adds,
     LeakyReLU, max or min, exp, divide), 4 for K5, 1 for K6, 2 per edge and feature
-    for K1; K7 only moves bytes."""
+    for K1 (1 with unit weights); K7 only moves bytes. K1's bytes leave out what
+    carries nothing: the identity columns (0..E-1) and the unit weights."""
     from dgll_tpu_torch.ops import gat_csr, spmm_chunked_reference
     from dgll_tpu_torch.ops.cuda import gat_fused as gf
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
@@ -616,13 +630,13 @@ def _gat_cases(c, ct, heads, width, gen) -> dict:
         "K1 identity columns, runtime weights, on A": Case(
             lambda: (spmm_csr_cuda(c, msg, cols=ids, weights=w),),
             lambda: (spmm_chunked_reference(c, msg, cols=ids, weights=w),),
-            lambda: torch.sparse.mm(a_mat, msg), (c.indptr, ids, w, msg),
+            lambda: torch.sparse.mm(a_mat, msg), (c.indptr, w, msg),
             2 * nnz * width),
         "K1 t_slot_perm columns, unit weights, on A^T": Case(
             lambda: (spmm_csr_cuda(ct, msg, cols=perm, weights=ones),),
             lambda: (spmm_chunked_reference(ct, msg, cols=perm, weights=ones),),
-            lambda: torch.sparse.mm(t_mat, msg), (ct.indptr, perm, ones, msg),
-            2 * nnz * width),
+            lambda: torch.sparse.mm(t_mat, msg), (ct.indptr, perm, msg),
+            nnz * width),
     }
 
 
@@ -823,7 +837,9 @@ def phase_gat_slice() -> dict:
           f"layout_preprocess_s {trial['layout_preprocess_s']:.3f}, "
           f"{_peak_memory(held)}, "
           f"launches {counts} (K1 fwd {fwd} bwd {bwd})")
-    return counts
+    summary = {"test_acc": trial["test_acc"], "epoch_ms_median": 1e3 * np.median(steady),
+               "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+    return counts, summary
 
 
 @functools.cache
@@ -2940,6 +2956,239 @@ def phase_layerwise(data, smi: str) -> dict:
     return result
 
 
+# phase 23: GAT in bfloat16, the dataset files, checkpoints and device_trace
+BF16_SLICE_ARGS = ["--dtype", "bfloat16"]   # appended to the GAT slice's arguments
+BF16_DEVICE_ARGS = ["--Model", "GAT", "--device_sampling", "--dtype", "bfloat16",
+                    "--nhid", "8", "--n_heads", "8", "--dropout", "0.6", "--lr", "0.005",
+                    "--weight_decay", "0.0005", "--n_epochs", "2"]
+K7_BF16 = "expand_rows (K7) on bfloat16 rows: the bf16 GAT backward's expand"
+K1_BF16 = ("spmm_csr (K1) on bfloat16 messages with runtime columns and unit weights: "
+           "the bf16 GAT aggregation and scatter")
+TRACE_EPOCHS = 2
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at ``|x|`` (8 significant bits)."""
+    mag = x.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _bf16_sum_bound(lay, cols, msg) -> tuple:
+    """``(sum, tolerance)`` of K1's unit-weight sum of bfloat16 messages, per output:
+    the float64 sum, and 1 bfloat16 ulp of it plus the bound on the float32 sum's
+    error in K1's own order, ``d 2^-24 sum|x|`` for a summation ``d`` adds deep. A
+    row of n edges is ``n`` deep; a split row (n > T = ``split.max_edges``) is at
+    most ``T`` deep in a segment and ``n_seg`` more in pass 2, which adds the
+    segments' float32 partials. A partial dropped, doubled or rounded to bf16 lies
+    far outside it."""
+    rows, idx = lay.rows.long(), cols.long()
+    x = msg.double().index_select(0, idx)
+    shape = (lay.n_rows, msg.shape[1])
+    exact = torch.zeros(shape, dtype=torch.float64, device="cuda").index_add_(0, rows, x)
+    absum = torch.zeros(shape, dtype=torch.float64, device="cuda").index_add_(0, rows,
+                                                                                x.abs())
+    t = lay.split.max_edges
+    deg = (lay.indptr[1:] - lay.indptr[:-1]).long()
+    n_seg = torch.where(deg > t, (deg + t - 1) // t, 0)
+    depth = (deg.clamp(max=t) + n_seg).double()[:, None]
+    return exact, _bf16_ulp(exact) + depth * 2.0 ** -24 * absum
+
+
+def _bf16_library(lay, cols, weights, msg):
+    """``torch.sparse.mm`` on a bfloat16 CSR of the layout with runtime columns, where
+    this torch takes one on the card; else None."""
+    mat = csr(lay.indptr, cols, weights.to(torch.bfloat16), (lay.n_rows, msg.shape[0]))
+    try:
+        torch.sparse.mm(mat, msg)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as err:
+        print(f"[23 time] torch.sparse.mm on a bfloat16 CSR: none on this torch ({err!s:.80})")
+        return None
+    return lambda: torch.sparse.mm(mat, msg)
+
+
+def _bf16_kernels() -> dict:
+    """K7 on bfloat16 rows against its plain version (bitwise), aligned (16-byte units)
+    and unaligned or F % 8 != 0 (an element a unit); K1 on bfloat16 messages with
+    identity columns on A and ``t_slot_perm`` columns on A^T, within 1 bf16 ulp of the
+    float32 sum; each at GAT's widths 64 and 16 on the slices' graph, timed in turns
+    beside its plain version and library call. Returns the JSON rows' errors and
+    width-64 times."""
+    from dgll_tpu_torch.ops import gat_csr, spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda import gat_fused as gf
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+
+    c, ct, _ = slice_graph()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bf = torch.bfloat16
+    out = {"k7_err": 0.0, "k1_err": 0.0}
+    for f in (64, 16, 12):
+        flat = torch.randn(c.n_rows * f + 1, generator=gen, device="cuda").to(bf)
+        for aligned in (True, False):
+            a = (flat[:-1] if aligned else flat[1:]).view(c.n_rows, f)
+            vec = gf.expand_vec(f, a, a)
+            got, want = gf.expand_rows_cuda(c, a), a.index_select(0, c.rows)
+            check(got.dtype == bf and torch.equal(got, want),
+                  f"K7 bf16 F={f} {'aligned' if aligned else 'unaligned'}: bitwise equal")
+            if f == 12 or not aligned:
+                print(f"[23 check] K7 bf16 F={f}, {'aligned' if aligned else 'unaligned'} "
+                      f"({vec} an element a unit): bitwise equal")
+                continue
+            case = Case(lambda: (gf.expand_rows_cuda(c, a),),
+                        lambda: (gat_csr.expand_rows_reference(c, a),),
+                        lambda: a.index_select(0, c.rows), (c.rows, a), 0)
+            t = timed(case, (got,))
+            print(f"[23 time] K7 bf16 F={f} ({vec} elements a unit): bitwise equal; "
+                  f"{describe(t)}")
+            if f == 64:
+                out["k7"] = t
+    for f in (64, 16):
+        msg = torch.randn(c.src.numel(), f, generator=gen, device="cuda").to(bf)
+        for name, lay, cols in (("identity columns on A", c, c.edge_ids),
+                                ("t_slot_perm columns on A^T", ct, c.t_slot_perm)):
+            ones = lay.unit_weight
+            got = spmm_csr_cuda(lay, msg, cols=cols, weights=ones)
+            again = spmm_csr_cuda(lay, msg, cols=cols, weights=ones)
+            exact, tol = _bf16_sum_bound(lay, cols, msg)
+            err = (got.double() - exact).abs()
+            check(got.dtype == bf and bool((err <= tol).all()),
+                  f"K1 bf16 F={f} {name}: within 1 bf16 ulp of the sum, beyond the bound "
+                  f"of the f32 sum in K1's segment order")
+            check(torch.equal(got, again), f"K1 bf16 F={f} {name}: bitwise repeatable")
+            out["k1_err"] = max(out["k1_err"], err.max().item())
+            # the bytes the sum needs: the unit weights carry none, nor do the
+            # identity columns (0..E-1); one add an edge and feature
+            reads = (lay.indptr, msg) if lay is c else (lay.indptr, cols, msg)
+            case = Case(lambda: (spmm_csr_cuda(lay, msg, cols=cols, weights=ones),),
+                        lambda: (spmm_chunked_reference(lay, msg, cols=cols, weights=ones),),
+                        _bf16_library(lay, cols, ones, msg), reads, c.src.numel() * f)
+            t = timed(case, (got,))
+            print(f"[23 time] K1 bf16 F={f} {name}: max abs err {err.max().item():.3e} "
+                  f"(within 1 ulp); {describe(t)}")
+            if f == 64 and lay is c:
+                out["k1"] = t
+    return out
+
+
+def _bf16_gat_cli(f32: dict) -> dict:
+    """The CLI's GAT slice in bfloat16 (20 epochs, every counter set to 0 just before
+    and read just after), beside phase 9's float32 run; then a short bf16 GAT run
+    through ``--device_sampling`` (dense blocks in the CUDA graph, no kernel on its
+    path)."""
+    from dgll_tpu_torch import run
+    from dgll_tpu_torch.tools.profile_slice import GAT_SLICE_ARGS
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all_counters()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = run.main([*GAT_SLICE_ARGS, *BF16_SLICE_ARGS, "--n_epochs", str(EPOCHS)])
+    counts = {k: v for k, v in _all_counters().items() if v}
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    trial = res["trials"][0]
+    losses, secs = trial["epoch_loss"], trial["epoch_s"]
+    check(trial["epochs"] == EPOCHS and all(np.isfinite(losses)),
+          f"bf16 GAT: {EPOCHS} epochs of finite losses")
+    check(losses[-1] < losses[0], "bf16 GAT: the last loss is below the first")
+    check(trial["test_acc"] > 2 / 16, "bf16 GAT: test_acc above 2/16")
+    for k in ("gat_bwd_softmax", "edges_to_rows_sum", "expand_rows"):
+        check(counts.get(k) == 2 * EPOCHS, f"bf16 GAT: exactly 2 {k} launches an epoch")
+    check(counts.get("gat_stats", 0) >= 2 * EPOCHS and counts.get("K1 fwd", 0) >= 2 * EPOCHS
+          and counts.get("K1 bwd") == 2 * EPOCHS, f"bf16 GAT: K3 and K1 launched: {counts}")
+    ms = 1e3 * np.median(secs[1:])
+    print(f"[23 gat bf16] {EPOCHS} epochs: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"test_acc {trial['test_acc']:.4f}, epoch ms median {ms:.3f} (float32, phase 9: "
+          f"{f32['epoch_ms_median']:.3f}; {f32['epoch_ms_median'] / ms:.2f}x), peak "
+          f"memory {peak:.2f} GiB above the {held / 2**30:.2f} GiB held (float32: "
+          f"{f32['peak_gib']:.2f} GiB), test_acc float32 {f32['test_acc']:.4f}, "
+          f"launches {counts}")
+    _zero_all_counters()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dev = run.main([*MINIBATCH_ARGS, *BF16_DEVICE_ARGS])["trials"][0]
+    dev_counts = {k: v for k, v in _all_counters().items() if v}
+    check(dev["device_sampling"] and all(np.isfinite(dev["epoch_loss"])),
+          "bf16 GAT --device_sampling: finite losses")
+    check(not dev_counts, f"bf16 GAT --device_sampling: no kernel launch, got {dev_counts}")
+    print(f"[23 gat bf16 device] loss {' -> '.join(f'{v:.4f}' for v in dev['epoch_loss'])},"
+          f" test_acc {dev['test_acc']:.4f}, epoch s "
+          f"{[round(v, 3) for v in dev['epoch_s']]}")
+    return {"launches": counts, "epoch_ms_median": ms, "peak_gib": peak,
+            "test_acc": trial["test_acc"], "f32": f32,
+            "device_sampling": {"epoch_loss": dev["epoch_loss"],
+                                "test_acc": dev["test_acc"]}}
+
+
+def _files_and_resume() -> dict:
+    """``save_graph`` of the GAT slice's graph and ``load_graph`` of it (equal arrays);
+    the bf16 GAT slice with ``--checkpoint_dir`` (2 epochs, step 2), its ``--resume``
+    with no epoch (resumed from step 2, which it saves again bitwise equal: the
+    parameters it restored are those saved), and a resume of 2 epochs on the saved
+    graph inside ``device_trace``, whose trace must name K1 and K7."""
+    import tempfile
+
+    from dgll_tpu_torch import run
+    from dgll_tpu_torch.data import load_graph, save_graph, synthetic_classification_graph
+    from dgll_tpu_torch.tools.profile_slice import GAT_SLICE_ARGS
+    from dgll_tpu_torch.utils import device_trace, parse_train_config
+
+    cfg = parse_train_config(GAT_SLICE_ARGS)
+    g = synthetic_classification_graph(
+        n_node=cfg.n_node, avg_degree=cfg.avg_degree, n_class=cfg.n_class,
+        feat_dim=cfg.feat_dim, power_law=1.0, seed=cfg.seed)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/slice.graph"
+        t0 = time.perf_counter()
+        save_graph(g, path)
+        loaded = load_graph(path)
+        out["save_load_s"] = time.perf_counter() - t0
+        for f in ("indptr", "src", "dst", "node_feat", "labels", "train_mask"):
+            check(torch.equal(getattr(loaded, f), getattr(g, f)), f"load_graph: {f} equal")
+        ck = f"{tmp}/ckpt"
+        args = [*GAT_SLICE_ARGS, *BF16_SLICE_ARGS, "--checkpoint_dir", ck]
+        with contextlib.redirect_stdout(io.StringIO()):
+            run.main([*args, "--n_epochs", "2"])
+            saved = torch.load(f"{ck}/step_2.pt", weights_only=True)
+            resumed = run.main([*args, "--n_epochs", "0", "--resume"])["trials"][0]
+        again = torch.load(f"{ck}/step_2.pt", weights_only=True)
+        check(resumed.get("resumed_from") == 2, "--resume: resumed from step 2")
+        check(set(again) == set(saved) and all(torch.equal(again[k], saved[k])
+                                               for k in saved),
+              "--resume: the restored parameters equal those saved")
+        _zero_all_counters()
+        with device_trace(f"{tmp}/trace"), contextlib.redirect_stdout(io.StringIO()):
+            traced = run.main([*args, "--dataset", path, "--resume",
+                               "--n_epochs", str(TRACE_EPOCHS)])["trials"][0]
+        counts = {k: v for k, v in _all_counters().items() if v}
+        files = os.listdir(f"{tmp}/trace")
+        check(len(files) == 1, f"device_trace wrote one trace file: {files}")
+        text = open(f"{tmp}/trace/{files[0]}").read()
+        check("spmm_csr_kernel" in text and "expand_rows_kernel" in text,
+              "the trace names K1 and K7")
+        check(traced.get("resumed_from") == 2 and counts.get("expand_rows") == 2 * TRACE_EPOCHS,
+              f"the traced run resumed and launched K7 twice an epoch: {counts}")
+        out.update(trace_mib=len(text) / 2**20, resumed_from=resumed["resumed_from"],
+                   traced_launches=counts, ckpt_steps=sorted(os.listdir(ck)))
+    print(f"[23 files] save_graph + load_graph of the slice's graph "
+          f"({g.n_node} nodes, {g.n_edge} edges) in {out['save_load_s']:.2f} s, equal; "
+          f"--resume from step {out['resumed_from']}, the restored parameters equal; "
+          f"device_trace of {TRACE_EPOCHS} epochs on the loaded graph: "
+          f"{out['trace_mib']:.1f} MiB, names K1 and K7, launches {counts}; checkpoints "
+          f"{out['ckpt_steps']}")
+    return out
+
+
+def phase_bf16(f32: dict) -> dict:
+    """Phase 23: GAT in bfloat16 (K7 on bf16 rows, K1 on bf16 messages with runtime
+    columns), the dataset files, checkpoints and ``device_trace``."""
+    t0 = time.perf_counter()
+    kernels = _bf16_kernels()
+    cli = _bf16_gat_cli(f32)
+    files = _files_and_resume()
+    print(f"[23 done] in {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "cli": cli, "files": files}
+
+
 def kernel_row(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
@@ -2958,7 +3207,7 @@ def main() -> int:
     phase_gat_check(gat_errs)
     phase_gat_layer()
     gat_times = phase_gat_time(gat_errs)
-    gat_counts = phase_gat_slice()
+    gat_counts, gat_f32 = phase_gat_slice()
     win_err = phase_windowed_check()
     hyb = phase_hybrid()
     bench = phase_bench()
@@ -2982,6 +3231,7 @@ def main() -> int:
     host_packed = phase_host_packed(data)
     layerwise = phase_layerwise(data, smi)
     del data
+    bf16 = phase_bf16(gat_f32)
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -3004,6 +3254,12 @@ def main() -> int:
         "quantize_int8_fill (K8: the int8 cache's whole fill in one call: column maxima, "
         "scales, the quantize pass)", QUANTIZE_SOURCE, QUANTIZE_REPLACES,
         cache["budget_6.25pct_int8"]["k8_launches"], k8_err, k8_times["whole fill"]))
+    bk, bf16_counts = bf16["kernels"], bf16["cli"]["launches"]
+    kernels.append(kernel_row(K7_BF16, GAT_SOURCE, GAT_KERNELS[-1][2],
+                              bf16_counts["expand_rows"], bk["k7_err"], bk["k7"]))
+    kernels.append(kernel_row(K1_BF16, KERNEL_SOURCE, REPLACES,
+                              bf16_counts["K1 fwd"] + bf16_counts["K1 bwd"], bk["k1_err"],
+                              bk["k1"]))
     for name, key, line in PROBE_KERNELS:
         kernels.append(kernel_row(name, PROBES_SOURCE, f"{PROBE_SCRIPT}:{line}",
                                   probe_counts[key], probe_kernels[key]["err"],
@@ -3015,6 +3271,7 @@ def main() -> int:
     print(f"[20 flagship] {json.dumps(flagship)}")
     print(f"[21 host_packed] {json.dumps(host_packed)}")
     print(f"[22 layerwise] {json.dumps(layerwise)}")
+    print(f"[23 bf16] {json.dumps({k: v for k, v in bf16.items() if k != 'kernels'})}")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 // GAT attention kernels over the dst-major CSR, for Hopper (sm_90a).
 //
 // The kernels of the fused GAT layer (ops/cuda/gat_fused.py) and of the round-4
-// attention path (ops/gat.py, ops/edge_ops.py), all float32. Per-edge arrays are
+// attention path (ops/gat.py, ops/edge_ops.py), all float32 but K7, which also
+// copies bfloat16 rows. Per-edge arrays are
 // [nnz, H] in the CSR's edge order (the edges of row r are indptr[r]..indptr[r+1]);
 // per-row arrays are [n_rows, H].
 //
@@ -14,7 +15,7 @@
 //   K6 edges_to_rows:    out[r,h] = sum_e v[e,h] (sum mode), or max_e v[e,h] with -3e38
 //                        on a row without edges (max mode).
 //   K6' rows_to_edges_multi: out[e,h] = v[r,h]; K10 rows_to_edges the same at H = 1.
-//   K7 expand_rows:      out[e,:] = a[r,:].
+//   K7 expand_rows:      out[e,:] = a[r,:], float32 or bfloat16 (a copy).
 //   K9 sddmm:            out[e] = <a[r,:], msg[e,:]>.
 //
 // They replace the TPU kernels _stats_kernel, _alpha_kernel and _bwd_sm_kernel
@@ -501,7 +502,9 @@ combine_segments_kernel(const float* __restrict__ partial, float* __restrict__ o
   out[(int64_t)sp.split_row[r] * heads + h] = s;
 }
 
-// T is float or float4: the wrapper passes fv = F / (sizeof(T) / 4) units per row.
+// T is the unit copied: a 4-byte float, a 2-byte bfloat16 (as uint16_t) or 16 bytes
+// (uint4: 4 floats or 8 bfloat16); fv = the units of a row. A copy, so the result is
+// bitwise the source row whatever the element type.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 expand_rows_kernel(const int* __restrict__ rows, const T* __restrict__ a,
@@ -642,12 +645,22 @@ int edges_to_rows(const void* indptr, const void* rows, const void* v, void* out
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t expand_rows(const void* rows, const void* a, void* out, int64_t n, int fv,
+                        cudaStream_t s) {
+  expand_rows_kernel<T><<<stride_blocks(n), kThreads, 0, s>>>(
+      static_cast<const int*>(rows), static_cast<const T*>(a), static_cast<T*>(out), n,
+      fv);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns cudaGetLastError() after its launch, or cudaErrorInvalidValue (and
-// launches nothing) for a bad size. All pointers are float32 or int32 device memory.
+// launches nothing) for a bad size. All pointers are float32 or int32 device memory,
+// but K7's a and out, which may be bfloat16.
 
 // K3, K5 and K6 take the layout's rows ([nnz] int32, each edge's destination row), a
 // lane mapping (across = 1: heads across lanes, for H a power of two up to 32; 0:
@@ -749,24 +762,21 @@ int dgll_gat_bwd_softmax(const void* indptr, const void* rows, const void* alpha
   return cudaGetLastError();
 }
 
-// vec = 4 moves float4 units (F % 4 == 0 and 16-byte aligned pointers), else 1.
+// dtype 0 = float32, 1 = bfloat16. vec elements a unit: 16 bytes (4 float32 or 8
+// bfloat16; F % vec == 0 and 16-byte aligned pointers) or 1.
 int dgll_expand_rows(const void* rows, const void* a, void* out, long long nnz, int f,
-                     int vec, void* stream) {
-  if (nnz < 0 || f <= 0 || (vec != 1 && vec != 4) || f % vec != 0)
-    return cudaErrorInvalidValue;
+                     int dtype, int vec, void* stream) {
+  if (nnz < 0 || f <= 0 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  const int wide = dtype == 0 ? 4 : 8;
+  if ((vec != 1 && vec != wide) || f % vec != 0) return cudaErrorInvalidValue;
+  if (vec == wide && !aligned16(a, out)) return cudaErrorMisalignedAddress;
   const int fv = f / vec;
   const int64_t n = (int64_t)nnz * fv;
   if (n == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4)
-    expand_rows_kernel<float4><<<stride_blocks(n), kThreads, 0, s>>>(
-        static_cast<const int*>(rows), static_cast<const float4*>(a),
-        static_cast<float4*>(out), n, fv);
-  else
-    expand_rows_kernel<float><<<stride_blocks(n), kThreads, 0, s>>>(
-        static_cast<const int*>(rows), static_cast<const float*>(a),
-        static_cast<float*>(out), n, fv);
-  return cudaGetLastError();
+  if (vec == wide) return expand_rows<uint4>(rows, a, out, n, fv, s);
+  if (dtype == 0) return expand_rows<float>(rows, a, out, n, fv, s);
+  return expand_rows<uint16_t>(rows, a, out, n, fv, s);
 }
 
 // vec = 4 moves float4 units (F % 4 == 0 and 16-byte aligned pointers), else 1;

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -187,6 +187,62 @@ class Graph:
             return self
         dev = g.src.device
         return g.replace(hybrid=h.to(dev), hybrid_t=ht.to(dev))
+
+    # ------------------------------------------------------------- queries
+    # (the JAX package's DGraph-parity helpers: host-side conveniences)
+    def get_neighbors(self, nodes: Sequence[int]) -> list:
+        """The in-neighbours of each node of ``nodes``, a list of id lists."""
+        indptr, src = _np(self.indptr), _np(self.src)
+        return [list(src[indptr[int(v)]: indptr[int(v) + 1]]) for v in nodes]
+
+    def get_induced_subgraph(self, nodes: Sequence[int]) -> np.ndarray:
+        """Dense ``[k, k]`` float32 adjacency of the subgraph induced by ``nodes``:
+        ``adj[i, j] = 1`` where ``nodes[j]`` is an in-neighbour of ``nodes[i]``."""
+        nodes = np.asarray(list(nodes), dtype=np.int64)
+        pos = {int(v): i for i, v in enumerate(nodes)}
+        adj = np.zeros((len(nodes), len(nodes)), dtype=np.float32)
+        indptr, src = _np(self.indptr), _np(self.src)
+        for i, v in enumerate(nodes):
+            for u in src[indptr[v]: indptr[v + 1]]:
+                j = pos.get(int(u))
+                if j is not None:
+                    adj[i, j] = 1.0
+        return adj
+
+    def _rows(self, t: torch.Tensor, nodes) -> torch.Tensor:
+        return t.index_select(0, torch.as_tensor(np.asarray(nodes), dtype=torch.long,
+                                                 device=t.device))
+
+    def get_features(self, nodes) -> torch.Tensor:
+        """Feature rows of ``nodes``."""
+        return self._rows(self.node_feat, nodes)
+
+    def get_labels(self, nodes) -> torch.Tensor:
+        """Labels of ``nodes``."""
+        return self._rows(self.labels, nodes)
+
+    @property
+    def in_degrees(self) -> torch.Tensor:
+        """In-degree of every node (padded edges included), ``[n_node]`` int32."""
+        return self.indptr[1:] - self.indptr[:-1]
+
+    @property
+    def edge_mask(self) -> torch.Tensor:
+        """``[n_edge]`` bool: True on real (not padding) edges."""
+        return torch.arange(self.n_edge, device=self.src.device) < self.n_real_edge
+
+    @property
+    def node_mask(self) -> torch.Tensor:
+        """``[n_node]`` bool: True on real (not padding) nodes."""
+        return torch.arange(self.n_node, device=self.src.device) < self.n_real_node
+
+    def with_features(self, node_feat=None, labels=None) -> "Graph":
+        """The graph with ``node_feat`` and/or ``labels`` replaced (arrays or
+        tensors); None keeps the current one."""
+        return self.replace(
+            node_feat=self.node_feat if node_feat is None else torch.as_tensor(node_feat),
+            labels=self.labels if labels is None else torch.as_tensor(labels),
+        )
 
     def _mask_nodes(self, mask: Optional[torch.Tensor]) -> np.ndarray:
         if mask is None:

@@ -21,7 +21,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from dgll_tpu_torch.ops.gat_csr import gat_attention_coo
+from dgll_tpu_torch.ops.gat_csr import gat_attention_coo, leaky_relu
 from dgll_tpu_torch.ops.spmm import block_aggregate, spmm_coo, spmm_max_coo, spmm_mean_coo
 from dgll_tpu_torch.sampling.base import SparseBlock, WeightedBlock
 
@@ -226,14 +226,21 @@ class GATConv(nn.Module):
 
     Unlike the JAX package, the per-head width is not zero-padded to a multiple of
     128 lanes (a TPU tiling rule; zero columns change nothing).
+
+    ``dtype`` sets the compute type (as flax's ``dtype``): the projection ``h`` and
+    the attention vectors are cast to it, the parameters stay float32. Under
+    bfloat16 the fused op keeps its scores and softmax in float32 and its messages
+    in bfloat16; the dense-block branch runs in bfloat16, as the JAX package's. The
+    COO branch (``gat_attention_coo``) sums its messages in float32 and, unlike the
+    JAX package, which returns that float32 sum, casts it back to the compute type.
     """
 
     def __init__(self, in_features: int, features: int, num_heads: int = 1,
                  concat_heads: bool = True, negative_slope: float = 0.2,
-                 attn_dropout: float = 0.0, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 attn_dropout: float = 0.0, dtype: Optional[torch.dtype] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.num_heads, self.features = num_heads, features
+        self.num_heads, self.features, self.dtype = num_heads, features, dtype
         self.concat_heads = concat_heads
         self.negative_slope = negative_slope
         self.attn_dropout = attn_dropout
@@ -252,25 +259,26 @@ class GATConv(nn.Module):
         mask = torch.rand(shape, generator=generator, device=device) < keep
         return mask.float() / keep
 
-    def _dense_block(self, g, h: torch.Tensor, n_dst: int,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _dense_block(self, g, h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+                     n_dst: int, generator: Optional[torch.Generator]) -> torch.Tensor:
         """Attention on a fanout-dense ``Block``: a softmax over each destination's
-        ``fanout`` slots (masked slots at -1e9 and weight 0), with no segment op."""
+        ``fanout`` slots (masked slots at -1e9 and weight 0), with no segment op, in
+        ``h``'s type."""
         H, F, fo = self.num_heads, self.features, g.fanout
         h = h.reshape(h.shape[0], H, F)
         # per-node score halves, then the slots' (cheaper than per-edge dots)
-        s_src = torch.einsum("nhf,hf->nh", h, self.attn_src)
-        s_dst = torch.einsum("nhf,hf->nh", h, self.attn_dst)
+        s_src = torch.einsum("nhf,hf->nh", h, a_src)
+        s_dst = torch.einsum("nhf,hf->nh", h, a_dst)
         neigh_h = h[n_dst: n_dst * (1 + fo)].reshape(n_dst, fo, H, F)
         s_n = s_src[n_dst: n_dst * (1 + fo)].reshape(n_dst, fo, H)
-        e = nn.functional.leaky_relu(s_dst[:n_dst, None, :] + s_n, self.negative_slope)
+        e = leaky_relu(s_dst[:n_dst, None, :] + s_n, self.negative_slope)
         m = g.neigh_mask[..., None]
         e = torch.where(m, e, -1e9)
         ex = torch.exp(e - e.amax(dim=1, keepdim=True).detach()) * m
         alpha = ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-9)
         mask = self._drop_mask(alpha.shape, h.device, generator)
         if mask is not None:
-            alpha = alpha * mask
+            alpha = alpha * mask.to(alpha.dtype)
         return torch.einsum("nfh,nfhd->nhd", alpha, neigh_h)
 
     def forward(self, g, x: torch.Tensor,
@@ -278,9 +286,10 @@ class GATConv(nn.Module):
         H, F = self.num_heads, self.features
         n_dst = _n_dst(g)
         _require_self_at_head(g, "GATConv")
-        h = self.linear(x)                                   # [n, H*F]
+        h = _dense(self.linear, x, self.dtype)              # [n, H*F]
+        a_src, a_dst = self.attn_src.to(h.dtype), self.attn_dst.to(h.dtype)
         if _is_dense_block(g):
-            out = self._dense_block(g, h, n_dst, generator)
+            out = self._dense_block(g, h, a_src, a_dst, n_dst, generator)
             if self.concat_heads:
                 return out.reshape(n_dst, H * F)
             return out.mean(dim=1)
@@ -290,11 +299,11 @@ class GATConv(nn.Module):
 
             c, ct = layouts
             mask = self._drop_mask((c.src.numel(), H), x.device, generator)
-            out = gat_attention_fused(c, ct, h, self.attn_src, self.attn_dst,
-                                      self.negative_slope, mask)[:n_dst]
+            out = gat_attention_fused(c, ct, h, a_src, a_dst, self.negative_slope,
+                                      mask)[:n_dst]
         else:
             mask = self._drop_mask((g.src.numel(), H), x.device, generator)
-            out = gat_attention_coo(g.src, g.dst, h, self.attn_src, self.attn_dst, n_dst,
+            out = gat_attention_coo(g.src, g.dst, h, a_src, a_dst, n_dst,
                                     self.negative_slope, mask)
         if self.concat_heads:
             return out.reshape(n_dst, H * F)

@@ -78,20 +78,21 @@ class GAT(nn.Module):
     ``n_class``, and ``log_softmax`` ends it (the reference's GAT, ``gatconv.py:
     154-199``). In training mode, dropout ``dropout`` applies to the features before
     each layer and to the attention of the hidden layers, with masks from the
-    generator passed to ``forward``."""
+    generator passed to ``forward``. ``dtype`` is every layer's compute type."""
 
     def __init__(self, in_features: int, hidden: int, n_class: int, num_heads: int = 8,
                  n_layers: int = 2, dropout: float = 0.6, negative_slope: float = 0.2,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         convs = []
         for _ in range(n_layers - 1):
             convs.append(GATConv(in_features, hidden, num_heads, concat_heads=True,
                                  negative_slope=negative_slope, attn_dropout=dropout,
-                                 device=device, generator=generator))
+                                 dtype=dtype, device=device, generator=generator))
             in_features = hidden * num_heads
         convs.append(GATConv(in_features, n_class, 1, concat_heads=False,
-                             negative_slope=negative_slope, device=device,
+                             negative_slope=negative_slope, dtype=dtype, device=device,
                              generator=generator))
         self.convs = nn.ModuleList(convs)
         self.dropout = dropout

@@ -102,7 +102,7 @@ def load_library() -> ctypes.CDLL:
         "dgll_edges_to_rows_sum": [p] * 4 + [i] * 4 + [p] * 5 + [i] * 3 + [p],
         "dgll_edges_to_rows_max": [p] * 4 + [i] * 4 + [p] * 5 + [i] * 3 + [p],
         "dgll_gat_bwd_softmax": [p] * 8 + [i] * 4 + [p] * 5 + [i] * 3 + [p],
-        "dgll_expand_rows": [p, p, p, ll, i, i, p],
+        "dgll_expand_rows": [p, p, p, ll, i, i, i, p],
         "dgll_rows_to_edges_multi": [p, p, p, ll, i, i, i, p],
         "dgll_sddmm": [p, p, p, p, ll, i, i, i, p],
         "dgll_probe_copy": [p, p, ll, p],

@@ -30,10 +30,14 @@ K4 runs on an edge-major mapping whose variant ``edge_plan`` picks: float4 units
 16-byte aligned, else an edge a unit; a thread a unit. K6′ and K10's
 rows-to-edges (``edge_ops.py``) run the same mapping with a gather.
 
+Under bfloat16 the op rounds where the JAX op does: the messages and K1's and K7's
+rows are bfloat16 (K1 accumulates in f32), the scores are computed in bfloat16 and
+widened, and K3-K6 stay float32.
+
 Deviations from the JAX op, none of which changes the math: per-edge arrays are in
-the CSR's edge order (no padding slots), and the per-head products use ``[E, H, F]``
-views (the TPU's rank-2 ``head_proj``/``head_expand`` matrices avoid a tile padding
-the GPU does not have).
+the CSR's edge order (no padding slots), and the per-head products other than the
+scores use ``[E, H, F]`` views (the TPU's rank-2 ``head_expand`` matrix avoids a
+tile padding the GPU does not have).
 """
 from __future__ import annotations
 
@@ -227,18 +231,30 @@ def gat_bwd_softmax_cuda(c: ChunkedCSR, alpha: torch.Tensor, dalpha: torch.Tenso
     return dz, dsd
 
 
+_EXPAND_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def expand_vec(f: int, *tensors: torch.Tensor) -> int:
+    """K7's unit in elements: 16 bytes (4 float32 or 8 bfloat16) where F is a
+    multiple of it and every pointer is 16-byte aligned, else one element."""
+    vec = 16 // tensors[0].element_size()
+    return vec if f % vec == 0 and _aligned(*tensors) else 1
+
+
 def expand_rows_cuda(c: ChunkedCSR, a: torch.Tensor) -> torch.Tensor:
-    """Launch K7 once: ``out[e] = a[row of e]``, ``[nnz, F]``."""
+    """Launch K7 once: ``out[e] = a[row of e]``, ``[nnz, F]``, float32 or bfloat16
+    (a copy: bitwise equal to ``a.index_select(0, c.rows)``)."""
     if a.device.type != "cuda" or a.dim() != 2 or a.shape[0] != c.n_rows:
         raise ValueError(f"a: need a [n_rows={c.n_rows}, F] CUDA tensor, "
                          f"got {tuple(a.shape)} on {a.device}")
+    if a.dtype not in _EXPAND_DTYPES:
+        raise ValueError(f"a: need float32 or bfloat16, got {a.dtype}")
     dev, f = a.device, a.shape[1]
     _check("rows", c.rows, torch.int32, dev, c.src.numel())
-    _check_f32(dev, a.shape, a=a)
-    out = torch.empty((c.src.numel(), f), device=dev)
-    vec = 4 if f % 4 == 0 and a.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
+    _check("a", a, a.dtype, dev)
+    out = torch.empty((c.src.numel(), f), dtype=a.dtype, device=dev)
     _launch("expand_rows", dev, c.rows.data_ptr(), a.data_ptr(), out.data_ptr(),
-            c.src.numel(), f, vec)
+            c.src.numel(), f, _EXPAND_DTYPES[a.dtype], expand_vec(f, a, out))
     return out
 
 
@@ -282,19 +298,35 @@ def expand_rows(c, a):
                      gat_csr.expand_rows_reference, a, c, a)
 
 
+def head_proj(a: torch.Tensor) -> torch.Tensor:
+    """``[H, F] -> [H*F, H]``, block-diagonal: ``x @ head_proj(a)`` is the per-head
+    dot of ``x [., H*F]`` with ``a``, one matrix product with f32 accumulation in
+    ``x``'s type (``dgll_tpu/ops/pallas/gat_fused.py:head_proj``)."""
+    heads, f = a.shape
+    eye = torch.eye(heads, dtype=a.dtype, device=a.device)
+    return (a[:, :, None] * eye[:, None, :]).reshape(heads * f, heads)
+
+
 class _GatFused(torch.autograd.Function):
+    """The rounding points are the JAX op's: the messages ``msg``, ``msg_w`` and
+    ``dmsg`` and the gradient ``g`` are in ``h``'s type (K1 and K7 on bfloat16 under
+    bfloat16), the scores are computed in it and widened, and K3-K6 read and write
+    float32 only. ``a_src`` and ``a_dst`` come in ``h``'s type, and so do their
+    gradients (summed in float32)."""
+
     @staticmethod
     def forward(ctx, h, a_src, a_dst, c, ct, negative_slope, drop_mask):
         heads, f = a_src.shape
         n_in, nnz = h.shape[0], c.src.numel()
         msg = h.index_select(0, c.src)                       # [E, H*F], the one gather
-        sc_src = (msg.view(nnz, heads, f) * a_src).sum(-1)   # [E, H]
-        s_dst = (h.view(n_in, heads, f) * a_dst).sum(-1)     # [n_in, H]
+        sc_src = (msg @ head_proj(a_src)).float()            # [E, H]
+        s_dst = (h @ head_proj(a_dst)).float()               # [n_in, H]
         s_dst = F.pad(s_dst, (0, 0, 0, c.n_rows - n_in))
         m, den = gat_stats(c, sc_src, s_dst, negative_slope)
         alpha, lgrad = gat_alpha(c, sc_src, s_dst, m, den, negative_slope)
         alpha_d = alpha if drop_mask is None else alpha * drop_mask
-        msg_w = (msg.view(nnz, heads, f) * alpha_d[:, :, None]).view(nnz, heads * f)
+        msg_w = (msg.view(nnz, heads, f) * alpha_d.to(h.dtype)[:, :, None]
+                 ).view(nnz, heads * f)
         out = spmm_edges(c, msg_w)
         ctx.c, ctx.ct = c, ct
         ctx.save_for_backward(h, a_src, a_dst, msg, alpha, lgrad, drop_mask)
@@ -305,14 +337,14 @@ class _GatFused(torch.autograd.Function):
         h, a_src, a_dst, msg, alpha, lgrad, drop_mask = ctx.saved_tensors
         c, ct = ctx.c, ctx.ct
         heads, f = a_src.shape
-        n_in, nnz = h.shape[0], msg.shape[0]
+        n_in, nnz, dt = h.shape[0], msg.shape[0], h.dtype
         msg3 = msg.view(nnz, heads, f)
         # the per-edge destination rows of g (K7)
-        g_edges = expand_rows(c, g.reshape(c.n_rows, heads * f).contiguous())
+        g_edges = expand_rows(c, g.to(dt).reshape(c.n_rows, heads * f).contiguous())
         g_edges = g_edges.view(nnz, heads, f)
         alpha_d = alpha if drop_mask is None else alpha * drop_mask
-        dmsg = g_edges * alpha_d[:, :, None]
-        dalpha = (g_edges * msg3).sum(-1)
+        dmsg = g_edges * alpha_d.to(dt)[:, :, None]
+        dalpha = (g_edges * msg3).float().sum(-1)
         del g_edges
         if drop_mask is not None:  # the output used the dropped alpha
             dalpha = dalpha * drop_mask
@@ -320,17 +352,18 @@ class _GatFused(torch.autograd.Function):
         s = edges_to_rows_sum(c, alpha * dalpha)                   # K6
         dz, dsd = gat_bwd_softmax(c, alpha, dalpha, lgrad, s)      # K5
         # score paths: sc_src = <msg, a_src> per head, s_dst = <h, a_dst> per head
-        dmsg = dmsg + dz[:, :, None] * a_src
+        dmsg = dmsg + dz.to(dt)[:, :, None] * a_src
         da_src = (dz[:, :, None] * msg3).sum(0)
         dsd = dsd[:n_in]
-        dh = (dsd[:, :, None] * a_dst).reshape(n_in, heads * f)
+        dh = (dsd.to(dt)[:, :, None] * a_dst).reshape(n_in, heads * f)
         da_dst = (dsd[:, :, None] * h.view(n_in, heads, f)).sum(0)
         # dh += the scatter of dmsg by source: K1 on A^T, reading dmsg in A's order
         dh_msg = spmm_edges(ct, dmsg.view(nnz, heads * f), c.t_slot_perm, backward=True)
         if dh_msg.shape[0] < n_in:  # sources past A^T's row space have no out-edges
             dh_msg = F.pad(dh_msg, (0, 0, 0, n_in - dh_msg.shape[0]))
         dh = dh + dh_msg[:n_in]
-        return dh, da_src, da_dst, None, None, None, None
+        return (dh, da_src.to(a_src.dtype), da_dst.to(a_dst.dtype), None, None, None,
+                None)
 
 
 def gat_attention_fused(c: ChunkedCSR, ct: ChunkedCSR, h: torch.Tensor,
@@ -340,9 +373,10 @@ def gat_attention_fused(c: ChunkedCSR, ct: ChunkedCSR, h: torch.Tensor,
     """Fused multi-head sparse GAT attention, differentiable in ``h``, ``a_src`` and
     ``a_dst``. Returns ``[c.n_rows, H, F]``.
 
-    ``h [n, H*F]`` holds the projected features of a full graph: its rows are both
-    the sources and the destinations, so ``c.n_cols <= n <= c.n_rows``. ``a_src`` and
-    ``a_dst`` are ``[H, F]``. ``c`` is A's layout with ``t_slot_perm`` attached and
+    ``h [n, H*F]`` holds the projected features of a full graph, float32 or
+    bfloat16: its rows are both the sources and the destinations, so ``c.n_cols <= n
+    <= c.n_rows``. ``a_src`` and ``a_dst`` are ``[H, F]``, in ``h``'s type; the
+    output is too. ``c`` is A's layout with ``t_slot_perm`` attached and
     ``ct`` the transpose's (``build_chunked_pair``). ``drop_mask [nnz, H]``, in A's
     edge order, multiplies alpha (attention dropout; the caller scales kept entries
     by ``1/(1-p)``).
@@ -353,6 +387,9 @@ def gat_attention_fused(c: ChunkedCSR, ct: ChunkedCSR, h: torch.Tensor,
                          f"got {tuple(h.shape)}")
     if c.t_slot_perm is None:
         raise ValueError("the layout has no t_slot_perm: build it with build_chunked_pair")
+    if a_src.dtype != h.dtype or a_dst.dtype != h.dtype:
+        raise ValueError(f"a_src, a_dst: need h's type {h.dtype}, "
+                         f"got {a_src.dtype} and {a_dst.dtype}")
     if drop_mask is not None and tuple(drop_mask.shape) != (c.src.numel(), heads):
         raise ValueError(f"drop_mask: need [{c.src.numel()}, {heads}], "
                          f"got {tuple(drop_mask.shape)}")

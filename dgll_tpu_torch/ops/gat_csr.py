@@ -39,8 +39,11 @@ from dgll_tpu_torch.ops.segment import segment_softmax
 NEG = -3.0e38  # the row max of a row without edges, as in the JAX package
 
 
-def _leaky(z: torch.Tensor, slope: float) -> torch.Tensor:
-    return torch.where(z > 0, z, slope * z)
+def leaky_relu(z: torch.Tensor, slope: float) -> torch.Tensor:
+    """LeakyReLU with flax's rule at 0 (``z >= 0`` takes the identity): the value is
+    the same either way, the gradient there is 1. Under bfloat16 scores tie at 0
+    often, and torch's ``leaky_relu`` gives the slope there."""
+    return torch.where(z >= 0, z, slope * z)
 
 
 def gat_stats_reference(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor,
@@ -53,7 +56,7 @@ def gat_stats_reference(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor
     edges gives ``m = NEG`` and ``den = 0``.
     """
     h = sc_src.shape[1]
-    e = _leaky(sc_src + s_dst.index_select(0, c.rows), negative_slope)
+    e = leaky_relu(sc_src + s_dst.index_select(0, c.rows), negative_slope)
     m = sc_src.new_full((c.n_rows, h), NEG)
     m = m.scatter_reduce(0, c.rows.long()[:, None].expand(-1, h), e, "amax")
     ex = torch.exp(e - m.index_select(0, c.rows))
@@ -69,7 +72,7 @@ def gat_alpha_reference(c: ChunkedCSR, sc_src: torch.Tensor, s_dst: torch.Tensor
     1e-16)`` and the LeakyReLU slope factor ``lgrad`` (1 where the score is
     positive, else ``negative_slope``). Both ``[nnz, H]``."""
     z = sc_src + s_dst.index_select(0, c.rows)
-    e = _leaky(z, negative_slope)
+    e = leaky_relu(z, negative_slope)
     inv = 1.0 / torch.clamp_min(den, 1e-16)
     alpha = (torch.exp(torch.clamp_max(e - m.index_select(0, c.rows), 0.0))
              * inv.index_select(0, c.rows))
@@ -123,13 +126,17 @@ def gat_attention_coo(src: torch.Tensor, dst: torch.Tensor, h: torch.Tensor,
                       drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head sparse GAT attention over the edges ``src -> dst``:
     ``[n_dst, H, F]``. ``h [n, H*F]``, ``a_src``/``a_dst [H, F]``, ``drop_mask
-    [E, H]`` in the edges' order multiplies alpha (attention dropout)."""
+    [E, H]`` in the edges' order multiplies alpha (attention dropout).
+
+    The scores and the softmax are in ``h``'s type; the messages are weighted and
+    summed in float32, and the sum is stored in ``h``'s type."""
     heads, f = a_src.shape
     h3 = h.view(h.shape[0], heads, f)
-    z = ((h3 * a_dst).sum(-1).index_select(0, dst)
-         + (h3 * a_src).sum(-1).index_select(0, src))
-    alpha = segment_softmax(_leaky(z, negative_slope), dst, n_dst)   # [E, H]
+    z = (torch.einsum("nhf,hf->nh", h3, a_dst).index_select(0, dst)
+         + torch.einsum("nhf,hf->nh", h3, a_src).index_select(0, src))
+    alpha = segment_softmax(leaky_relu(z, negative_slope), dst, n_dst)   # [E, H]
     if drop_mask is not None:
-        alpha = alpha * drop_mask
-    msg = h3.index_select(0, src) * alpha[:, :, None]
-    return msg.new_zeros((n_dst, heads, f)).index_add(0, dst, msg)
+        alpha = alpha * drop_mask.to(alpha.dtype)
+    msg = h3.index_select(0, src).float() * alpha.float()[:, :, None]
+    out = msg.new_zeros((n_dst, heads, f)).index_add(0, dst, msg)
+    return out.to(h.dtype)

@@ -1,11 +1,14 @@
 """Training CLI: ``python -m dgll_tpu_torch.run --Model GCN|GAT|GraphSAGE|GIN ...``
 
 Counterpart of ``dgll_tpu/run.py``, for the part of it this package has ported, on
-the synthetic dataset and one device: full-batch GCN, GAT, GraphSAGE and GIN
-(``--samp_type full``), and the minibatch paths for all four, with the uniform
-neighbour sampler (``--samp_type neighbor``, the default) or the layer-wise FastGCN
-and LADIES samplers (``--samp_type fastgcn|ladies``, layer sizes from ``--n_samp``
-and ``--samp_growth_rate``, with ``--flatten`` and ``--wrs``). The host path samples
+one device: the synthetic dataset, a saved graph (``--dataset <path>.graph`` or
+``.pkl``, ``data.save_graph``'s pickle) or a planetoid directory (``--dataset
+<dir>/<name>``, ``<name>.content`` and ``<name>.cites``); full-batch GCN, GAT,
+GraphSAGE and GIN (``--samp_type full``), and the minibatch paths for all four, with
+the uniform neighbour sampler (``--samp_type neighbor``, the default) or the
+layer-wise FastGCN and LADIES samplers (``--samp_type fastgcn|ladies``, layer sizes
+from ``--n_samp`` and ``--samp_growth_rate``, with ``--flatten`` and ``--wrs``). The
+host path samples
 on the host, a prefetching ``DataLoader`` moves each batch's blocks to the device and
 ``MiniBatchTrainer`` steps, with the device feature cache (``--cached_nPercent``)
 and the community pipeline (``--n_parts``). The device path (``--device_sampling``)
@@ -14,10 +17,15 @@ and labels on the device and runs ``DeviceEpochRunner``'s epochs, a CUDA-graph
 replay a batch; its neighbour draws are per-slot or ``--window_sampling``, its
 layer-wise draws with replacement (``--wrs`` is the host path's).
 ``--exact_eval`` takes the test accuracy of either minibatch path by exact
-full-graph inference. ``--preprocess`` precomputes each node's neighbour-mean
-features, concatenates them to the raw ones and drops the outermost sampled hop and
-one layer, on either minibatch path. It prints the same JSON keys. Everything else
-raises ``NotImplementedError`` naming the ROADMAP.md item that will port it.
+full-graph inference, on features cast to the compute type. ``--dtype bfloat16``
+sets every model's compute type, GAT's included. ``--checkpoint_dir`` saves the
+trained parameters at step ``epochs + resumed_from`` (``train.CheckpointManager``)
+and ``--resume`` starts from the latest step there, on every branch.
+``--preprocess`` precomputes each node's neighbour-mean features, concatenates them
+to the raw ones and drops the outermost sampled hop and one layer, on either
+minibatch path. It prints the same JSON keys. Data parallelism
+(``--n_devices`` > 1) raises ``NotImplementedError`` naming the ROADMAP.md item that
+will port it.
 
 On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN or GIN
 run attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does:
@@ -38,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import time
 
 import numpy as np
@@ -53,18 +62,12 @@ GAT_KERNEL = "gat_attention_fused"
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration outside the ported slices."""
     todo = "see ROADMAP.md, Queue 1, item"
-    model = cfg.model.upper()
-    if model not in ("GCN", "GAT", "GRAPHSAGE", "SAGE", "GIN"):
+    if cfg.model.upper() not in ("GCN", "GAT", "GRAPHSAGE", "SAGE", "GIN"):
         raise ValueError(f"unknown model {cfg.model!r}")
-    if model == "GAT" and _dtype(cfg) is not None:
-        raise NotImplementedError(f"--dtype {cfg.dtype} with --Model GAT: {todo} 2 "
-                                  "(GAT's bf16 path)")
     if cfg.sampler not in ("full", "neighbor", "fastgcn", "ladies"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     if cfg.n_devices > 1:
         raise NotImplementedError(f"--n_devices {cfg.n_devices}: {todo} 8 (parallel)")
-    if cfg.checkpoint_dir:
-        raise NotImplementedError(f"--checkpoint_dir: {todo} 11 (checkpoints)")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -80,15 +83,25 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_dataset(cfg):
-    from dgll_tpu_torch.data import gcn_normalize, synthetic_classification_graph
-
-    if cfg.dataset != "synthetic":
-        raise NotImplementedError(f"--dataset {cfg.dataset}: see ROADMAP.md, Queue 1, "
-                                  "item 10 (dataset loaders)")
-    g = synthetic_classification_graph(
-        n_node=cfg.n_node, avg_degree=cfg.avg_degree, n_class=cfg.n_class,
-        feat_dim=cfg.feat_dim, power_law=1.0, seed=cfg.seed,
+    """The synthetic graph, a saved graph (a path ending in ``.graph`` or ``.pkl``)
+    or a planetoid directory (``<dir>/<name>``), GCN-normalised."""
+    from dgll_tpu_torch.data import (
+        gcn_normalize,
+        load_graph,
+        load_planetoid,
+        synthetic_classification_graph,
     )
+
+    if cfg.dataset == "synthetic":
+        g = synthetic_classification_graph(
+            n_node=cfg.n_node, avg_degree=cfg.avg_degree, n_class=cfg.n_class,
+            feat_dim=cfg.feat_dim, power_law=1.0, seed=cfg.seed,
+        )
+    elif cfg.dataset.endswith((".graph", ".pkl")):
+        g = load_graph(cfg.dataset)
+    else:
+        path, name = os.path.split(cfg.dataset.rstrip("/"))
+        g = load_planetoid(path or ".", name)
     return gcn_normalize(g)
 
 
@@ -101,7 +114,8 @@ def build_model(cfg, n_class: int, in_features: int, generator=None):
 
     if cfg.model.upper() == "GAT":
         return GAT(in_features, hidden=cfg.nhid, n_class=n_class, num_heads=cfg.n_heads,
-                   n_layers=cfg.n_layers, dropout=cfg.dropout, generator=generator)
+                   n_layers=cfg.n_layers, dropout=cfg.dropout, dtype=_dtype(cfg),
+                   generator=generator)
     if cfg.model.upper() in ("GRAPHSAGE", "SAGE"):
         return GraphSAGE(in_features, hidden=cfg.nhid, n_class=n_class,
                          n_layers=cfg.n_layers, aggregator=cfg.sage_aggregator,
@@ -165,12 +179,37 @@ def make_optimizer(cfg, **options):
     return functools.partial(torch.optim.Adam, lr=cfg.lr, **options)
 
 
+def maybe_restore(cfg, model, extra: dict) -> None:
+    """``--resume``: load the latest checkpointed parameters of ``--checkpoint_dir``
+    into ``model`` in place and record the step as ``extra["resumed_from"]``; nothing
+    without the flags or a saved step (the JAX CLI's ``_maybe_restore_params``)."""
+    if not (cfg.resume and cfg.checkpoint_dir):
+        return
+    from dgll_tpu_torch.train import CheckpointManager
+
+    mgr = CheckpointManager(cfg.checkpoint_dir)
+    step = mgr.latest_step()
+    if step is not None:
+        model.load_state_dict(mgr.restore(model.state_dict(), step))
+        extra["resumed_from"] = int(step)
+    mgr.close()
+
+
 def _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
-                    n_epochs_run):
-    """Shared trial epilogue: the per-dataset headline metric and the result dict."""
+                    n_epochs_run, model):
+    """Shared trial epilogue: the checkpoint of ``model``'s parameters at step
+    ``epochs + resumed_from`` (``--checkpoint_dir``), the per-dataset headline metric
+    and the result dict."""
     from dgll_tpu_torch.train.metrics import metric_for_dataset
 
     total = time.perf_counter() - t_start
+    if cfg.checkpoint_dir:
+        from dgll_tpu_torch.train import CheckpointManager
+
+        mgr = CheckpointManager(cfg.checkpoint_dir)
+        mgr.save(n_epochs_run + (extra.get("resumed_from") or 0), model.state_dict(),
+                 wait=True)
+        mgr.close()
     metric_name = metric_for_dataset(cfg.dataset)
     metric_value = {"acc": test_acc, "f1": f1}.get(metric_name, test_acc)
     return {
@@ -273,15 +312,17 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class:
     (widened by ``--preprocess``) and the labels on the device, each epoch
     ``DeviceEpochRunner``'s (a CUDA-graph replay a batch on a CUDA device), validation
     and test by the device-sampled sweep or, with ``--exact_eval``, the test by exact
-    inference. Returns ``(test_acc, micro_f1, best_val, epochs run)``, with the
-    per-epoch losses and times in ``extra``."""
-    from dgll_tpu_torch.train import GRAPH_ADAM, DeviceEpochRunner, micro_f1
+    inference. Returns ``(test_acc, micro_f1, best_val, epochs run, model)``, the
+    model as trained (``--preprocess`` rebuilds it), with the per-epoch losses and
+    times in ``extra``."""
+    from dgll_tpu_torch.train import GRAPH_ADAM, DeviceEpochRunner, exact_predict, micro_f1
 
     if cfg.n_parts > 1 or cfg.cached_percent > 0:
         raise ValueError("--device_sampling keeps the graph and features in device "
                          "memory; it composes with neither --n_parts nor "
                          "--cached_nPercent (use the host pipeline for those)")
     cfg, g, model = preprocess_features(cfg, g, model, n_class, trial_seed, extra, dev)
+    maybe_restore(cfg, model, extra)
     dgraph, sizes = device_sampling_graph(cfg, g, dev, log)
     opt = make_optimizer(cfg, **(GRAPH_ADAM if dev.type == "cuda" else {}))
     feats, labels = g.node_feat.to(dev), g.labels.to(dev)
@@ -310,7 +351,7 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class:
             break
     test_nodes = g.get_test_nodes().astype(np.int64)
     if cfg.exact_eval:
-        pred = runner.predict_nodes_exact(state, g, feats, test_nodes)
+        pred = exact_predict(state.model, g, feats, test_nodes, _dtype(cfg))
     else:
         pred = runner.predict_nodes(state, feats, test_nodes, seed=trial_seed + 2)
     y = labels_np[test_nodes]
@@ -319,13 +360,13 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class:
     extra["window_sampling"] = bool(cfg.window_sampling)
     extra["exact_eval"] = bool(cfg.exact_eval)
     extra["epoch_loss"], extra["epoch_s"] = losses, secs
-    return test_acc, micro_f1(pred, y), best_val, len(losses)
+    return test_acc, micro_f1(pred, y), best_val, len(losses), model
 
 
 def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class: int,
                         timer, extra: dict, log) -> tuple:
-    """The host minibatch path: ``(test_acc, micro_f1, best_val, epochs run)``, with
-    the per-epoch losses and times and the cache's counters in ``extra``; with
+    """The host minibatch path: ``(test_acc, micro_f1, best_val, epochs run, model)``,
+    with the per-epoch losses and times and the cache's counters in ``extra``; with
     ``--exact_eval`` the test is by exact inference."""
     from dgll_tpu_torch.dataloader import DataLoader
     from dgll_tpu_torch.sampling import CommunityNeighborSampler
@@ -333,6 +374,7 @@ def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_cla
 
     cfg, g, model, book, cache, fetch = prepare_pipeline(cfg, g, model, n_class,
                                                          trial_seed, timer, extra, dev, log)
+    maybe_restore(cfg, model, extra)
     sampler = build_sampler(cfg, g)
     train_nodes = g.get_train_nodes()
     if book is not None:
@@ -381,7 +423,7 @@ def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_cla
     if cfg.exact_eval:
         test_nodes = g.get_test_nodes().astype(np.int64)
         pred = exact_predict(state.model, g, g.node_feat.to(dev) if feats is None
-                             else feats, test_nodes)
+                             else feats, test_nodes, _dtype(cfg))
         y = g.labels.numpy()[test_nodes]
         extra["exact_eval"] = True
     else:
@@ -395,7 +437,7 @@ def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_cla
         extra["cache_lookups"] = int(lookups)
         extra["cached_rows"] = int(cache.k)
     extra["epoch_loss"], extra["epoch_s"] = losses, secs
-    return test_acc, micro_f1(pred, y), best_val, len(losses)
+    return test_acc, micro_f1(pred, y), best_val, len(losses), model
 
 
 def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
@@ -413,13 +455,14 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     extra: dict = {}
     if cfg.sampler != "full":
         trial = run_device_trial if cfg.device_sampling else run_minibatch_trial
-        test_acc, f1, best_val, n_epochs = trial(cfg, g, trial_seed, dev, model, n_class,
-                                                 timer, extra, log)
+        test_acc, f1, best_val, n_epochs, model = trial(cfg, g, trial_seed, dev, model,
+                                                        n_class, timer, extra, log)
         return _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
-                               n_epochs)
+                               n_epochs, model)
     if dev.type == "cuda":
         g, extra = attach_kernel_layouts(cfg, g)
     g = g.to(dev)
+    maybe_restore(cfg, model, extra)
 
     tr = FullBatchTrainer(model, make_optimizer(cfg), seed=trial_seed, device=dev)
     with timer.phase("train"):
@@ -434,7 +477,7 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     extra["epoch_loss"] = [e.loss for e in hist.epochs]
     extra["epoch_s"] = [e.seconds for e in hist.epochs]
     return _finalize_trial(cfg, timer, t_start, extra, test_acc, f1,
-                           hist.best_val, len(hist.epochs))
+                           hist.best_val, len(hist.epochs), state.model)
 
 
 def main(argv=None) -> dict:
@@ -443,7 +486,7 @@ def main(argv=None) -> dict:
     cfg = parse_train_config(argv)
     check_supported(cfg)
     dev = resolve_device(cfg.device)
-    g = build_dataset(cfg)  # raises for a dataset other than the synthetic one
+    g = build_dataset(cfg)
     results = [run_trial(cfg, g, cfg.seed + t, dev) for t in range(cfg.n_trial)]
     agg = {
         k: {

@@ -125,12 +125,14 @@ def padded_seeds(nodes, batch_size: int):
 
 
 def make_device_eval_fn(model: torch.nn.Module, fanouts: Sequence[int], batch_size: int,
-                        n_batches: int, window: bool = False, sampler: str = "neighbor"):
+                        n_batches: int, window: bool = False, sampler: str = "neighbor",
+                        feat_dtype: Optional[torch.dtype] = None):
     """Sampled evaluation sweep: ``evaluate(csr, feats, seeds, seed_mask,
     generator=None, draws=None) -> (pred int32 [total], valid bool [total])``, each
     batch sampled on the device (from ``generator``, or from ``draws[i]``, batch
-    ``i``'s per-layer uniforms) and the model applied in eval mode. Eager, one batch
-    after the other, and deterministic given the generator's seed."""
+    ``i``'s per-layer uniforms), its gathered features cast to ``feat_dtype`` where
+    given, and the model applied in eval mode. Eager, one batch after the other, and
+    deterministic given the generator's seed."""
     sample_fn = make_sample_fn(fanouts, window, sampler)
     b = int(batch_size)
 
@@ -145,6 +147,8 @@ def make_device_eval_fn(model: torch.nn.Module, fanouts: Sequence[int], batch_si
                                          seed_mask[i * b:(i + 1) * b], generator,
                                          None if draws is None else draws[i])
                 x = feats.index_select(0, blocks[0].src_ids)
+                if feat_dtype is not None:
+                    x = x.to(feat_dtype)
                 preds.append(model(blocks, x).argmax(-1).to(torch.int32))
                 valid.append(blocks[-1].dst_mask)
         finally:
@@ -173,15 +177,19 @@ class DeviceEpochRunner:
     rows; ``optimizer`` is a factory taking the parameters. Dropout masks and the
     epochs' draws come from the runner's generator (``seed``). ``cuda_graph``: replay
     a captured step (the default on a CUDA device) or run the eager step; the CPU
-    runs the eager step only.
+    runs the eager step only. ``feat_dtype`` (the model's compute type, e.g.
+    bfloat16): each batch's gathered features, and exact inference's, are cast to it
+    before the model, as the JAX runner's ``feat_dtype`` does.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer: Callable, csr,
                  fanouts: Sequence[int], batch_size: int, train_nodes,
                  loss_fn: Callable = masked_nll_loss, seed: int = 0,
                  window: bool = False, sampler: str = "neighbor",
-                 cuda_graph: Optional[bool] = None):
+                 cuda_graph: Optional[bool] = None,
+                 feat_dtype: Optional[torch.dtype] = None):
         self.model, self.optimizer, self.csr = model, optimizer, csr
+        self.feat_dtype = feat_dtype
         self.device = csr.device
         self.fanouts = [int(f) for f in fanouts]
         self.batch_size = int(batch_size)
@@ -230,6 +238,8 @@ class DeviceEpochRunner:
                                       draws=[_pick(u, i) for u in self._draws])
         mark(1)
         x = feats.index_select(0, blocks[0].src_ids)
+        if self.feat_dtype is not None:
+            x = x.to(self.feat_dtype)
         y = labels.index_select(0, blocks[-1].dst_ids)
         mark(2)
         loss = self.loss_fn(state.model(blocks, x, generator=self.generator), y,
@@ -238,7 +248,7 @@ class DeviceEpochRunner:
         loss.backward()
         mark(4)
         state.optimizer.step()
-        self.batch_losses.index_copy_(0, i, loss.detach().view(1))
+        self.batch_losses.index_copy_(0, i, loss.detach().float().view(1))
         i.add_(1)
         mark(5)
 
@@ -308,7 +318,7 @@ class DeviceEpochRunner:
         if n_batches not in self._eval_cache:
             self._eval_cache[n_batches] = make_device_eval_fn(
                 self.model, self.fanouts, self.batch_size, n_batches, self.window,
-                self.sampler)
+                self.sampler, self.feat_dtype)
         return self._eval_cache[n_batches]
 
     def predict_nodes(self, state: TrainState, feats, nodes, seed: int = 0,
@@ -333,11 +343,11 @@ class DeviceEpochRunner:
 
     def predict_nodes_exact(self, state: TrainState, graph, feats, nodes) -> np.ndarray:
         """Predictions with no sampling noise: one full-graph forward with the
-        trained parameters (``train/exact_infer.py``); ``graph`` is the full
-        ``Graph``."""
+        trained parameters (``train/exact_infer.py``), the features cast to the
+        runner's ``feat_dtype``; ``graph`` is the full ``Graph``."""
         from dgll_tpu_torch.train.exact_infer import exact_predict
 
-        return exact_predict(state.model, graph, feats, nodes)
+        return exact_predict(state.model, graph, feats, nodes, self.feat_dtype)
 
     def evaluate_nodes_exact(self, state: TrainState, graph, feats, labels_np,
                              nodes) -> float:

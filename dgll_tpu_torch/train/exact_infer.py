@@ -24,10 +24,16 @@ def _uses_kernels(model: torch.nn.Module) -> bool:
     return any(isinstance(m, (GCNConv, GATConv, GINConv)) for m in model.modules())
 
 
-def exact_logits(model: torch.nn.Module, graph, feats: torch.Tensor) -> torch.Tensor:
+def exact_logits(model: torch.nn.Module, graph, feats: torch.Tensor,
+                 feat_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Log-probabilities ``[n_node, C]`` of one full-graph forward on ``feats``'s
-    device, the graph moved there without its features, labels and masks."""
+    device, the graph moved there without its features, labels and masks.
+    ``feat_dtype`` (the model's compute type, e.g. bfloat16) casts the features
+    first, as the JAX package does: GraphSAGE and GIN aggregate them before their
+    first ``Dense`` casts."""
     dev = feats.device
+    if feat_dtype is not None:
+        feats = feats.to(feat_dtype)
     g = graph.replace(node_feat=None, labels=None, train_mask=None, val_mask=None,
                       test_mask=None)
     if dev.type != "cpu" and g.chunked is None and _uses_kernels(model):
@@ -43,10 +49,11 @@ def exact_logits(model: torch.nn.Module, graph, feats: torch.Tensor) -> torch.Te
 
 
 def exact_predict(model: torch.nn.Module, graph, feats: torch.Tensor,
-                  nodes: Optional[np.ndarray] = None) -> np.ndarray:
+                  nodes: Optional[np.ndarray] = None,
+                  feat_dtype: Optional[torch.dtype] = None) -> np.ndarray:
     """Argmax class of each node of ``nodes`` (default: every real node) by the
     exact full-graph forward, as an int32 numpy array."""
-    logp = exact_logits(model, graph, feats)
+    logp = exact_logits(model, graph, feats, feat_dtype)
     pred = logp.argmax(-1).to(torch.int32).cpu().numpy()[: graph.n_real_node]
     if nodes is None:
         return pred
@@ -54,10 +61,10 @@ def exact_predict(model: torch.nn.Module, graph, feats: torch.Tensor,
 
 
 def exact_accuracy(model: torch.nn.Module, graph, feats: torch.Tensor, labels_np,
-                   nodes) -> float:
+                   nodes, feat_dtype: Optional[torch.dtype] = None) -> float:
     """Accuracy over ``nodes`` through exact inference."""
     nodes = np.asarray(nodes, np.int64)
     if len(nodes) == 0:
         return 0.0
-    pred = exact_predict(model, graph, feats, nodes)
+    pred = exact_predict(model, graph, feats, nodes, feat_dtype)
     return float((pred == np.asarray(labels_np)[nodes]).mean())

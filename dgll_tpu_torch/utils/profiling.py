@@ -1,10 +1,13 @@
-"""Phase timing. Counterpart of ``dgll_tpu/utils/profiling.py:PhaseTimer``: named
-wall-clock phases, each also a ``torch.profiler.record_function`` range, so that a
-profiler trace shows the same phases."""
+"""Phase timing and device traces. Counterpart of ``dgll_tpu/utils/profiling.py``:
+``PhaseTimer``'s named wall-clock phases, each also a
+``torch.profiler.record_function`` range, so that a profiler trace shows the same
+phases; ``device_trace``, a ``torch.profiler`` trace written to a directory (the JAX
+package's ``jax.profiler`` trace)."""
 from __future__ import annotations
 
 import contextlib
 import csv
+import os
 import statistics
 import time
 from collections import defaultdict
@@ -73,3 +76,19 @@ class PhaseTimer:
                 f"{self.mean(k)*1e3:9.3f}"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block on the host and, where CUDA is available, on the device,
+    and write a Chrome trace (``trace_<pid>_<ns>.json``, readable by Perfetto or
+    ``chrome://tracing``) into ``log_dir``, which is created. Yields the profiler,
+    whose ``key_averages()`` the caller may read after the block."""
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -11,7 +11,9 @@ the per-epoch losses within 1e-4 and the parameters within 1e-5 (float32, sums i
 another order, two epochs of Adam). The eval sweep's predictions equal the JAX
 package's wherever its logits' top-two margin exceeds 1e-4; exact inference's equal
 it everywhere, their log-probabilities within 1e-5; the dense-block ``GATConv``'s
-output and gradients within 1e-5.
+output and gradients within 1e-5. Under bfloat16 (both runners given it as
+``feat_dtype``): GraphSAGE's exact log-probabilities within 1e-2 x max|ref| and an
+epoch's loss within 1e-2, relative (bf16's 8 significant bits, sums in other orders).
 """
 import functools
 
@@ -228,6 +230,57 @@ def test_exact_inference_matches_jax(data, name):
     acc = exact_accuracy(state_t.model, gt, gt.node_feat, labels, nodes)
     assert acc == float((want[nodes] == labels[nodes]).mean()) == \
         rt.evaluate_nodes_exact(state_t, gt, gt.node_feat, labels, nodes)
+
+
+def test_runner_exact_inference_in_bf16_matches_jax(data):
+    """Both runners given bfloat16 as ``feat_dtype``: GraphSAGE aggregates the cast
+    features before its first ``Dense``. Log-probabilities within 1e-2 x max|ref|
+    (bf16 keeps 8 significant bits; the packages sum in other orders), predictions
+    equal wherever the JAX top-two margin exceeds twice that; an epoch's mean loss
+    within 1e-2 of JAX's, relative."""
+    from dgll_tpu.train.exact_infer import make_exact_logits_fn
+
+    from dgll_tpu_torch.train.exact_infer import exact_logits
+
+    gt, gj, ct, cj = data
+    mj = JaxGraphSAGE(hidden=16, n_class=4, dropout=0.0, dtype=jnp.bfloat16)
+    mt = GraphSAGE(16, 16, 4, dropout=0.0, dtype=torch.bfloat16)
+    rj = JaxRunner(mj, optax.adam(1e-2), cj, FANOUTS, BATCH, gj.get_train_nodes(), seed=0,
+                   feat_dtype=jnp.bfloat16)
+    state_j = rj.init_state(jnp.asarray(gj.node_feat))
+    mt.load_state_dict(params_from_flax(_np(state_j.params)))
+    rt = DeviceEpochRunner(mt, functools.partial(torch.optim.Adam, lr=1e-2), ct, FANOUTS,
+                           BATCH, gt.get_train_nodes(), feat_dtype=torch.bfloat16)
+    state_t = rt.init_state(gt.node_feat)
+    gjd = jax.tree.map(jnp.asarray, gj)
+    nodes = gt.get_test_nodes()
+    want = rj.predict_nodes_exact(state_j, gjd, gjd.node_feat, nodes)
+    logp = np.asarray(make_exact_logits_fn(mj.apply, jnp.bfloat16)(
+        state_j.params, gjd, gjd.node_feat).astype(jnp.float32))
+    got_logp = exact_logits(state_t.model, gt, gt.node_feat, feat_dtype=torch.bfloat16)
+    assert got_logp.dtype == torch.bfloat16
+    tol = 1e-2 * np.abs(logp).max()
+    np.testing.assert_allclose(got_logp.float().numpy(), logp, rtol=0, atol=tol)
+    got = rt.predict_nodes_exact(state_t, gt, gt.node_feat, nodes)
+    top2 = np.sort(logp[nodes], -1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * tol
+    assert got.shape == want.shape and clear.mean() > 0.5
+    np.testing.assert_array_equal(got[clear], np.asarray(want)[clear])
+    np.testing.assert_array_equal(
+        got, exact_predict(state_t.model, gt, gt.node_feat, nodes, torch.bfloat16))
+    labels = gt.labels.numpy()
+    assert rt.evaluate_nodes_exact(state_t, gt, gt.node_feat, labels, nodes) == \
+        float((got == labels[nodes]).mean())
+    # an epoch on the JAX runner's draws: the batches' features cast as JAX's are
+    key = jax.random.split(rj.rng)[1]
+    draws = jax_epoch_draws(key, rj.n_batches, False)
+    _, loss_j = rj.run_epoch(state_j, jnp.asarray(gj.node_feat), jnp.asarray(gj.labels))
+    seen = []
+    hook = mt.register_forward_pre_hook(lambda m, args: seen.append(args[1].dtype))
+    _, loss_t = rt.run_epoch(state_t, gt.node_feat, gt.labels, draws=draws)
+    hook.remove()
+    assert len(seen) == rt.n_batches and set(seen) == {torch.bfloat16}
+    _close(float(loss_t), float(loss_j), 1e-2 * abs(float(loss_j)), "bf16 epoch loss")
 
 
 def _block_pair(data, seed=0):

@@ -117,7 +117,7 @@ def split_rows(sp):
 def stats_split(c, sp, sc_src, s_dst):
     """K3 as the kernel computes it: ``(m, den)``."""
     h = sc_src.shape[1]
-    e = gat_csr._leaky(sc_src + s_dst.index_select(0, c.rows), SLOPE)
+    e = gat_csr.leaky_relu(sc_src + s_dst.index_select(0, c.rows), SLOPE)
     m, den = torch.empty(c.n_rows, h), torch.empty(c.n_rows, h)
     m_seg, den_seg = torch.empty(sp.n_seg, h), torch.empty(sp.n_seg, h)
     for seg, row, b, end in items(c, sp):

@@ -9,8 +9,11 @@ trains GraphSAGE for two epochs on the CLI's host minibatch path with the featur
 cache, fills and fetches from the int8 cache, samples blocks on the device sampler
 and runs one epoch of ``DeviceEpochRunner``, one packed epoch in groups of 2, one
 epoch of ``PipelinedTrainer``, a ``--preprocess`` run of the CLI, the CLI's device
-LADIES and host FastGCN GIN runs and a GIN graph classifier's forward, and runs the
-probe tool on the CPU. No
+LADIES and host FastGCN GIN runs and a GIN graph classifier's forward, runs the
+probe tool on the CPU, saves and loads a graph, trains bfloat16 GAT on it through
+the CLI with a checkpoint and resumes from it, each run inside ``device_trace``, and
+runs the GIN graph-classification example. Every module of the package is imported,
+``examples`` included. No
 source file of the package imports them either, and none names a path inside the JAX
 package: the port reads no file of it. ``chip_smoke.py`` refuses to run, and prints
 no result, without a CUDA device.
@@ -111,6 +114,25 @@ assert GIN(8, 8, 2, pooling=("sum", "max"))(gb, gb.node_feat, gid, 6).shape == (
 from dgll_tpu_torch.tools import probe
 res = probe.main(["--device", "cpu"])
 assert res["p4_row_dma"]["ms"] > 0, res
+import tempfile
+from dgll_tpu_torch.data import load_graph, save_graph, synthetic_classification_graph
+from dgll_tpu_torch.examples import graph_classification_gin
+from dgll_tpu_torch.utils import device_trace
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "g.graph")
+    save_graph(synthetic_classification_graph(n_node=300, feat_dim=8, seed=1), path)
+    assert load_graph(path).n_real_node == 300
+    ckpt = os.path.join(tmp, "ckpt")
+    for resume in ([], ["--resume"]):
+        with device_trace(os.path.join(tmp, "trace")):
+            out = main(["--Model", "GAT", "--samp_type", "full", "--dtype", "bfloat16",
+                        "--dataset", path, "--device", "cpu", "--n_epochs", "1",
+                        "--nhid", "4", "--n_heads", "2", "--checkpoint_dir", ckpt,
+                        *resume])
+    assert out["trials"][0]["resumed_from"] == 1, out
+    assert os.listdir(os.path.join(tmp, "trace"))
+out = graph_classification_gin.main(["--device", "cpu", "--epochs", "2", "--n_graph", "16"])
+assert np.isfinite(out["loss"]), out
 print("NOJAX_OK")
 """
 

@@ -101,16 +101,10 @@ def test_cli_prints_the_jax_cli_keys(capsys):
 
 @pytest.mark.parametrize("args", [
     ["--samp_type", "fastgcn", "--device_sampling", "--n_devices", "2"],
-    ["--samp_type", "fastgcn", "--dataset", "cora.graph"],
-    ["--samp_type", "ladies", "--checkpoint_dir", "ckpt"],
     ["--samp_type", "neighbor", "--Model", "GIN", "--n_devices", "2"],
     ["--samp_type", "neighbor", "--n_devices", "2"],
-    ["--samp_type", "ladies", "--device_sampling", "--dataset", "cora.graph"],
-    ["--samp_type", "full", "--Model", "GIN", "--checkpoint_dir", "ckpt"],
     ["--samp_type", "full", "--n_devices", "2"],
-    ["--samp_type", "full", "--checkpoint_dir", "ckpt"],
-    ["--samp_type", "full", "--dataset", "cora.graph"],
 ])
 def test_cli_raises_outside_the_slice(args):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 8"):
         torch_run.main(args + ["--device", "cpu"])
