@@ -2603,18 +2603,77 @@ def _preprocess_cli() -> dict:
     return out
 
 
+CAPTURE_TRIES = 5  # captures of a step beside a thread that pins, allocates and copies
+
+
+def _capture_beside_producers() -> dict:
+    """``CAPTURE_TRIES`` steps captured as CUDA graphs while another thread does what
+    a loader's producers do (``PinnedRing.copy`` of a new length each time: a new
+    pinned buffer, an allocation on the card, a copy, an event): every capture must
+    hold and the thread must see no error. In CUDA's global capture mode such a call
+    from another thread invalidates the capture, depending on when it lands."""
+    import threading
+
+    from dgll_tpu_torch.dataloader.dataloader import PinnedRing
+    from dgll_tpu_torch.train.cuda_graph import GRAPH_ADAM, GraphedStep
+    from dgll_tpu_torch.train.trainer import TrainState
+
+    dev = torch.device("cuda")
+    ring, stop, errors, copies = PinnedRing(4), threading.Event(), [], [0]
+
+    def producer():
+        rng = np.random.default_rng(0)
+        try:
+            while not stop.is_set():
+                n = int(rng.integers(1, 1 << 16))
+                ring.copy([rng.standard_normal(n, dtype=np.float32)], dev)
+                copies[0] += 1
+        except Exception as e:  # reported by the check below
+            errors.append(repr(e))
+
+    def body(state, generator, inputs):
+        (x,) = inputs
+        loss = state.model(x).square().mean()
+        loss.backward()
+        state.optimizer.step()
+        return (loss,)
+
+    thread = threading.Thread(target=producer)
+    thread.start()
+    losses = []
+    try:
+        while not copies[0] and not errors:
+            time.sleep(1e-3)
+        for i in range(CAPTURE_TRIES):
+            model = torch.nn.Linear(256, 256).to(dev)
+            state = TrainState(model, torch.optim.Adam(model.parameters(), **GRAPH_ADAM))
+            x = torch.ones(1024, 256, device=dev)
+            (loss,) = GraphedStep(body, True)(state, torch.Generator(dev).manual_seed(i), (x,))
+            losses.append(loss.item())
+    finally:
+        stop.set()
+        thread.join()
+    check(not errors, f"the producer thread saw no error, got {errors}")
+    check(all(np.isfinite(losses)), f"finite losses from the replays, got {losses}")
+    print(f"[21 capture] {CAPTURE_TRIES} captures held beside a thread that made "
+          f"{copies[0]} pinned copies meanwhile")
+    return {"captures": CAPTURE_TRIES, "producer_copies": copies[0]}
+
+
 def phase_host_packed(data) -> dict:
     """Phase 21: the packed host pipeline on the headline bench's data (2.4M nodes,
-    shared with phase 20): the packed step's graph against its eager step and groups
-    against single steps (``_packed_checks``), the runs of ``HOST_RUNS`` in turns and
-    one packed epoch profiled (``_host_turns``); then, on the slices' graph,
+    shared with phase 20): captures beside a producer thread
+    (``_capture_beside_producers``), the packed step's graph against its eager step
+    and groups against single steps (``_packed_checks``), the runs of ``HOST_RUNS`` in
+    turns and one packed epoch profiled (``_host_turns``); then, on the slices' graph,
     ``PipelinedTrainer`` with the cache, ``fused_gcn_layer`` against the CPU and the
     CLI's ``--preprocess`` runs."""
     from dgll_tpu_torch.sampling import HostGraph
 
     t0 = time.perf_counter()
     hg = HostGraph(data.indptr, data.src, data.n_node)
-    result = {"checks": _packed_checks(data, hg), "turns": _host_turns(data, hg)}
+    result = {"capture_beside_producers": _capture_beside_producers(),
+              "checks": _packed_checks(data, hg), "turns": _host_turns(data, hg)}
     del hg
     result["pipelined"] = _pipelined_trainer()
     result["fused_gcn"] = _fused_gcn()
@@ -3189,6 +3248,314 @@ def phase_bf16(f32: dict) -> dict:
     return {"kernels": kernels, "cli": cli, "files": files}
 
 
+# phase 24: data parallel and graph-partition parallel, two ranks sharing the card over
+# gloo (launch_local); the ranks read their inputs from files under build/
+PAR_DIR = os.path.join("build", "phase24")
+PAR_RANKS = 2
+PAR_BATCH = 512        # a rank's sub-batch: the flagship's 1,024 a global batch
+PAR_TOL = 1e-5         # the ranks' parameters against one process, x max|ref|
+PAR_GP_TOL = 1e-4      # the GP logits and step against one process: K1's f32 bar
+PAR_GP_LR = 0.1        # one SGD step: the step's parameters are linear in its gradients
+PAR_GP_STEPS = 5       # timed steps of the GP GCN after the checked one
+PAR_CLI_RUNS = (("sync", ["--Model", "GraphSAGE"]),
+                ("async", ["--Model", "GraphSAGE", "--async_dp"]),
+                ("device sampling", ["--Model", "GraphSAGE", "--device_sampling"]))
+# the keys of the JAX CLI's data-parallel trials (dgll_tpu/run.py:_run_dp_trial)
+JAX_DP_KEYS = {"test_acc", "micro_f1", "metric_name", "metric", "best_val", "epochs",
+               "train_s", "total_s", "n_devices", "async_dp", "resumed_from"}
+JAX_DP_DEVICE_KEYS = JAX_DP_KEYS | {"device_sampling", "window_sampling", "exact_eval"}
+K1_SHARD = ("spmm_csr (K1) on a rank's shard of A, [rows, n_node] (graph-partition "
+            "GCN's sharded SpMM)")
+
+
+def _dp_runner(csr, train_nodes, mesh, cuda_graph=None, time_collective=False):
+    """``(runner, state)``: the flagship's GraphSAGE (weights from the bench's seed,
+    dropout 0) and Adam (capturable, fused) in a ``DeviceDPEpochRunner`` of
+    ``PAR_BATCH`` seeds a rank, block-window draws, as the bench's."""
+    from dgll_tpu_torch import bench
+    from dgll_tpu_torch.nn import GraphSAGE
+    from dgll_tpu_torch.train import GRAPH_ADAM, DeviceDPEpochRunner
+
+    model = GraphSAGE(bench.SAGE_FEAT, bench.SAGE_HIDDEN, bench.SAGE_CLASSES, dropout=0.0,
+                      generator=torch.Generator().manual_seed(bench.SEED))
+    runner = DeviceDPEpochRunner(
+        model, functools.partial(torch.optim.Adam, lr=1e-3, **GRAPH_ADAM), csr,
+        bench.FANOUTS, PAR_BATCH, train_nodes, mesh, seed=bench.SEED, window=True,
+        cuda_graph=cuda_graph, time_collective=time_collective)
+    return runner, runner.init_state()
+
+
+def _gp_apply(model, spmm, x, generator=None):
+    """The graph-partition GCN: two layers, ReLU between, log-softmax."""
+    h = torch.relu(spmm(x @ model["w1"]))
+    return torch.log_softmax(spmm(h @ model["w2"]), dim=-1)
+
+
+def _gp_model(weights):
+    return torch.nn.ParameterDict({k: torch.from_numpy(v) for k, v in weights.items()}
+                                  ).to("cuda")
+
+
+def _phase24_rank(work: str) -> int:
+    """One rank of phase 24 (started by ``launch_local``): (a) one device-DP epoch of
+    the flagship (its parameters saved for the check), then one timed with the
+    all-reduce's CUDA events; (b) the GP GCN on this rank's shard: its log-probs and
+    one SGD step (K1's launches counted from 0), then ``PAR_GP_STEPS`` timed steps."""
+    from dgll_tpu_torch.ops.cuda import segment_matmul as sm
+    from dgll_tpu_torch.parallel import gp, launch
+    from dgll_tpu_torch.parallel import mesh as meshes
+    from dgll_tpu_torch.parallel.partition import PartitionedGraph
+    from dgll_tpu_torch.sampling import DeviceCSR
+    from dgll_tpu_torch.train import create_train_state
+
+    launch.initialize_distributed(device="cuda")
+    mesh = meshes.make_mesh()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"backend": mesh.backend, "device": str(dev)}
+    d = torch.load(os.path.join(work, "flagship.pt"), weights_only=False)
+    csr = DeviceCSR.from_host_arrays(d["indptr"], d["src"], dev)
+    feats, labels = d["feats"].to(dev), d["labels"].to(dev)
+    runner, state = _dp_runner(csr, d["train_nodes"], mesh, time_collective=True)
+    t0 = time.perf_counter()
+    state, loss = runner.run_epoch(state, feats, labels)  # the draws: draw_epoch's
+    out["first_epoch_s"] = time.perf_counter() - t0
+    out["params"] = [p.detach().cpu() for p in state.model.parameters()]
+    out["batch_losses"] = runner.batch_losses.cpu()
+    t0 = time.perf_counter()
+    _, loss = runner.run_epoch(state, feats, labels)
+    float(loss)
+    out["epoch_s"] = time.perf_counter() - t0
+    out["n_batches"] = runner.n_batches
+    out["collective_ms"] = runner.collective_ms()
+    del runner, state, csr, feats, labels, d
+    torch.cuda.empty_cache()
+
+    p = torch.load(os.path.join(work, "gp.pt"), weights_only=False)
+    shard = gp.shard_partitioned_graph(PartitionedGraph(**p["pg"]), mesh, dev)
+    model = _gp_model(p["weights"])
+    gp_state = create_train_state(model, functools.partial(torch.optim.SGD, lr=PAR_GP_LR))
+    step = gp.make_gp_gcn_train_step(mesh, shard, _gp_apply)
+    spmm = gp.make_sharded_spmm(mesh, shard)
+    sm.launches_fwd = sm.launches_bwd = 0
+    with torch.no_grad():
+        out["logits"] = _gp_apply(model, spmm, shard.node_feat).cpu()
+    gp_state, loss = step(gp_state, shard.node_feat, shard.labels, shard.train_mask)
+    out["gp_loss"] = float(loss)
+    out["k1_launches"] = (sm.launches_fwd, sm.launches_bwd)
+    out["gp_params"] = {k: v.detach().cpu() for k, v in model.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_GP_STEPS):
+        gp_state, loss = step(gp_state, shard.node_feat, shard.labels, shard.train_mask)
+    float(loss)  # waits for the last step
+    out["gp_step_s"] = (time.perf_counter() - t0) / PAR_GP_STEPS
+    out["rows"] = shard.rows_per_shard
+    torch.save(out, os.path.join(work, f"rank{mesh.rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _dp_reference(data, ranks) -> None:
+    """(a)'s check: one process runs both ranks' sub-batches of every batch, with the
+    ranks' draws (their runners' generators, seeded alike), sums their gradients as
+    the ranks' all-reduce does, and takes the step; its parameters against every
+    rank's, within ``PAR_TOL`` x max|ref|."""
+    from dgll_tpu_torch.parallel.mesh import Mesh
+    from dgll_tpu_torch.train import masked_nll_loss
+
+    runners = [_dp_runner(data.csr, data.train_nodes, Mesh(("data",), PAR_RANKS, r),
+                          cuda_graph=False) for r in range(PAR_RANKS)]
+    for runner, _ in runners:
+        runner.load_epoch(runner.draw_epoch())
+    runner0, state = runners[0]
+    model = state.model
+    for i in range(runner0.n_batches):
+        state.optimizer.zero_grad(set_to_none=True)
+        for runner, _ in runners:
+            draws = [tuple(t[i] for t in u) if isinstance(u, tuple) else u[i]
+                     for u in runner._draws]
+            _, _, blocks = runner.sample_fn(runner.csr, runner._seeds[i], runner._mask[i],
+                                            draws=draws)
+            x = data.feats.index_select(0, blocks[0].src_ids)
+            y = data.labels.index_select(0, blocks[-1].dst_ids)
+            loss = masked_nll_loss(model(blocks, x), y, blocks[-1].dst_mask)
+            loss.backward()  # accumulates: the ranks' gradients summed
+        state.optimizer.step()
+    want = [p.detach().cpu() for p in model.parameters()]
+    for r, got in enumerate(ranks):
+        for k, (g, w) in enumerate(zip(got["params"], want)):
+            err = (g - w).abs().max().item()
+            check(err <= PAR_TOL * w.abs().max().item(),
+                  f"DP epoch rank {r}: parameter {k} within {PAR_TOL} x max|ref| of one "
+                  f"process (err {err:.3e})")
+    for k, (a, b) in enumerate(zip(ranks[0]["params"], ranks[1]["params"])):
+        check(torch.equal(a, b), f"DP epoch: the ranks' parameter {k} bitwise equal")
+
+
+def _gp_reference(pg, weights, ranks) -> dict:
+    """(b)'s check: the one-process K1 GCN on the whole (relabelled) graph; the ranks'
+    log-probs (stacked) and their parameters after one SGD step against it."""
+    from dgll_tpu_torch.ops import build_chunked_pair
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
+    from dgll_tpu_torch.train import masked_nll_loss
+
+    # the shards' real edges (weight 0 is padding), back in one relabelled graph
+    keep = pg.edge_weight != 0
+    dst = pg.dst_local + (np.arange(pg.n_shard) * pg.rows_per_shard)[:, None]
+    c, ct = build_chunked_pair(pg.src[keep], dst[keep], pg.n_node, pg.n_node,
+                               pg.edge_weight[keep])
+    c, ct = c.to("cuda"), ct.to("cuda")
+    n = pg.n_node
+
+    def spmm(x):
+        return spmm_chunked(c, ct, x)[:n]
+
+    model = _gp_model(weights)
+    x = torch.from_numpy(pg.node_feat).cuda()
+    with torch.no_grad():
+        want = _gp_apply(model, spmm, x).cpu()
+    got = torch.cat([r["logits"] for r in ranks])
+    err = (got - want).abs().max().item()
+    check(err <= PAR_GP_TOL * want.abs().max().item(),
+          f"GP log-probs within {PAR_GP_TOL} x max|ref| of one process (err {err:.3e})")
+    opt = torch.optim.SGD(model.parameters(), lr=PAR_GP_LR)
+    loss = masked_nll_loss(_gp_apply(model, spmm, x),
+                           torch.from_numpy(pg.labels).cuda(),
+                           torch.from_numpy(pg.train_mask).cuda())
+    loss.backward()
+    opt.step()
+    step_err = 0.0
+    for r in ranks:
+        check(abs(r["gp_loss"] - loss.item()) <= 1e-5 * abs(loss.item()),
+              f"GP loss {r['gp_loss']} against one process's {loss.item()}")
+        for k, v in model.items():
+            v = v.detach().cpu()
+            e = (r["gp_params"][k] - v).abs().max().item()
+            step_err = max(step_err, e)
+            check(e <= PAR_GP_TOL * v.abs().max().item(),
+                  f"GP step: {k} within {PAR_GP_TOL} x max|ref| of one process ({e:.3e})")
+    return {"logits_err": err, "step_err": step_err, "loss": loss.item()}
+
+
+def _k1_shard_times(pg) -> dict:
+    """K1 on rank 0's shard layout at width 128, beside its plain version and
+    ``torch.sparse.mm`` on the same CSR, and its bound."""
+    from dgll_tpu_torch.ops import spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+    from dgll_tpu_torch.parallel import gp
+    from dgll_tpu_torch.parallel.mesh import Mesh
+
+    lay = gp.shard_partitioned_graph(pg, Mesh(("data",), PAR_RANKS, 0), "cuda").chunked
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(lay.n_cols, 128, generator=gen, device="cuda")
+    got, want = spmm_csr_cuda(lay, x), spmm_chunked_reference(lay, x)
+    err = (got - want).abs().max().item()
+    check(err <= 1e-4 * want.abs().max().item(),
+          f"K1 on the shard: within 1e-4 x max|ref| of its plain version ({err:.3e})")
+    mat = csr(lay.indptr, lay.src, lay.weight, (lay.n_rows, lay.n_cols))
+    t = timed(Case(lambda: spmm_csr_cuda(lay, x), lambda: spmm_chunked_reference(lay, x),
+                   lambda: torch.sparse.mm(mat, x), (lay.indptr, lay.src, lay.weight, x),
+                   2 * lay.src.numel() * 128), (got,))
+    print(f"[24 K1 shard] [{lay.n_rows}, {lay.n_cols}] layout, {lay.src.numel()} edges, "
+          f"F=128: {describe(t)}; max abs err {err:.3e}")
+    return {**t, "err": err}
+
+
+def _parallel_cli() -> dict:
+    """(c): the CLI with ``--n_devices 2`` on the CLI's graph, one epoch each, the
+    three runs at once (each starts its own ranks; the parent only waits): every
+    run returns (its ranks exit 0) with the JAX CLI's keys."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dgll_tpu_torch import run
+
+    def one(extra):
+        t0 = time.perf_counter()
+        res = run.main([*MINIBATCH_ARGS, *extra, "--n_devices", str(PAR_RANKS),
+                        "--n_epochs", "1"], timeout=300)
+        return res, time.perf_counter() - t0
+
+    with contextlib.redirect_stdout(io.StringIO()), ThreadPoolExecutor(3) as ex:
+        done = list(ex.map(one, [extra for _, extra in PAR_CLI_RUNS]))
+    out = {}
+    for (name, extra), (res, wall) in zip(PAR_CLI_RUNS, done):
+        trial = res["trials"][0]
+        keys = JAX_DP_DEVICE_KEYS if "--device_sampling" in extra else JAX_DP_KEYS
+        check(set(trial) == keys | {"epoch_loss", "epoch_s"},
+              f"--n_devices 2 {name}: the JAX CLI's keys, got {sorted(trial)}")
+        check(trial["n_devices"] == PAR_RANKS and trial["async_dp"] == ("--async_dp" in extra)
+              and all(np.isfinite(trial["epoch_loss"])) and 0 <= trial["test_acc"] <= 1,
+              f"--n_devices 2 {name}: finite losses, the flags reported")
+        print(f"[24 cli] --n_devices 2 {name}: loss {trial['epoch_loss']}, test_acc "
+              f"{trial['test_acc']:.4f}, epoch s {[round(v, 3) for v in trial['epoch_s']]}, "
+              f"wall {wall:.1f} s (the three at once)")
+        out[name] = {"test_acc": trial["test_acc"], "epoch_loss": trial["epoch_loss"],
+                     "epoch_s": trial["epoch_s"], "wall_s": wall}
+    return out
+
+
+def phase_parallel(data, flagship: dict) -> dict:
+    """Phase 24: two ranks sharing the card over gloo (``launch_local``). (a) The
+    device-DP epoch of the flagship at full width (phase 20's data, GraphSAGE 256,
+    fanouts [15, 10], 512 seeds a rank) against one process; (b) the graph-partition
+    GCN (the slices' graph, 2 layers at 128, K1 on each shard) against the one-process
+    K1 GCN; K1 on a shard timed; (c) the CLI with ``--n_devices 2``."""
+    from dgll_tpu_torch.parallel import launch_local, partition_graph
+    from dgll_tpu_torch.run import build_dataset
+    from dgll_tpu_torch.tools.profile_slice import SLICE_ARGS
+    from dgll_tpu_torch.utils import parse_train_config
+
+    t0 = time.perf_counter()
+    os.makedirs(PAR_DIR, exist_ok=True)
+    torch.save({"indptr": data.indptr, "src": data.src, "feats": data.feats.cpu(),
+                "labels": data.labels.cpu(), "train_nodes": data.train_nodes},
+               os.path.join(PAR_DIR, "flagship.pt"))
+    pg = partition_graph(build_dataset(parse_train_config(SLICE_ARGS)), PAR_RANKS)
+    rng = np.random.default_rng(24)
+    n_class = int(pg.labels.max()) + 1
+    weights = {"w1": rng.normal(0, 0.1, (pg.node_feat.shape[1], 128)).astype(np.float32),
+               "w2": rng.normal(0, 0.1, (128, n_class)).astype(np.float32)}
+    torch.save({"pg": vars(pg), "weights": weights}, os.path.join(PAR_DIR, "gp.pt"))
+    t_files = time.perf_counter() - t0
+    launch_local(PAR_RANKS, [sys.executable, os.path.abspath(__file__), "--phase24-rank",
+                             PAR_DIR], timeout=600)
+    ranks = [torch.load(os.path.join(PAR_DIR, f"rank{r}.pt"), weights_only=False)
+             for r in range(PAR_RANKS)]
+    t_ranks = time.perf_counter() - t0 - t_files
+    _dp_reference(data, ranks)
+    nb = ranks[0]["n_batches"]
+    batch_ms = [1e3 * r["epoch_s"] / nb for r in ranks]
+    share = [r["collective_ms"] / (1e3 * r["epoch_s"]) for r in ranks]
+    single = flagship["bench"]["value"]
+    print(f"[24 dp] {PAR_RANKS} ranks ({ranks[0]['backend']}, {ranks[0]['device']}), "
+          f"{nb} batches of {PAR_RANKS} x {PAR_BATCH}: parameters within {PAR_TOL} x "
+          f"max|ref| of one process, the ranks' bitwise equal; ms a global batch "
+          f"{[round(v, 4) for v in batch_ms]} (one process, phase 20: {single:.4f}); the "
+          f"all-reduce's share (CUDA events around it, the wait for the other rank's "
+          f"step on the shared card included) {[round(v, 4) for v in share]} "
+          f"({[round(r['collective_ms'] / nb, 4) for r in ranks]} ms a batch); first "
+          f"epoch (capture) {[round(r['first_epoch_s'], 2) for r in ranks]} s")
+    for r, got in enumerate(ranks):
+        check(got["k1_launches"] == (4, 2),
+              f"GP rank {r}: K1 launched 4 times forward and twice backward (log-probs "
+              f"and one step), got {got['k1_launches']}")
+    gp_check = _gp_reference(pg, weights, ranks)
+    print(f"[24 gp] {PAR_RANKS} shards of {ranks[0]['rows']} rows ({pg.n_node} nodes, "
+          f"{int((pg.edge_weight != 0).sum())} edges), 2 layers at 128: log-probs within "
+          f"{gp_check['logits_err']:.3e}, one SGD step within {gp_check['step_err']:.3e} of "
+          f"the one-process K1 GCN; K1 launches a rank {ranks[0]['k1_launches']}; ms a step "
+          f"{[round(1e3 * r['gp_step_s'], 3) for r in ranks]}")
+    k1 = _k1_shard_times(pg)
+    cli = _parallel_cli()
+    out = {"dp_batch_ms": batch_ms, "dp_allreduce_share": share, "single_batch_ms": single,
+           "gp_step_ms": [1e3 * r["gp_step_s"] for r in ranks], "gp_check": gp_check,
+           "k1_launches": ranks[0]["k1_launches"], "k1_shard": k1, "cli": cli,
+           "files_s": t_files, "ranks_s": t_ranks}
+    print(f"[24 done] phase 24 in {time.perf_counter() - t0:.1f} s (files {t_files:.1f} s, "
+          f"ranks {t_ranks:.1f} s)")
+    return out
+
+
 def kernel_row(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
@@ -3230,8 +3597,9 @@ def main() -> int:
     flagship = phase_flagship(data)
     host_packed = phase_host_packed(data)
     layerwise = phase_layerwise(data, smi)
-    del data
     bf16 = phase_bf16(gat_f32)
+    parallel = phase_parallel(data, flagship)
+    del data
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -3260,6 +3628,9 @@ def main() -> int:
     kernels.append(kernel_row(K1_BF16, KERNEL_SOURCE, REPLACES,
                               bf16_counts["K1 fwd"] + bf16_counts["K1 bwd"], bk["k1_err"],
                               bk["k1"]))
+    kernels.append(kernel_row(K1_SHARD, KERNEL_SOURCE, REPLACES,
+                              sum(parallel["k1_launches"]), parallel["k1_shard"]["err"],
+                              parallel["k1_shard"]))
     for name, key, line in PROBE_KERNELS:
         kernels.append(kernel_row(name, PROBES_SOURCE, f"{PROBE_SCRIPT}:{line}",
                                   probe_counts[key], probe_kernels[key]["err"],
@@ -3272,6 +3643,7 @@ def main() -> int:
     print(f"[21 host_packed] {json.dumps(host_packed)}")
     print(f"[22 layerwise] {json.dumps(layerwise)}")
     print(f"[23 bf16] {json.dumps({k: v for k, v in bf16.items() if k != 'kernels'})}")
+    print(f"[24 parallel] {json.dumps(parallel)}")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -3282,4 +3654,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase24-rank"]:
+        sys.exit(_phase24_rank(sys.argv[2]))
     sys.exit(main())

@@ -69,6 +69,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
     f32p = ctypes.POINTER(ctypes.c_float)
     lib.dgll_build_csr_apply.argtypes = [i64p, i64p, f32p, i64, i64, i64p, i32p, i32p,
                                          f32p]
+    lib.dgll_partition_pack.argtypes = [i64p, i64p, f32p, i64, i64, i64, i64, i32p, i32p,
+                                        f32p]
     return lib
 
 
@@ -175,6 +177,28 @@ def remap(mapping: np.ndarray, idx: np.ndarray) -> np.ndarray:
     out = np.empty(len(idx), np.int64)
     lib.dgll_remap(_p64(mapping), _p64(idx), len(idx), _p64(out))
     return out
+
+
+def partition_pack(src, dst, w, rows: int, n_parts: int, e_shard: int):
+    """Relabelled edges scattered into per-shard padded slabs, each edge at its
+    arrival index within its shard (``dst // rows``): ``(S, D, W)`` of shape
+    ``[n_parts, e_shard]`` (int32 source, int32 destination within the shard, float32
+    weight; 0 in the padding), or None where the library is missing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, np.int64)
+    dst = np.ascontiguousarray(dst, np.int64)
+    w = np.ascontiguousarray(w, np.float32)
+    S = np.zeros((n_parts, e_shard), np.int32)
+    D = np.zeros((n_parts, e_shard), np.int32)
+    W = np.zeros((n_parts, e_shard), np.float32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.dgll_partition_pack(
+        _p64(src), _p64(dst), w.ctypes.data_as(f32p), len(src), rows, n_parts, e_shard,
+        S.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        D.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), W.ctypes.data_as(f32p))
+    return S, D, W
 
 
 def build_csr_apply(dst, src, w, n_node: int):

@@ -23,9 +23,21 @@ trained parameters at step ``epochs + resumed_from`` (``train.CheckpointManager`
 and ``--resume`` starts from the latest step there, on every branch.
 ``--preprocess`` precomputes each node's neighbour-mean features, concatenates them
 to the raw ones and drops the outermost sampled hop and one layer, on either
-minibatch path. It prints the same JSON keys. Data parallelism
-(``--n_devices`` > 1) raises ``NotImplementedError`` naming the ROADMAP.md item that
-will port it.
+minibatch path. It prints the same JSON keys.
+
+Data parallelism (``--n_devices D`` > 1, a minibatch sampler) runs D ranks on
+``torch.distributed`` (``parallel/``): started without a launcher, ``main`` starts D
+copies of itself through ``launch_local`` and returns (and prints) rank 0's result;
+under a launcher (``DGLL_NUM_PROCESSES`` set) it joins the group. Rank ``r`` runs on
+``cuda:(r % device_count)`` (over gloo where ranks share a card) or the CPU. The host
+path (``--samp_type neighbor``) samples every sub-batch of a step on every rank and
+keeps its own, with the synchronous or the one-step-stale step (``--async_dp``), COG
+routing (``--n_parts``, one per-device batch for all communities) and a cache on
+each rank (``--cached_nPercent``; its counters summed over the ranks); the device
+path (``--device_sampling``, neighbor, FastGCN or LADIES) runs
+``DeviceDPEpochRunner``. Every rank evaluates alike and takes rank 0's validation
+accuracy, so all stop together; only rank 0 writes a checkpoint. ``--samp_type
+full`` trains on one device, as the JAX CLI does.
 
 On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN or GIN
 run attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does:
@@ -47,6 +59,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import time
 
 import numpy as np
@@ -57,17 +70,32 @@ import torch
 SPMM_KERNEL = "spmm_csr_cuda"
 WINDOWED_KERNEL = "spmm_windowed_cuda"
 GAT_KERNEL = "gat_attention_fused"
+N_PARTS_NEEDS_NEIGHBOR = ("--n_parts > 1 requires --samp_type neighbor "
+                          "(community-restricted neighbour sampling)")
+DEVICE_SAMPLING_ALONE = ("--device_sampling keeps the graph and features in device "
+                         "memory; it composes with neither --n_parts nor "
+                         "--cached_nPercent (use the host pipeline for those)")
+
+
+def is_data_parallel(cfg) -> bool:
+    """``--n_devices`` > 1 on a minibatch path (full batch trains on one device)."""
+    return cfg.n_devices > 1 and cfg.sampler != "full"
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a configuration outside the ported slices."""
-    todo = "see ROADMAP.md, Queue 1, item"
+    """Raise ``ValueError`` for a configuration the JAX CLI refuses: an unknown model
+    or sampler, and, before any rank starts, the data-parallel branch's refusals."""
     if cfg.model.upper() not in ("GCN", "GAT", "GRAPHSAGE", "SAGE", "GIN"):
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.sampler not in ("full", "neighbor", "fastgcn", "ladies"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
-    if cfg.n_devices > 1:
-        raise NotImplementedError(f"--n_devices {cfg.n_devices}: {todo} 8 (parallel)")
+    if is_data_parallel(cfg):
+        if cfg.sampler != "neighbor" and not (
+                cfg.device_sampling and cfg.sampler in ("fastgcn", "ladies")):
+            raise ValueError("--n_devices > 1 requires --samp_type neighbor (host "
+                             "sampling), or --device_sampling with neighbor|fastgcn|ladies")
+        if cfg.device_sampling and (cfg.n_parts > 1 or cfg.cached_percent > 0):
+            raise ValueError(DEVICE_SAMPLING_ALONE)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -185,8 +213,10 @@ def maybe_restore(cfg, model, extra: dict) -> None:
     without the flags or a saved step (the JAX CLI's ``_maybe_restore_params``)."""
     if not (cfg.resume and cfg.checkpoint_dir):
         return
+    from dgll_tpu_torch.parallel import mesh as meshes
     from dgll_tpu_torch.train import CheckpointManager
 
+    meshes.barrier(meshes.make_mesh())  # every rank reads what rank 0 wrote
     mgr = CheckpointManager(cfg.checkpoint_dir)
     step = mgr.latest_step()
     if step is not None:
@@ -200,10 +230,11 @@ def _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
     """Shared trial epilogue: the checkpoint of ``model``'s parameters at step
     ``epochs + resumed_from`` (``--checkpoint_dir``), the per-dataset headline metric
     and the result dict."""
+    from dgll_tpu_torch.parallel.launch import is_primary
     from dgll_tpu_torch.train.metrics import metric_for_dataset
 
     total = time.perf_counter() - t_start
-    if cfg.checkpoint_dir:
+    if cfg.checkpoint_dir and is_primary():
         from dgll_tpu_torch.train import CheckpointManager
 
         mgr = CheckpointManager(cfg.checkpoint_dir)
@@ -281,6 +312,8 @@ def prepare_pipeline(cfg, g, model, n_class: int, trial_seed: int, timer, extra:
     None, and the cache and its fetch function or None."""
     book = None
     if cfg.n_parts > 1:
+        if cfg.sampler != "neighbor":
+            raise ValueError(N_PARTS_NEEDS_NEIGHBOR)
         from dgll_tpu_torch.parallel.community import run_cog
 
         cap = -(-g.n_real_node // cfg.n_parts)
@@ -310,25 +343,39 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class:
                      timer, extra: dict, log) -> tuple:
     """The device-sampling path (``--device_sampling``): the CSR, the features
     (widened by ``--preprocess``) and the labels on the device, each epoch
-    ``DeviceEpochRunner``'s (a CUDA-graph replay a batch on a CUDA device), validation
+    ``DeviceEpochRunner``'s (a CUDA-graph replay a batch on a CUDA device; with
+    ``--n_devices`` > 1 this rank's ``DeviceDPEpochRunner``), validation
     and test by the device-sampled sweep or, with ``--exact_eval``, the test by exact
     inference. Returns ``(test_acc, micro_f1, best_val, epochs run, model)``, the
     model as trained (``--preprocess`` rebuilds it), with the per-epoch losses and
     times in ``extra``."""
-    from dgll_tpu_torch.train import GRAPH_ADAM, DeviceEpochRunner, exact_predict, micro_f1
+    from dgll_tpu_torch.parallel import mesh as meshes
+    from dgll_tpu_torch.train import (
+        GRAPH_ADAM,
+        DeviceDPEpochRunner,
+        DeviceEpochRunner,
+        exact_predict,
+        micro_f1,
+    )
 
     if cfg.n_parts > 1 or cfg.cached_percent > 0:
-        raise ValueError("--device_sampling keeps the graph and features in device "
-                         "memory; it composes with neither --n_parts nor "
-                         "--cached_nPercent (use the host pipeline for those)")
+        raise ValueError(DEVICE_SAMPLING_ALONE)
     cfg, g, model = preprocess_features(cfg, g, model, n_class, trial_seed, extra, dev)
     maybe_restore(cfg, model, extra)
     dgraph, sizes = device_sampling_graph(cfg, g, dev, log)
     opt = make_optimizer(cfg, **(GRAPH_ADAM if dev.type == "cuda" else {}))
     feats, labels = g.node_feat.to(dev), g.labels.to(dev)
-    runner = DeviceEpochRunner(model.to(dev), opt, dgraph, sizes, cfg.batch_size,
-                               g.get_train_nodes(), seed=trial_seed,
-                               window=cfg.window_sampling, sampler=cfg.sampler)
+    mesh = meshes.make_mesh()
+    common = dict(seed=trial_seed, window=cfg.window_sampling, sampler=cfg.sampler)
+    if is_data_parallel(cfg):
+        runner = DeviceDPEpochRunner(model.to(dev), opt, dgraph, sizes,
+                                     max(cfg.batch_size // mesh.size, 1),
+                                     g.get_train_nodes(), mesh, **common)
+        extra.update(n_devices=mesh.size, async_dp=False,
+                     resumed_from=extra.get("resumed_from"))
+    else:
+        runner = DeviceEpochRunner(model.to(dev), opt, dgraph, sizes, cfg.batch_size,
+                                   g.get_train_nodes(), **common)
     state = runner.init_state(feats)
     labels_np = g.labels.numpy()
     val_nodes = g.get_validation_nodes()
@@ -340,8 +387,8 @@ def run_device_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class:
             losses.append(float(loss))
             secs.append(time.perf_counter() - t0)
         with timer.phase("validate"):
-            val = runner.evaluate_nodes(state, feats, labels_np, val_nodes,
-                                        seed=trial_seed + 1)
+            val = meshes.broadcast_value(mesh, runner.evaluate_nodes(
+                state, feats, labels_np, val_nodes, seed=trial_seed + 1))
         if val > best_val:
             best_val, bad = val, 0
         else:
@@ -440,12 +487,143 @@ def run_minibatch_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_cla
     return test_acc, micro_f1(pred, y), best_val, len(losses), model
 
 
+def run_dp_trial(cfg, g, trial_seed: int, dev: torch.device, model, n_class: int,
+                 timer, extra: dict, log) -> tuple:
+    """The host minibatch path over ``--n_devices`` ranks (the JAX CLI's
+    ``_run_dp_trial``), on this rank: each step's sub-batches sampled on every rank,
+    this rank's trained, the gradients averaged (or, with ``--async_dp``, applied one
+    step stale); COG's communities each through a loader of one shared per-device
+    batch; each rank's cache counters summed over the ranks at the end. Returns
+    ``(test_acc, micro_f1, best_val, epochs run, model)``."""
+    from dgll_tpu_torch.dataloader import DataLoader
+    from dgll_tpu_torch.parallel import dp
+    from dgll_tpu_torch.parallel import mesh as meshes
+    from dgll_tpu_torch.sampling import CommunityNeighborSampler, HostGraph
+    from dgll_tpu_torch.train import MiniBatchTrainer, create_train_state, micro_f1
+
+    mesh = meshes.make_mesh()
+    cfg, g, model, book, cache, fetch = prepare_pipeline(cfg, g, model, n_class,
+                                                         trial_seed, timer, extra, dev, log)
+    d = mesh.size
+    hg = HostGraph.from_graph(g)
+    sampler = build_sampler(cfg, g)
+    per_dev = max(cfg.batch_size // d, 1)
+    train_nodes = g.get_train_nodes()
+    if book is not None:
+        # one per-device batch for every community, so that every step has the same
+        # shapes; communities with fewer seeds than a step are skipped (logged)
+        per_comm = [train_nodes[(train_nodes >= lo) & (train_nodes < hi)]
+                    for lo, hi in book.values()]
+        bc = max(1, min(per_dev, max((len(sc) for sc in per_comm), default=0) // d))
+        loaders, skipped = [], 0
+        for (lo, hi), seeds_c in zip(book.values(), per_comm):
+            if len(seeds_c) < bc * d:
+                skipped += len(seeds_c)
+                continue
+            cs = CommunityNeighborSampler(cfg.fanouts, (lo, hi), seed=cfg.seed)
+            loaders.append(dp.ShardedDataLoader(hg, seeds_c, cs, bc, d, seed=trial_seed,
+                                                rank=mesh.rank))
+        if skipped:
+            log.info(f"community DP: skipped {skipped} train seeds in communities "
+                     f"smaller than one step ({bc * d}); one shared per-device batch "
+                     f"{bc} keeps one step shape")
+    else:
+        loaders = [dp.ShardedDataLoader(hg, train_nodes, sampler, per_dev, d,
+                                        seed=trial_seed, rank=mesh.rank)]
+    loaders = [ld for ld in loaders if len(ld) > 0]
+    if not loaders:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} over {d} devices needs at least {per_dev * d} "
+            f"train seeds per (community) loader; have {len(train_nodes)} — lower "
+            f"--batch_size or raise the train split")
+    # with the cache only its rows are on the device: the features stay on the host
+    feats = None if fetch is not None else g.node_feat.to(dev)
+    labels = g.labels.to(dev)
+    # the JAX CLI samples a first step for its model's init, and gathers device 0's
+    # features through the cache: the draws keep the samplers' and the loader's
+    # streams the same, the fetch the cache's counters
+    _, blocks0 = next(iter(loaders[0]))
+    if fetch is not None and mesh.rank == 0:
+        fetch(blocks0[0].src_ids)
+    maybe_restore(cfg, model, extra)
+    opt = make_optimizer(cfg)
+    state = create_train_state(model.to(dev), opt)
+    if cfg.async_dp:
+        step, init_grads = dp.make_async_dp_block_step(mesh)
+        pending = init_grads(state)
+    else:
+        step = dp.make_dp_block_step(mesh)
+    ev = MiniBatchTrainer(model, opt, seed=trial_seed, device=dev)
+    val_loader = DataLoader(g, g.get_validation_nodes(), sampler, cfg.batch_size,
+                            shuffle=False, seed=trial_seed + 1, device=dev)
+
+    def primary_counts(fn):
+        """``fn()`` with the cache's counters kept only on rank 0: every rank
+        evaluates the same batches, which the JAX controller counts once."""
+        before = None if cache is None else (cache.lookups, cache.misses)
+        out = fn()
+        if before is not None and mesh.rank != 0:
+            cache.lookups, cache.misses = before
+        return out
+
+    best_val, bad, losses, secs = -np.inf, 0, [], []
+    for epoch in range(cfg.n_epochs):
+        with timer.phase("train"):
+            t0 = time.perf_counter()
+            batch_losses, last = [], None
+            for loader in loaders:
+                for _, blocks in loader:
+                    x = None if fetch is None else fetch(blocks[0].src_ids)
+                    blocks, x, y, m = ev.batch_inputs(blocks, feats, labels, x)
+                    if cfg.async_dp:
+                        state, pending = step(state, pending, blocks, x, y, m, ev.generator)
+                        if last is not None:  # applied by this step: its mean is ready
+                            batch_losses.append(last.loss.clone())
+                        last = pending
+                    else:
+                        state, loss = step(state, blocks, x, y, m, ev.generator)
+                        batch_losses.append(loss.clone())
+            if last is not None:
+                batch_losses.append(last.loss.clone())
+            losses.append(float(torch.stack(batch_losses).mean()))
+            secs.append(time.perf_counter() - t0)
+        with timer.phase("validate"):
+            val = meshes.broadcast_value(mesh, primary_counts(
+                lambda: ev.evaluate_nodes(state, val_loader, feats, labels,
+                                          fetch_fn=fetch)))
+        if val > best_val:
+            best_val, bad = val, 0
+        else:
+            bad += 1
+        log.info(f"[dp x{d}{' async' if cfg.async_dp else ''}] epoch {epoch} "
+                 f"loss {losses[-1]:.4f} val {val:.4f}")
+        if cfg.n_stops and bad >= cfg.n_stops:
+            break
+    if cfg.async_dp:
+        state = dp.apply_grads(state, pending)  # the last step's gradients
+    test_loader = DataLoader(g, g.get_test_nodes(), sampler, cfg.batch_size,
+                             shuffle=False, seed=trial_seed + 2, device=dev)
+    pred, y = primary_counts(lambda: ev.predict_nodes(state, test_loader, feats, labels,
+                                                      fetch_fn=fetch))
+    if cache is not None:
+        counts = meshes.sum_values(mesh, [cache.lookups, cache.misses])
+        cache.lookups, cache.misses = int(counts[0]), int(counts[1])
+        rate, lookups, _ = cache.miss_rate()
+        extra.update(cache_miss_rate=float(rate), cache_lookups=int(lookups),
+                     cached_rows=int(cache.k))
+    extra.update(n_devices=d, async_dp=bool(cfg.async_dp),
+                 resumed_from=extra.get("resumed_from"), epoch_loss=losses, epoch_s=secs)
+    test_acc = float((pred == y).mean()) if len(pred) else 0.0
+    return test_acc, micro_f1(pred, y), best_val, len(losses), model
+
+
 def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     """One trial of a configuration ``main`` has checked, on the device it resolved."""
     from dgll_tpu_torch.train import FullBatchTrainer, accuracy, micro_f1
     from dgll_tpu_torch.utils import PhaseTimer, get_logger
 
-    log = get_logger(cfg.log_file)
+    log = get_logger(cfg.log_file, rank=torch.distributed.get_rank()
+                     if torch.distributed.is_initialized() else None)
     timer = PhaseTimer()
     n_class = int(g.labels[: g.n_real_node].max()) + 1
     model = build_model(cfg, n_class, g.node_feat.shape[1],
@@ -454,7 +632,8 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
     t_start = time.perf_counter()
     extra: dict = {}
     if cfg.sampler != "full":
-        trial = run_device_trial if cfg.device_sampling else run_minibatch_trial
+        trial = (run_device_trial if cfg.device_sampling else
+                 run_dp_trial if is_data_parallel(cfg) else run_minibatch_trial)
         test_acc, f1, best_val, n_epochs, model = trial(cfg, g, trial_seed, dev, model,
                                                         n_class, timer, extra, log)
         return _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
@@ -480,12 +659,54 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
                            hist.best_val, len(hist.epochs), state.model)
 
 
-def main(argv=None) -> dict:
+def launch_ranks(cfg, argv, timeout=None) -> dict:
+    """Start ``--n_devices`` ranks of this CLI (``launch_local``) and return rank 0's
+    result. A ``ValueError`` that ends a rank is raised here again, as the JAX CLI
+    raises it; any other failure of a rank raises ``RankFailed``."""
+    import sys
+
+    from dgll_tpu_torch.parallel.launch import RankFailed, launch_local
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        done = launch_local(cfg.n_devices, [sys.executable, "-m", "dgll_tpu_torch.run",
+                                            *argv], timeout=timeout)
+    except RankFailed as e:
+        # the traceback's last line, which torch.distributed prefixes with the rank
+        last = re.match(r"(?:\[rank\d+\]: )?ValueError: (.*)",
+                        (e.stderr.strip().splitlines() or [""])[-1])
+        if last:
+            raise ValueError(last.group(1)) from e
+        raise
+    return json.loads(done[0].stdout.strip().splitlines()[-1])
+
+
+def main(argv=None, timeout=None) -> dict:
+    """Parse the flags, train and print one JSON line, which it returns. With
+    ``--n_devices`` > 1 on a minibatch path and no launcher, it starts the ranks
+    (``timeout``: their limit in seconds, default none) and returns rank 0's line."""
+    from dgll_tpu_torch.parallel.launch import (
+        ENV_NPROC,
+        initialize_distributed,
+        is_primary,
+        rank_device,
+    )
     from dgll_tpu_torch.utils import parse_train_config
 
     cfg = parse_train_config(argv)
     check_supported(cfg)
-    dev = resolve_device(cfg.device)
+    if is_data_parallel(cfg):
+        if ENV_NPROC not in os.environ:
+            out = launch_ranks(cfg, argv, timeout)
+            print(json.dumps(out, default=str))
+            return out
+        initialize_distributed(device=cfg.device)
+        world = torch.distributed.get_world_size()
+        if world != cfg.n_devices:
+            raise ValueError(f"--n_devices {cfg.n_devices}, but {world} ranks joined")
+        dev = resolve_device(str(rank_device(cfg.device)))
+    else:
+        dev = resolve_device(cfg.device)
     g = build_dataset(cfg)
     results = [run_trial(cfg, g, cfg.seed + t, dev) for t in range(cfg.n_trial)]
     agg = {
@@ -499,7 +720,8 @@ def main(argv=None) -> dict:
     }
     out = {"config": vars(cfg) | {"fanouts": list(cfg.fanouts)}, "trials": results,
            "aggregate": agg}
-    print(json.dumps(out, default=str))
+    if is_primary():
+        print(json.dumps(out, default=str))
     return out
 
 

@@ -71,7 +71,10 @@ def capture(state, generator: torch.Generator, step: Callable[[], object],
     state.optimizer.zero_grad(set_to_none=True)
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(generator)
-    with torch.cuda.graph(graph):
+    # thread-local: a loader's producer threads go on pinning, allocating and
+    # copying while the step is captured; in the default global mode any such call
+    # from another thread invalidates the capture, depending on when it lands
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = step()
     restore(state, snap, generator)
     return graph, out

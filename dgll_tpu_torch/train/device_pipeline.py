@@ -31,6 +31,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+# modules, not names: ``parallel.dp`` imports this package's trainer
+from dgll_tpu_torch.parallel import dp
+from dgll_tpu_torch.parallel import mesh as meshes
 from dgll_tpu_torch.sampling.device_layerwise import MODES as LAYERWISE
 from dgll_tpu_torch.sampling.device_layerwise import sample_blocks_device_layerwise
 from dgll_tpu_torch.sampling.device_sampler import layer_sizes, sample_blocks_device
@@ -87,19 +90,26 @@ class EpochDraws:
     uniforms: List
 
 
-def draw_epoch(n_batches: int, batch_size: int, fanouts: Sequence[int], window: bool,
-               generator: Optional[torch.Generator], device,
-               sampler: str = "neighbor") -> EpochDraws:
-    """An epoch's draws from ``generator``: ``randperm``, then one ``torch.rand`` a
-    uniform tensor, innermost layer first."""
-    order = torch.randperm(n_batches * batch_size, generator=generator, device=device)
-
+def draw_uniforms(n_batches: int, batch_size: int, fanouts: Sequence[int], window: bool,
+                  generator: Optional[torch.Generator], device,
+                  sampler: str = "neighbor") -> List:
+    """``EpochDraws.uniforms`` from ``generator``: one ``torch.rand`` a uniform
+    tensor, innermost layer first."""
     def rand(shape):
         return torch.rand(n_batches, *shape, generator=generator, device=device)
 
-    uniforms = [tuple(rand(sh) for sh in shape) if _is_several(shape) else rand(shape)
-                for shape in draw_shapes(batch_size, fanouts, window, sampler)]
-    return EpochDraws(order, uniforms)
+    return [tuple(rand(sh) for sh in shape) if _is_several(shape) else rand(shape)
+            for shape in draw_shapes(batch_size, fanouts, window, sampler)]
+
+
+def draw_epoch(n_batches: int, batch_size: int, fanouts: Sequence[int], window: bool,
+               generator: Optional[torch.Generator], device,
+               sampler: str = "neighbor") -> EpochDraws:
+    """An epoch's draws from ``generator``: ``randperm``, then the uniforms
+    (``draw_uniforms``)."""
+    order = torch.randperm(n_batches * batch_size, generator=generator, device=device)
+    return EpochDraws(order, draw_uniforms(n_batches, batch_size, fanouts, window,
+                                           generator, device, sampler))
 
 
 def _tensors(u) -> tuple:
@@ -203,19 +213,23 @@ class DeviceEpochRunner:
         self.cuda_graph = self.device.type == "cuda" if cuda_graph is None else cuda_graph
         if self.cuda_graph and self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
-        nb, b = self.n_batches, self.batch_size
-        # the epoch's inputs and outputs, at fixed addresses that a graph reads
+        self._buffers(self.batch_size)
+        self._graph = None
+        self._graph_key = None
+        self._eval_cache = {}
+
+    def _buffers(self, b: int) -> None:
+        """The epoch's inputs and outputs for steps of ``b`` seeds, at fixed
+        addresses that a graph reads."""
+        nb = self.n_batches
         self._seeds = torch.zeros((nb, b), dtype=torch.int32, device=self.device)
         self._mask = torch.zeros((nb, b), dtype=torch.bool, device=self.device)
         self._draws = [
             tuple(torch.zeros((nb, *sh), device=self.device) for sh in shape)
             if _is_several(shape) else torch.zeros((nb, *shape), device=self.device)
-            for shape in draw_shapes(b, self.fanouts, self.window, sampler)]
+            for shape in draw_shapes(b, self.fanouts, self.window, self.sampler)]
         self._i = torch.zeros(1, dtype=torch.long, device=self.device)
         self.batch_losses = torch.zeros(nb, device=self.device)
-        self._graph = None
-        self._graph_key = None
-        self._eval_cache = {}
 
     # -- training ------------------------------------------------------------
     def init_state(self, feats=None) -> TrainState:
@@ -356,3 +370,164 @@ class DeviceEpochRunner:
             return 0.0
         pred = self.predict_nodes_exact(state, graph, feats, nodes)
         return float((pred == np.asarray(labels_np)[nodes]).mean())
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s own stream (its uniforms and dropout masks)."""
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
+class DeviceDPEpochRunner(DeviceEpochRunner):
+    """Data-parallel ``DeviceEpochRunner``: each rank samples its sub-batch of
+    ``per_device_batch`` seeds on its device, and the gradients are summed over the
+    ranks; the global batch is ``mesh.size * per_device_batch`` (counterpart of the
+    JAX package's ``DeviceDPEpochRunner`` and ``make_device_dp_epoch_fn``).
+
+    An epoch's permutation of its ``n_batches * mesh.size * per_device_batch`` padded
+    seeds comes from the runner's generator, seeded alike on every rank, so every
+    rank holds the same permutation and takes its slice ``[:, rank]`` of each batch:
+    no seed is drawn twice or missed. The sampling uniforms and the dropout masks
+    come from the rank's own generator (``rank_seed``), as the JAX package folds the
+    axis index into both keys.
+
+    The step's gradient is the sum of the ranks' gradients, and its loss their mean,
+    as the JAX package's epoch computes them: inside its ``shard_map`` the gradient of
+    the replicated parameters is already summed over the devices (the transpose of
+    their broadcast), so its ``pmean`` leaves the sum. (The host DP step,
+    ``parallel.dp``, whose ``shard_map`` does not check replication, averages.)
+
+    On a CUDA device a batch is a replay of one CUDA graph (sample, gather, forward,
+    backward, the gradients and the loss into one fixed buffer), the all-reduce of
+    that buffer (a gloo collective cannot be captured), then a replay of a second
+    graph (the optimizer step). ``cuda_graph=False`` and the CPU run the
+    same three parts eagerly. ``time_collective``: record CUDA events around each
+    all-reduce (``collective_ms``).
+    """
+
+    def __init__(self, model: torch.nn.Module, optimizer: Callable, csr,
+                 fanouts: Sequence[int], per_device_batch: int, train_nodes, mesh: "meshes.Mesh",
+                 loss_fn: Callable = masked_nll_loss, seed: int = 0,
+                 window: bool = False, sampler: str = "neighbor",
+                 cuda_graph: Optional[bool] = None,
+                 feat_dtype: Optional[torch.dtype] = None,
+                 time_collective: bool = False):
+        self.mesh = mesh
+        self.per_device_batch = int(per_device_batch)
+        super().__init__(model, optimizer, csr, fanouts,
+                         mesh.size * self.per_device_batch, train_nodes, loss_fn, seed,
+                         window, sampler, cuda_graph, feat_dtype)
+        self.rank_generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, mesh.rank))
+        self._flat: Optional[torch.Tensor] = None
+        self.time_collective = time_collective and self.device.type == "cuda"
+        self._events: list = []
+
+    def _buffers(self, b: int) -> None:
+        super()._buffers(self.per_device_batch)  # a step holds this rank's sub-batch
+
+    def draw_epoch(self) -> EpochDraws:
+        """The permutation from the shared generator, this rank's uniforms from its
+        own."""
+        order = torch.randperm(self.n_batches * self.batch_size, generator=self.generator,
+                               device=self.device)
+        return EpochDraws(order, draw_uniforms(
+            self.n_batches, self.per_device_batch, self.fanouts, self.window,
+            self.rank_generator, self.device, self.sampler))
+
+    def _load_draws(self, draws: EpochDraws) -> None:
+        nb, d, b = self.n_batches, self.mesh.size, self.per_device_batch
+
+        def mine(t):
+            return t.index_select(0, draws.order).view(nb, d, b)[:, self.mesh.rank]
+
+        self._seeds.copy_(mine(self.seeds))
+        self._mask.copy_(mine(self.seed_mask))
+        for buf, u in zip(self._draws, draws.uniforms):
+            for t_buf, t in zip(_tensors(buf), _tensors(u)):
+                t_buf.copy_(t)
+
+    def _grad_step(self, state: TrainState, feats, labels) -> None:
+        """Batch ``i``'s sample, gather, forward, loss and backward; the gradients and
+        the loss into ``self._flat``."""
+        i = self._i
+        _, _, blocks = self.sample_fn(self.csr, _pick(self._seeds, i), _pick(self._mask, i),
+                                      draws=[_pick(u, i) for u in self._draws])
+        x = feats.index_select(0, blocks[0].src_ids)
+        if self.feat_dtype is not None:
+            x = x.to(self.feat_dtype)
+        y = labels.index_select(0, blocks[-1].dst_ids)
+        loss = dp.local_backward(state, blocks, x, y, blocks[-1].dst_mask,
+                              self.rank_generator, self.loss_fn)
+        self._flat.copy_(dp.flat_grads(state, loss))
+
+    def _reduce(self) -> None:
+        if self.time_collective:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            meshes.all_reduce(self.mesh, self._flat)
+            ev[1].record()
+            self._events.append(ev)
+        else:
+            meshes.all_reduce(self.mesh, self._flat)
+
+    def _apply_step(self, state: TrainState) -> None:
+        """The optimizer step on the gradients summed over the ranks, the batch's
+        loss (their mean); ``i`` advances."""
+        self._flat[-1:].div_(self.mesh.size)
+        dp.set_grads(state, self._flat)
+        state.optimizer.step()
+        self.batch_losses.index_copy_(0, self._i, self._flat[-1:])
+        self._i.add_(1)
+
+    def _capture_dp(self, state: TrainState, feats, labels) -> tuple:
+        """The two graphs of a batch, after eager warm-up steps (whole batches, the
+        all-reduce included); the state put back and the batch index rewound."""
+        i0 = self._i.clone()
+
+        def warmup():
+            self._i.zero_()
+            self._grad_step(state, feats, labels)
+            self._reduce()
+            self._apply_step(state)
+
+        grads, _ = cuda_graph.capture(state, self.rank_generator,
+                                      lambda: self._grad_step(state, feats, labels), warmup)
+        apply, _ = cuda_graph.capture(state, self.rank_generator,
+                                      lambda: self._apply_step(state))
+        self._i.copy_(i0)
+        return grads, apply
+
+    def run_epoch(self, state: TrainState, feats, labels,
+                  draws: Optional[EpochDraws] = None):
+        """One epoch of this rank: ``(state, mean loss over the ranks)``. ``draws``:
+        the permutation and this rank's uniforms (``draw_epoch`` where None)."""
+        if self._flat is None:
+            n = sum(p.numel() for p in state.model.parameters() if p.requires_grad)
+            self._flat = torch.zeros(n + 1, device=self.device)
+        self.load_epoch(draws)
+        self._events = []
+        if self.cuda_graph:
+            key = (id(state.model), id(state.optimizer), feats.data_ptr(),
+                   labels.data_ptr())
+            if self._graph_key != key:
+                self._graph = self._capture_dp(state, feats, labels)
+                self._graph_key = key
+                self._events = []
+            grads, apply = self._graph
+            for _ in range(self.n_batches):
+                grads.replay()
+                self._reduce()
+                apply.replay()
+        else:
+            for _ in range(self.n_batches):
+                self._grad_step(state, feats, labels)
+                self._reduce()
+                self._apply_step(state)
+        state.step += self.n_batches
+        return state, self.batch_losses.mean()
+
+    def collective_ms(self) -> float:
+        """The all-reduces' time in the last epoch, from the CUDA events around them
+        (``time_collective``; synchronises)."""
+        torch.cuda.synchronize(self.device)
+        return sum(a.elapsed_time(b) for a, b in self._events)

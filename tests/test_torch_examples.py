@@ -1,8 +1,9 @@
 """The port's examples (``dgll_tpu_torch/examples``) at a tiny size on the CPU.
 
 The three that are the training CLI with fixed flags print the JAX CLI's keys for
-the same flags; the others train a few epochs and report finite numbers. Each runs
-as ``python -m dgll_tpu_torch.examples.<name>`` too (one is run that way here).
+the same flags; the others train a few epochs and report finite numbers (the
+multi-rank one in two ranks over gloo). Each runs as ``python -m
+dgll_tpu_torch.examples.<name>`` too (one is run that way here).
 """
 import os
 import shutil
@@ -21,6 +22,7 @@ from dgll_tpu_torch.examples import (
     graph_classification_gin,
     layerwise_fastgcn,
     minibatch_graphsage,
+    multichip_training,
     ppi_eval,
 )
 
@@ -93,3 +95,13 @@ def test_examples_run_as_modules():
          *SMALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert '"trials"' in proc.stdout
+
+
+def test_multichip_example_trains_in_two_ranks(monkeypatch, capsys):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = multichip_training.main(["--device", "cpu", "--epochs", "2"])
+    assert out["ranks"] == 2 and out["backend"] == "gloo"
+    assert len(out["dp_loss"]) == 2 and np.isfinite(out["dp_loss"]).all()
+    assert out["dp_loss"][1] < out["dp_loss"][0]
+    assert np.isfinite(out["gp_loss"])
+    assert "gp loss after 10 steps" in capsys.readouterr().out

@@ -460,11 +460,3 @@ def test_cli_trains_gat_with_the_jax_cli_keys():
     assert trial["epochs"] == 3 and len(trial["epoch_loss"]) == 3
     assert all(np.isfinite(trial["epoch_loss"]))
     assert trial["test_acc"] > 1 / 16
-
-
-@pytest.mark.parametrize("args,item", [
-    (["--samp_type", "neighbor", "--n_devices", "2"], "item 8"),
-])
-def test_cli_gat_outside_the_slice_raises(args, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, {item}"):
-        torch_run.main(["--Model", "GAT", *args, "--device", "cpu"])

@@ -12,10 +12,11 @@ epoch of ``PipelinedTrainer``, a ``--preprocess`` run of the CLI, the CLI's devi
 LADIES and host FastGCN GIN runs and a GIN graph classifier's forward, runs the
 probe tool on the CPU, saves and loads a graph, trains bfloat16 GAT on it through
 the CLI with a checkpoint and resumes from it, each run inside ``device_trace``, and
-runs the GIN graph-classification example. Every module of the package is imported,
-``examples`` included. No
-source file of the package imports them either, and none names a path inside the JAX
-package: the port reads no file of it. ``chip_smoke.py`` refuses to run, and prints
+runs the GIN graph-classification example, the CLI's ``--n_devices 2`` branch in two
+ranks (``--async_dp``) and a graph-partition step on one rank. Every module of the
+package is imported, ``examples`` included. No source file of the package imports
+them either, nor the multi-rank tests' child scripts, and none names a path inside
+the JAX package: the port reads no file of it. ``chip_smoke.py`` refuses to run, and prints
 no result, without a CUDA device.
 """
 import ast
@@ -133,6 +134,22 @@ with tempfile.TemporaryDirectory() as tmp:
     assert os.listdir(os.path.join(tmp, "trace"))
 out = graph_classification_gin.main(["--device", "cpu", "--epochs", "2", "--n_graph", "16"])
 assert np.isfinite(out["loss"]), out
+os.environ["OMP_NUM_THREADS"] = "1"
+out = main(["--Model", "GraphSAGE", "--device", "cpu", "--n_devices", "2", "--n_node", "600",
+            "--n_epochs", "1", "--nhid", "8", "--feat_dim", "8", "--batch_size", "32",
+            "--async_dp"], timeout=100)
+assert out["trials"][0]["n_devices"] == 2, out
+from dgll_tpu_torch.parallel import (make_gp_gcn_train_step, make_mesh, partition_graph,
+                                     shard_partitioned_graph)
+from dgll_tpu_torch.train import create_train_state
+mesh = make_mesh()
+shard = shard_partitioned_graph(partition_graph(g, 1, strategy="bfs"), mesh)
+w = torch.nn.ParameterDict(dict(w=torch.randn(128, int(g.labels.max()) + 1)))
+step = make_gp_gcn_train_step(mesh, shard, lambda m, spmm, x, gen: torch.log_softmax(
+    spmm(x @ m["w"]), -1))
+_, loss = step(create_train_state(w, torch.optim.Adam), shard.node_feat, shard.labels,
+               shard.train_mask)
+assert torch.isfinite(loss), loss
 print("NOJAX_OK")
 """
 
@@ -152,7 +169,9 @@ def test_package_imports_and_trains_without_jax():
 def test_no_source_imports_jax():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dgll_tpu|benchmarks)\b", re.MULTILINE)
-    offenders = [str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")
+    children = sorted((REPO / "tests").glob("_torch_*child.py"))
+    assert children  # the multi-rank tests' child scripts import the port only
+    offenders = [str(p.relative_to(REPO)) for p in [*PACKAGE.rglob("*.py"), *children]
                  if pattern.search(p.read_text())]
     assert offenders == []
     assert not pattern.search((REPO / "chip_smoke.py").read_text())

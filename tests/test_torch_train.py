@@ -97,14 +97,3 @@ def test_cli_prints_the_jax_cli_keys(capsys):
     trial = got["trials"][0]
     assert trial["epochs"] == 3 and len(trial["epoch_loss"]) == 3
     assert trial["test_acc"] > 1 / 16
-
-
-@pytest.mark.parametrize("args", [
-    ["--samp_type", "fastgcn", "--device_sampling", "--n_devices", "2"],
-    ["--samp_type", "neighbor", "--Model", "GIN", "--n_devices", "2"],
-    ["--samp_type", "neighbor", "--n_devices", "2"],
-    ["--samp_type", "full", "--n_devices", "2"],
-])
-def test_cli_raises_outside_the_slice(args):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 8"):
-        torch_run.main(args + ["--device", "cpu"])
