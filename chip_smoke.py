@@ -117,7 +117,16 @@ checkpoints and ``device_trace``:
   counted) beside phase 9's float32 run, and a bf16 ``--device_sampling`` run; then
   ``save_graph``/``load_graph`` of the slice's graph, a ``--checkpoint_dir`` run and
   its ``--resume`` (the restored parameters equal those saved), and two resumed
-  epochs on the loaded graph inside ``device_trace``, whose trace names K1 and K7.
+  epochs on the loaded graph inside ``device_trace``, whose trace names K1 and K7;
+* data and graph-partition parallel (phase 24) and the halo exchange, tensor
+  parallel, the dry run and DeepWalk (phase 25), each in two ranks sharing the card
+  over gloo: phase 25 drives the clustered graph's graph-partition GCN through the
+  halo exchange (K1 on each rank's ``[rows, rows + D*H]`` layout), the windowed halo
+  SpMM (K2 on each shard's captured edges) and the all-gather, each against the
+  one-process K1 GCN with every launch counted; K2 on a shard, K1 on the halo layout
+  and K1 on a tensor-parallel slice against their plain versions and timed; the TP
+  GCN against one process; ``dryrun_multichip(2)``; DeepWalk's skip-gram on the card
+  against the CPU and an epoch timed.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -261,6 +270,13 @@ def bound(moved: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     tensor cores unless ``ops_per_s`` says otherwise)."""
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_reads(lay, x) -> tuple:
+    """What K1 on ``lay`` must read, each once: its CSR and only the rows of ``x``
+    that its edges name (a shard or halo layout leaves many rows unread)."""
+    return (lay.indptr, lay.src, lay.weight,
+            x.index_select(0, torch.unique(lay.src.long())))
 
 
 def csr(indptr, cols, values, shape):
@@ -3291,9 +3307,10 @@ def _gp_apply(model, spmm, x, generator=None):
     return torch.log_softmax(spmm(h @ model["w2"]), dim=-1)
 
 
-def _gp_model(weights):
-    return torch.nn.ParameterDict({k: torch.from_numpy(v) for k, v in weights.items()}
-                                  ).to("cuda")
+def _gp_model(weights, device="cuda"):
+    """A fresh copy of ``weights`` (numpy) as parameters on ``device``."""
+    return torch.nn.ParameterDict({k: torch.tensor(v) for k, v in weights.items()}
+                                  ).to(device)
 
 
 def _phase24_rank(work: str) -> int:
@@ -3392,9 +3409,9 @@ def _dp_reference(data, ranks) -> None:
         check(torch.equal(a, b), f"DP epoch: the ranks' parameter {k} bitwise equal")
 
 
-def _gp_reference(pg, weights, ranks) -> dict:
-    """(b)'s check: the one-process K1 GCN on the whole (relabelled) graph; the ranks'
-    log-probs (stacked) and their parameters after one SGD step against it."""
+def _gp_one_process(pg, weights, lr: float = PAR_GP_LR, device="cuda") -> dict:
+    """The one-process K1 GCN on the whole (relabelled) graph of ``pg``: its log-probs,
+    then one SGD step (its loss and the parameters after it)."""
     from dgll_tpu_torch.ops import build_chunked_pair
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
     from dgll_tpu_torch.train import masked_nll_loss
@@ -3404,42 +3421,57 @@ def _gp_reference(pg, weights, ranks) -> dict:
     dst = pg.dst_local + (np.arange(pg.n_shard) * pg.rows_per_shard)[:, None]
     c, ct = build_chunked_pair(pg.src[keep], dst[keep], pg.n_node, pg.n_node,
                                pg.edge_weight[keep])
-    c, ct = c.to("cuda"), ct.to("cuda")
+    c, ct = c.to(device), ct.to(device)
     n = pg.n_node
 
     def spmm(x):
         return spmm_chunked(c, ct, x)[:n]
 
-    model = _gp_model(weights)
-    x = torch.from_numpy(pg.node_feat).cuda()
+    model = _gp_model(weights, device)
+    x = torch.from_numpy(pg.node_feat).to(device)
     with torch.no_grad():
-        want = _gp_apply(model, spmm, x).cpu()
-    got = torch.cat([r["logits"] for r in ranks])
-    err = (got - want).abs().max().item()
-    check(err <= PAR_GP_TOL * want.abs().max().item(),
-          f"GP log-probs within {PAR_GP_TOL} x max|ref| of one process (err {err:.3e})")
-    opt = torch.optim.SGD(model.parameters(), lr=PAR_GP_LR)
+        logits = _gp_apply(model, spmm, x).cpu()
+    opt = torch.optim.SGD(model.parameters(), lr=lr)
     loss = masked_nll_loss(_gp_apply(model, spmm, x),
-                           torch.from_numpy(pg.labels).cuda(),
-                           torch.from_numpy(pg.train_mask).cuda())
+                           torch.from_numpy(pg.labels).to(device),
+                           torch.from_numpy(pg.train_mask).to(device))
     loss.backward()
     opt.step()
+    return {"logits": logits, "loss": loss.item(),
+            "params": {k: v.detach().cpu() for k, v in model.items()}}
+
+
+def _gp_against(ref: dict, ranks, tol: float, what: str, key: str = "") -> dict:
+    """The ranks' log-probs (stacked) and their parameters after one SGD step
+    (``<key>logits``, ``<key>gp_loss``, ``<key>gp_params``) against the one-process
+    K1 GCN's, within ``tol`` x max|ref|."""
+    want = ref["logits"]
+    got = torch.cat([r[f"{key}logits"] for r in ranks])
+    err = (got - want).abs().max().item()
+    check(err <= tol * want.abs().max().item(),
+          f"{what} log-probs within {tol} x max|ref| of one process (err {err:.3e})")
     step_err = 0.0
     for r in ranks:
-        check(abs(r["gp_loss"] - loss.item()) <= 1e-5 * abs(loss.item()),
-              f"GP loss {r['gp_loss']} against one process's {loss.item()}")
-        for k, v in model.items():
-            v = v.detach().cpu()
-            e = (r["gp_params"][k] - v).abs().max().item()
+        loss = r[f"{key}gp_loss"]
+        check(abs(loss - ref["loss"]) <= 1e-5 * abs(ref["loss"]),
+              f"{what} loss {loss} against one process's {ref['loss']}")
+        for k, v in ref["params"].items():
+            e = (r[f"{key}gp_params"][k] - v).abs().max().item()
             step_err = max(step_err, e)
-            check(e <= PAR_GP_TOL * v.abs().max().item(),
-                  f"GP step: {k} within {PAR_GP_TOL} x max|ref| of one process ({e:.3e})")
-    return {"logits_err": err, "step_err": step_err, "loss": loss.item()}
+            check(e <= tol * v.abs().max().item(),
+                  f"{what} step: {k} within {tol} x max|ref| of one process ({e:.3e})")
+    return {"logits_err": err, "step_err": step_err, "loss": ref["loss"]}
+
+
+def _gp_reference(pg, weights, ranks) -> dict:
+    """(b)'s check: the one-process K1 GCN on the whole (relabelled) graph; the ranks'
+    log-probs (stacked) and their parameters after one SGD step against it."""
+    return _gp_against(_gp_one_process(pg, weights), ranks, PAR_GP_TOL, "GP")
 
 
 def _k1_shard_times(pg) -> dict:
     """K1 on rank 0's shard layout at width 128, beside its plain version and
-    ``torch.sparse.mm`` on the same CSR, and its bound."""
+    ``torch.sparse.mm`` on the same CSR, and its bound (``k1_reads``)."""
     from dgll_tpu_torch.ops import spmm_chunked_reference
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
     from dgll_tpu_torch.parallel import gp
@@ -3454,7 +3486,7 @@ def _k1_shard_times(pg) -> dict:
           f"K1 on the shard: within 1e-4 x max|ref| of its plain version ({err:.3e})")
     mat = csr(lay.indptr, lay.src, lay.weight, (lay.n_rows, lay.n_cols))
     t = timed(Case(lambda: spmm_csr_cuda(lay, x), lambda: spmm_chunked_reference(lay, x),
-                   lambda: torch.sparse.mm(mat, x), (lay.indptr, lay.src, lay.weight, x),
+                   lambda: torch.sparse.mm(mat, x), k1_reads(lay, x),
                    2 * lay.src.numel() * 128), (got,))
     print(f"[24 K1 shard] [{lay.n_rows}, {lay.n_cols}] layout, {lay.src.numel()} edges, "
           f"F=128: {describe(t)}; max abs err {err:.3e}")
@@ -3556,6 +3588,508 @@ def phase_parallel(data, flagship: dict) -> dict:
     return out
 
 
+PAR25_DIR = os.path.join("build", "phase25")
+HALO_TOL = 1e-5        # phase 25's paths against one process, x max|ref|
+HALO_STEPS = 5         # timed steps of each graph-partition path after the checked one
+HALO_FEAT = 128        # the GCN's width, and the exchange's row width
+TP_HIDDEN = 128        # the TP GCN's hidden width: 64 a rank
+# DeepWalk's published settings (Perozzi et al., KDD 2014: dimension 128, walk length
+# 40, window 10), 5 negatives and batches of 8,192 pairs, on a 20,000-node graph of
+# average degree 16; 4 walks a node, the paper's 80 cut so that the epoch (2.05 ms a
+# step on the card) keeps phase 25 near 90 s (PERF.md section 4)
+DEEPWALK = dict(n_node=20_000, avg_degree=16, dim=128, walk_length=40, window=10,
+                n_negative=5, batch=8192, num_walks=4, lr=1e-2)
+# Adam divides a gradient by its root mean square plus eps 1e-8, and at a batch of
+# 8,192 pairs (the loss a mean) many table gradients are within a few eps: the float32
+# rounding of such a gradient (sums in another order on the card and on the CPU) moves
+# its update by a visible share of the learning rate in either (the CPU test's
+# reason at tests/test_torch_embedding.py:W_IN_TOL). So after 3 steps each table on
+# the card is held against the same steps in float64 on the CPU: no further from them
+# than SKIPGRAM_F64_FACTOR times the CPU's float32 tables are, plus 1e-5 x max|ref|.
+# The loss is held to 1e-5 of the CPU's, relative.
+SKIPGRAM_F64_FACTOR = 3.0
+K2_SHARD = ("spmm_windowed (K2) on a rank's captured local edges, [rows, rows] (the "
+            "windowed halo SpMM of graph-partition GCN)")
+K1_HALO = ("spmm_csr (K1) on a rank's halo layout, [rows, rows + D*H] (the halo SpMM "
+           "of graph-partition GCN)")
+K1_TP = ("spmm_csr (K1) on a rank's feature slice, [n_node, F/D] (tensor-parallel "
+         "GCN)")
+HALO_REPLACES = "dgll_tpu/parallel/halo.py:284"
+
+
+COLLECTIVE_NAMES = ("gloo", "nccl", "c10d", "record_param_comms", "all_to_all",
+                    "alltoall", "allgather", "all_gather", "allreduce", "all_reduce")
+
+
+def _union_ms(spans) -> float:
+    """The time covered by the ``(start, end)`` spans (microseconds), in ms."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total, end = total + b - max(a, end), b
+    return total / 1e3
+
+
+def _traced_step(mesh, run, log_dir: str) -> dict:
+    """One more step of every rank, rank 0's inside ``device_trace``: from its trace,
+    the device's busy time (the union of kernels, copies and sets) split into K1, K2,
+    copies and the rest, and the host time in which a collective was under way (the
+    union of the host events named by ``COLLECTIVE_NAMES``, on any thread), beside the
+    step's time on the host clock. Empty on the other ranks."""
+    from dgll_tpu_torch.parallel import mesh as meshes
+    from dgll_tpu_torch.utils import device_trace
+
+    meshes.barrier(mesh)
+    torch.cuda.synchronize()
+    if mesh.rank != 0:
+        run()
+        return {}
+    with device_trace(log_dir):
+        t0 = time.perf_counter()
+        run()
+        wall = 1e3 * (time.perf_counter() - t0)
+    (name,) = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+    with open(os.path.join(log_dir, name)) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    os.remove(os.path.join(log_dir, name))
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    sums = collections.Counter()
+    for e in dev:
+        n = e["name"]
+        sums["K1" if "spmm_csr_kernel" in n else "K2" if "spmm_windowed_kernel" in n
+             else "copies" if e["cat"] != "kernel" else "other"] += e["dur"] / 1e3
+    comm = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation")
+            and any(k in e["name"].lower() for k in COLLECTIVE_NAMES)]
+    out = {"wall_ms": wall, "device_ms": _union_ms((e["ts"], e["ts"] + e["dur"]) for e in dev),
+           **{f"{k}_ms": sums[k] for k in ("K1", "K2", "copies", "other")},
+           "collective_ms": _union_ms((e["ts"], e["ts"] + e["dur"]) for e in comm),
+           "collective_names": sorted({e["name"] for e in comm})}
+    check(out["K1_ms"] > 0, f"the traced step's device events name K1: {dict(sums)}")
+    return out
+
+
+def _halo_paths(mesh, pg, weights, device, steps: int = HALO_STEPS) -> dict:
+    """(a) on this rank: the 2-layer GCN through the halo exchange (forced), the
+    windowed halo SpMM and the all-gather (gp.py's), each from the same weights: its
+    log-probs and one SGD step, every launch counter set to 0 just before and read
+    just after, then ``steps`` timed steps and one traced (``_traced_step``)."""
+    from dgll_tpu_torch.parallel import gp, halo
+    from dgll_tpu_torch.parallel import mesh as meshes
+    from dgll_tpu_torch.train import create_train_state
+
+    shard = gp.shard_partitioned_graph(pg, mesh, device)
+    plan = halo.build_halo_plan(pg)
+    t0 = time.perf_counter()
+    sw = halo.build_shard_windowed(pg, mesh.rank)
+    out = {"windowed_build_s": time.perf_counter() - t0, "halo_size": plan.halo_size,
+           "windowed_fraction": sw.windowed_fraction,
+           "captured": 0 if sw.win is None else sw.win.src.numel(),
+           "t_residual": sw.win_t is not None and sw.win_t.res is not None,
+           "t_windowed": sw.win_t is not None and sw.win_t.win.src.numel() > 0,
+           "halo_bytes": halo.halo_volume_bytes(pg, plan, HALO_FEAT),
+           "allgather_bytes": halo.allgather_volume_bytes(pg, HALO_FEAT)}
+    auto, out["auto"] = halo.make_partitioned_spmm(mesh, pg, HALO_FEAT, "auto", device)
+    paths = {"halo": auto if out["auto"] == "halo" else
+             halo.make_partitioned_spmm(mesh, pg, HALO_FEAT, "halo", device)[0],
+             "windowed": halo.make_halo_spmm_windowed(mesh, shard, plan, sw),
+             "allgather": gp.make_sharded_spmm(mesh, shard)}
+    for name, spmm in paths.items():
+        model = _gp_model(weights, device)
+        state = create_train_state(model, functools.partial(torch.optim.SGD, lr=PAR_GP_LR))
+        step = gp.make_gp_gcn_train_step(mesh, shard, _gp_apply, spmm)
+        meshes.barrier(mesh)
+        _zero_all_counters()
+        with torch.no_grad():
+            out[f"{name}:logits"] = _gp_apply(model, spmm, shard.node_feat).cpu()
+        state, loss = step(state, shard.node_feat, shard.labels, shard.train_mask)
+        out[f"{name}:gp_loss"] = float(loss)
+        out[f"{name}:launches"] = {k: v for k, v in _all_counters().items() if v}
+        out[f"{name}:gp_params"] = {k: v.detach().cpu().clone() for k, v in model.items()}
+        meshes.barrier(mesh)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, loss = step(state, shard.node_feat, shard.labels, shard.train_mask)
+        float(loss)  # waits for the last step
+        out[f"{name}:step_ms"] = 1e3 * (time.perf_counter() - t0) / max(steps, 1)
+
+        def one_step():
+            nonlocal state
+            state, loss = step(state, shard.node_feat, shard.labels, shard.train_mask)
+            float(loss)
+
+        out[f"{name}:trace"] = _traced_step(mesh, one_step,
+                                            os.path.join(PAR25_DIR, f"trace_{name}"))
+    return out
+
+
+def _tp_rank(mesh, t, device) -> dict:
+    """(d) on this rank: the TP GCN's log-probs and the gradients of its masked NLL
+    in this rank's slices, K1's launches counted, then its forward and backward
+    timed."""
+    from dgll_tpu_torch.nn import tp_params_from_numpy
+    from dgll_tpu_torch.parallel import tp
+    from dgll_tpu_torch.parallel import mesh as meshes
+    from dgll_tpu_torch.train import masked_nll_loss
+
+    tp_mesh = meshes.make_mesh(("model",))
+    apply = tp.make_tp_gcn_apply(tp_mesh, t["src"], t["dst"], t["w"], t["n"],
+                                 device=device)
+    params = {k: v.to(device).requires_grad_(True)
+              for k, v in tp_params_from_numpy(t["weights"], tp_mesh).items()}
+    x, labels, mask = (torch.from_numpy(t[k]).to(device) for k in ("x", "labels", "mask"))
+
+    def fwd_bwd():
+        for v in params.values():
+            v.grad = None
+        loss = masked_nll_loss(apply(params, x), labels, mask)
+        loss.backward()
+        return loss
+
+    meshes.barrier(mesh)
+    _zero_all_counters()
+    with torch.no_grad():
+        logp = apply(params, x)
+    loss = fwd_bwd()
+    out = {"tp_launches": {k: v for k, v in _all_counters().items() if v},
+           "tp_logp": logp.cpu(), "tp_loss": loss.item(),
+           "tp_grads": {k: v.grad.cpu().clone() for k, v in params.items()}}
+    meshes.barrier(mesh)
+    t0 = time.perf_counter()
+    for _ in range(HALO_STEPS):
+        loss = fwd_bwd()
+    float(loss)
+    out["tp_step_ms"] = 1e3 * (time.perf_counter() - t0) / HALO_STEPS
+    return out
+
+
+def _phase25_rank(work: str) -> int:
+    """One rank of phase 25 (started by ``launch_local``): (a) the graph-partition GCN
+    on the clustered graph through the three exchanges, (d) the TP GCN on the slices'
+    graph."""
+    from dgll_tpu_torch.parallel import launch
+    from dgll_tpu_torch.parallel import mesh as meshes
+    from dgll_tpu_torch.parallel.partition import PartitionedGraph
+
+    launch.initialize_distributed(device="cuda")
+    mesh = meshes.make_mesh()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p = torch.load(os.path.join(work, "gp.pt"), weights_only=False)
+    out = {"backend": mesh.backend, "device": str(dev),
+           **_halo_paths(mesh, PartitionedGraph(**p["pg"]), p["weights"], dev)}
+    del p
+    torch.cuda.empty_cache()
+    out.update(_tp_rank(mesh, torch.load(os.path.join(work, "tp.pt"), weights_only=False),
+                        dev))
+    torch.save(out, os.path.join(work, f"rank{mesh.rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _expected_gp_launches(rank: dict, name: str) -> dict:
+    """The launches of the log-probs and one step of a 2-layer GCN: K1 twice a forward
+    and once a layer backward on the exchange's layout; on the windowed path K2 also,
+    its backward on the transpose's cut (K2 where it captures, K1 on its residual)."""
+    want = {"K1 fwd": 4, "K1 bwd": 2}
+    if name == "windowed" and rank["captured"]:
+        want["K2 fwd"] = 4
+        if rank["t_windowed"]:
+            want["K2 bwd"] = 2
+        if rank["t_residual"]:
+            want["K1 bwd"] += 2
+    return want
+
+
+def _k2_shard_times(win) -> dict:
+    """(b): K2 on rank 0's captured local edges at width 128 against its plain
+    version (1e-5 x max|ref|, bitwise repeatable), timed beside ``sparse.mm`` of the
+    same edges, with its bound by bytes."""
+    from dgll_tpu_torch.ops.cuda.spmm_windowed import spmm_windowed_cuda
+    from dgll_tpu_torch.ops.windowed import spmm_windowed_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    x = torch.randn(win.n_cols, HALO_FEAT, generator=gen, device="cuda")
+    got, again = spmm_windowed_cuda(win, x), spmm_windowed_cuda(win, x)
+    want = spmm_windowed_reference(win, x)
+    err = (got - want).abs().max().item()
+    check(err <= 1e-5 * want.abs().max().item() and torch.equal(got, again),
+          f"K2 on the shard: within 1e-5 x max|ref| of its plain version ({err:.3e}), "
+          f"bitwise repeatable")
+    mat = torch.sparse_coo_tensor(torch.stack([win.rows.long(), win.src.long()]),
+                                  win.weight, (win.n_rows, win.n_cols)).coalesce()
+    mat = mat.to_sparse_csr()
+    t = timed(Case(lambda: spmm_windowed_cuda(win, x), lambda: spmm_windowed_reference(win, x),
+                   lambda: torch.sparse.mm(mat, x),
+                   (win.blk_ptr, win.sub_ptr, win.sub_x0, win.sub_nx, win.src, win.rows,
+                    win.weight, x), 2 * win.src.numel() * HALO_FEAT), (got,))
+    print(f"[25 K2 shard] [{win.n_rows}, {win.n_cols}] layout, {win.src.numel()} edges in "
+          f"{win.n_sub} sub-chunks staging {int(win.sub_nx.sum())} rows, F={HALO_FEAT}: "
+          f"{describe(t)}; max abs err {err:.3e}")
+    return {**t, "err": err}
+
+
+def _k1_layout_times(lay, f: int, tag: str, seed: int) -> dict:
+    """K1 on ``lay`` at width ``f`` against its plain version (1e-5 x max|ref|),
+    timed beside ``sparse.mm`` on the same CSR, with its bound (``k1_reads``)."""
+    from dgll_tpu_torch.ops import spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(lay.n_cols, f, generator=gen, device="cuda")
+    got, want = spmm_csr_cuda(lay, x), spmm_chunked_reference(lay, x)
+    err = (got - want).abs().max().item()
+    check(err <= 1e-5 * want.abs().max().item(),
+          f"K1 on the {tag}: within 1e-5 x max|ref| of its plain version ({err:.3e})")
+    mat = csr(lay.indptr, lay.src, lay.weight, (lay.n_rows, lay.n_cols))
+    t = timed(Case(lambda: spmm_csr_cuda(lay, x), lambda: spmm_chunked_reference(lay, x),
+                   lambda: torch.sparse.mm(mat, x), k1_reads(lay, x),
+                   2 * lay.src.numel() * f), (got,))
+    print(f"[25 K1 {tag}] [{lay.n_rows}, {lay.n_cols}] layout, {lay.src.numel()} edges, "
+          f"F={f}: {describe(t)}; max abs err {err:.3e}")
+    return {**t, "err": err}
+
+
+def _tp_reference(t, ranks, device="cuda") -> dict:
+    """(d)'s check: the one-process K1 GCN with the whole weights; every rank's
+    log-probs and its slices' gradients against it, within ``HALO_TOL`` x max|ref|."""
+    from dgll_tpu_torch.ops import build_chunked_pair
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
+    from dgll_tpu_torch.train import masked_nll_loss
+
+    n = t["n"]
+    c, ct = build_chunked_pair(t["src"], t["dst"], n, n, t["w"])
+    c, ct = c.to(device), ct.to(device)
+    params = {k: torch.from_numpy(v).to(device).requires_grad_(True)
+              for k, v in t["weights"].items()}
+    x = torch.from_numpy(t["x"]).to(device)
+    h = spmm_chunked(c, ct, x @ params["w1"], activation="relu")[:n]
+    logp = torch.log_softmax(spmm_chunked(c, ct, h)[:n] @ params["w2"] + params["b2"], -1)
+    loss = masked_nll_loss(logp, torch.from_numpy(t["labels"]).to(device),
+                           torch.from_numpy(t["mask"]).to(device))
+    loss.backward()
+    want = logp.detach().cpu()
+    errs = {"logp": 0.0, "grads": 0.0}
+    k = TP_HIDDEN // PAR_RANKS
+    for r, got in enumerate(ranks):
+        e = (got["tp_logp"] - want).abs().max().item()
+        errs["logp"] = max(errs["logp"], e)
+        check(e <= HALO_TOL * want.abs().max().item(),
+              f"TP rank {r}: log-probs within {HALO_TOL} x max|ref| of one process ({e:.3e})")
+        check(abs(got["tp_loss"] - loss.item()) <= 1e-5 * abs(loss.item()),
+              f"TP rank {r}: loss {got['tp_loss']} against one process's {loss.item()}")
+        cut = {"w1": (slice(None), slice(r * k, (r + 1) * k)),
+               "w2": (slice(r * k, (r + 1) * k),), "b2": (slice(None),)}
+        for name, idx in cut.items():
+            g = params[name].grad.cpu()[idx]
+            e = (got["tp_grads"][name] - g).abs().max().item()
+            errs["grads"] = max(errs["grads"], e)
+            check(e <= HALO_TOL * g.abs().max().item(),
+                  f"TP rank {r}: d{name} within {HALO_TOL} x max|ref| ({e:.3e})")
+    lay = c
+    del ct, params, h, logp
+    return {**errs, "loss": loss.item(), "layout": lay}
+
+
+def _deepwalk(device="cuda", cfg=None, cpu_check: bool = True) -> dict:
+    """(f): DeepWalk at its published settings on the card: walks and pairs on the
+    host (timed), 3 skip-gram steps on the card against the same steps on the CPU
+    with the same negatives (the loss to 1e-5; the tables against the steps in
+    float64, ``SKIPGRAM_F64_FACTOR``), then one epoch timed; the embeddings'
+    softmax-regression accuracy (the card's machine has no sklearn) above chance."""
+    from dgll_tpu_torch.data import synthetic_classification_graph
+    from dgll_tpu_torch.embedding import (SkipGramModel, WalkGraph, deepwalk_walks,
+                                          train_classifier, walk_pairs)
+
+    cfg = {**DEEPWALK, **(cfg or {})}
+    g = synthetic_classification_graph(n_node=cfg["n_node"], avg_degree=cfg["avg_degree"],
+                                       n_class=8, feat_dim=8, homophily=0.9, seed=0)
+    t0 = time.perf_counter()
+    wg = WalkGraph.from_graph(g)
+    walks = deepwalk_walks(wg, cfg["num_walks"], cfg["walk_length"], seed=0)
+    walk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pairs = walk_pairs(walks, cfg["window"], np.random.default_rng(0))
+    pairs_s = time.perf_counter() - t0
+    n, b, k = wg.n_node, cfg["batch"], cfg["n_negative"]
+    model = SkipGramModel(n, cfg["dim"], k, cfg["lr"], seed=0, device=device)
+    out = {"walks": int(walks.shape[0]), "walks_per_s": walks.shape[0] / walk_s,
+           "walk_s": walk_s, "pairs": len(pairs), "pairs_s": pairs_s}
+    if cpu_check:
+        tables = {key: v.cpu() for key, v in model.state_dict().items()}
+        plain = SkipGramModel(n, cfg["dim"], k, cfg["lr"], seed=0, device="cpu")
+        plain.load_state_dict(tables)
+        exact = SkipGramModel(n, cfg["dim"], k, cfg["lr"], seed=0, device="cpu").double()
+        exact.load_state_dict({key: v.double() for key, v in tables.items()})
+        exact.optimizer = torch.optim.Adam(exact.parameters(), lr=cfg["lr"])
+        gen = torch.Generator().manual_seed(25)
+        for i in range(3):
+            batch = pairs[i * b:(i + 1) * b]
+            neg = torch.randint(0, n, (len(batch), k), generator=gen)
+            got = model.step(batch[:, 0], batch[:, 1], neg.to(device))
+            want = plain.step(batch[:, 0], batch[:, 1], neg)
+            exact.step(batch[:, 0], batch[:, 1], neg)
+            check(abs(got.item() - want.item()) <= 1e-5 * abs(want.item()),
+                  f"skip-gram step {i}: loss {got.item()} against the CPU's {want.item()}")
+        for name in ("w_in", "w_out"):
+            ref = getattr(exact, name).detach()
+            card = getattr(model, name).detach().cpu().double()
+            cpu = getattr(plain, name).detach().double()
+            e_card, e_cpu = ((t - ref).abs().max().item() for t in (card, cpu))
+            out[f"{name}_err"] = (card - cpu).abs().max().item()
+            out[f"{name}_f64_err"] = {"card": e_card, "cpu": e_cpu}
+            check(e_card <= SKIPGRAM_F64_FACTOR * e_cpu + HALO_TOL * ref.abs().max().item(),
+                  f"skip-gram {name} after 3 steps: the card {e_card:.3e} from the float64 "
+                  f"steps, the CPU's float32 {e_cpu:.3e}")
+    steps = 20
+    batch = torch.from_numpy(pairs[:b]).to(device)
+    model.step(batch[:, 0], batch[:, 1])
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = model.step(batch[:, 0], batch[:, 1])
+    float(loss)
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0) / steps
+    t0 = time.perf_counter()
+    out["epoch_loss"] = model.train(pairs, epochs=1, batch_size=b, seed=0)
+    out["epoch_s"] = time.perf_counter() - t0
+    out["epoch_steps"] = len(pairs) // min(b, len(pairs))
+    labels = g.labels[:n].numpy()
+    out["accuracy"], _ = train_classifier(model.embeddings, labels, "logistic", seed=0)
+    check(np.isfinite(out["epoch_loss"]) and np.isfinite(model.embeddings).all(),
+          "DeepWalk: a finite loss and finite embeddings")
+    check(out["accuracy"] > 1.5 / 8, f"DeepWalk: accuracy {out['accuracy']} above chance")
+    return out
+
+
+def phase_halo_tp() -> dict:
+    """Phase 25: two ranks share the card over gloo (``launch_local``). (a) The
+    graph-partition GCN on the clustered graph (200,000 nodes, 2 range shards, 2
+    layers at 128) through the halo exchange, the windowed halo SpMM (K2 on each
+    shard's captured edges) and the all-gather, each against the one-process K1 GCN;
+    (b) K2 on rank 0's shard and (c) K1 on its halo layout, checked and timed; (d)
+    the TP GCN on the slices' graph (hidden 128, 64 a rank) against one process, K1
+    on a [200000, 64] slice timed; (e) ``dryrun_multichip(2)``; (f) DeepWalk."""
+    from dgll_tpu_torch.bench import clustered_graph
+    from dgll_tpu_torch.data import gcn_normalize
+    from dgll_tpu_torch.entry import dryrun_multichip
+    from dgll_tpu_torch.parallel import halo, launch_local, partition_graph
+    from dgll_tpu_torch.run import build_dataset
+    from dgll_tpu_torch.tools.profile_slice import SLICE_ARGS
+    from dgll_tpu_torch.utils import parse_train_config
+
+    t0 = time.perf_counter()
+    os.makedirs(PAR25_DIR, exist_ok=True)
+    pg = partition_graph(gcn_normalize(clustered_graph(200_000, 16)), PAR_RANKS,
+                         strategy="range")
+    rng = np.random.default_rng(25)
+    n_class = int(pg.labels.max()) + 1
+    weights = {"w1": rng.normal(0, 0.1, (HALO_FEAT, HALO_FEAT)).astype(np.float32),
+               "w2": rng.normal(0, 0.1, (HALO_FEAT, n_class)).astype(np.float32)}
+    torch.save({"pg": vars(pg), "weights": weights}, os.path.join(PAR25_DIR, "gp.pt"))
+    g = build_dataset(parse_train_config(SLICE_ARGS))
+    e, n = g.n_real_edge, g.n_real_node
+    f_in, c_out = g.node_feat.shape[1], int(g.labels.max()) + 1
+    t = {"src": g.src[:e].numpy(), "dst": g.dst[:e].numpy(), "w": g.edge_weight[:e].numpy(),
+         "n": n, "x": g.node_feat[:n].numpy(), "labels": g.labels[:n].numpy(),
+         "mask": g.train_mask[:n].numpy(),
+         "weights": {"w1": rng.normal(0, np.sqrt(2.0 / f_in), (f_in, TP_HIDDEN)
+                                      ).astype(np.float32),
+                     "w2": rng.normal(0, np.sqrt(2.0 / TP_HIDDEN), (TP_HIDDEN, c_out)
+                                      ).astype(np.float32),
+                     "b2": np.zeros(c_out, np.float32)}}
+    torch.save(t, os.path.join(PAR25_DIR, "tp.pt"))
+    del g
+    t_files = time.perf_counter() - t0
+    launch_local(PAR_RANKS, [sys.executable, os.path.abspath(__file__), "--phase25-rank",
+                             PAR25_DIR], timeout=600)
+    ranks = [torch.load(os.path.join(PAR25_DIR, f"rank{r}.pt"), weights_only=False)
+             for r in range(PAR_RANKS)]
+    t_ranks = time.perf_counter() - t0 - t_files
+
+    # (a) every path against the one-process K1 GCN, its launches a step
+    ref = _gp_one_process(pg, weights)
+    out = {"paths": {}}
+    for name in ("halo", "windowed", "allgather"):
+        chk = _gp_against(ref, ranks, HALO_TOL, f"GP {name}", key=f"{name}:")
+        for r, got in enumerate(ranks):
+            want = _expected_gp_launches(got, name)
+            check(got[f"{name}:launches"] == want,
+                  f"GP {name} rank {r}: launches {got[f'{name}:launches']}, want {want}")
+        out["paths"][name] = {**chk, "launches": [r[f"{name}:launches"] for r in ranks],
+                              "step_ms": [r[f"{name}:step_ms"] for r in ranks]}
+        print(f"[25 gp] {name}: log-probs within {chk['logits_err']:.3e}, one SGD step "
+              f"within {chk['step_err']:.3e} of the one-process K1 GCN; launches (log-probs "
+              f"and one step) a rank {out['paths'][name]['launches']}; ms a step "
+              f"{[round(v, 3) for v in out['paths'][name]['step_ms']]}")
+    r0 = ranks[0]
+    for name in ("halo", "windowed", "allgather"):
+        tr = out["paths"][name]["trace"] = r0[f"{name}:trace"]
+        print(f"[25 trace] {name}, rank 0, one step: {tr['wall_ms']:.4f} ms on the host "
+              f"clock; device busy {tr['device_ms']:.4f} ms ({tr['device_ms'] / tr['wall_ms']:.1%}"
+              f"; K1 {tr['K1_ms']:.4f}, K2 {tr['K2_ms']:.4f}, copies {tr['copies_ms']:.4f}, "
+              f"other {tr['other_ms']:.4f}); a collective under way for "
+              f"{tr['collective_ms']:.4f} ms ({tr['collective_ms'] / tr['wall_ms']:.1%}; "
+              f"{tr['collective_names']})")
+    for k in ("halo_size", "halo_bytes", "allgather_bytes", "auto", "windowed_fraction"):
+        check(all(r[k] == r0[k] for r in ranks), f"the ranks agree on {k}")
+        out[k] = r0[k]
+    check(r0["auto"] == ("halo" if r0["halo_bytes"] < r0["allgather_bytes"] else "allgather"),
+          "the automatic choice takes the exchange of fewer bytes")
+    print(f"[25 plan] {pg.n_shard} range shards of {pg.rows_per_shard} rows "
+          f"({int((pg.edge_weight != 0).sum())} edges): H {r0['halo_size']}, all-to-all "
+          f"{r0['halo_bytes']} B against all-gather {r0['allgather_bytes']} B a step at "
+          f"F={HALO_FEAT}, auto {r0['auto']}; windowed_fraction {r0['windowed_fraction']:.4f}"
+          f", captured edges a rank {[r['captured'] for r in ranks]}, the shard's windowed "
+          f"build {[round(r['windowed_build_s'], 2) for r in ranks]} s")
+
+    # (b), (c): the new layouts of K2 and K1, rank 0's
+    plan = halo.build_halo_plan(pg)
+    win = halo.build_shard_windowed(pg, 0).win.to("cuda")
+    out["k2_shard"] = _k2_shard_times(win)
+    lay, _ = halo.halo_layout(pg, plan, 0)
+    out["k1_halo"] = _k1_layout_times(lay.to("cuda"), HALO_FEAT, "halo layout", 26)
+    del win, lay
+
+    # (d) the TP GCN against one process, K1 on one rank's feature slice
+    tp_check = _tp_reference(t, ranks)
+    for r, got in enumerate(ranks):
+        check(got["tp_launches"] == {"K1 fwd": 4, "K1 bwd": 2},
+              f"TP rank {r}: K1 launched 4 times forward, twice backward, got "
+              f"{got['tp_launches']}")
+    out["k1_tp"] = _k1_layout_times(tp_check.pop("layout"), TP_HIDDEN // PAR_RANKS,
+                                    "TP slice", 27)
+    out["tp"] = {**tp_check, "launches": r0["tp_launches"],
+                 "step_ms": [r["tp_step_ms"] for r in ranks]}
+    print(f"[25 tp] {PAR_RANKS} ranks, hidden {TP_HIDDEN} ({TP_HIDDEN // PAR_RANKS} a "
+          f"rank), {t['n']} nodes, {len(t['src'])} edges: log-probs within "
+          f"{tp_check['logp']:.3e}, gradients within {tp_check['grads']:.3e} of one "
+          f"process; K1 launches a rank {r0['tp_launches']}; ms a forward and backward "
+          f"{[round(v, 3) for v in out['tp']['step_ms']]}")
+    del t
+
+    # (e) the dry run on the card; (f) DeepWalk
+    t_dry = time.perf_counter()
+    line = dryrun_multichip(PAR_RANKS)
+    check(line.endswith(" OK") and "nan" not in line, "dryrun_multichip(2) ends in OK")
+    out["dryrun"] = {"line": line, "s": time.perf_counter() - t_dry}
+    print(f"[25 dryrun] {line} ({out['dryrun']['s']:.1f} s)")
+    out["deepwalk"] = _deepwalk()
+    dw = out["deepwalk"]
+    print(f"[25 deepwalk] {DEEPWALK['n_node']} nodes, {dw['walks']} walks of "
+          f"{DEEPWALK['walk_length']}: {dw['walks_per_s']:.0f} walks a second (host), "
+          f"{dw['pairs']} pairs in {dw['pairs_s']:.2f} s; 3 steps against the CPU: w_in "
+          f"{dw['w_in_err']:.3e}, w_out {dw['w_out_err']:.3e} (from float64: "
+          f"{dw['w_in_f64_err']}, {dw['w_out_f64_err']}); {dw['step_ms']:.4f} ms a "
+          f"step, an epoch ({dw['epoch_steps']} steps) {dw['epoch_s']:.2f} s, loss "
+          f"{dw['epoch_loss']:.4f}; logistic accuracy {dw['accuracy']:.4f}")
+    out.update(files_s=t_files, ranks_s=t_ranks)
+    print(f"[25 done] phase 25 in {time.perf_counter() - t0:.1f} s (files {t_files:.1f} s, "
+          f"ranks {t_ranks:.1f} s)")
+    return out
+
+
 def kernel_row(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
@@ -3600,6 +4134,7 @@ def main() -> int:
     bf16 = phase_bf16(gat_f32)
     parallel = phase_parallel(data, flagship)
     del data
+    halo_tp = phase_halo_tp()
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -3631,6 +4166,19 @@ def main() -> int:
     kernels.append(kernel_row(K1_SHARD, KERNEL_SOURCE, REPLACES,
                               sum(parallel["k1_launches"]), parallel["k1_shard"]["err"],
                               parallel["k1_shard"]))
+    paths = halo_tp["paths"]
+    kernels.append(kernel_row(
+        K2_SHARD, WINDOWED_SOURCE, HALO_REPLACES,
+        sum(paths["windowed"]["launches"][0].get(k, 0) for k in ("K2 fwd", "K2 bwd")),
+        halo_tp["k2_shard"]["err"], halo_tp["k2_shard"]))
+    kernels.append(kernel_row(
+        K1_HALO, KERNEL_SOURCE, REPLACES,
+        sum(paths["halo"]["launches"][0].get(k, 0) for k in ("K1 fwd", "K1 bwd")),
+        halo_tp["k1_halo"]["err"], halo_tp["k1_halo"]))
+    kernels.append(kernel_row(
+        K1_TP, KERNEL_SOURCE, REPLACES,
+        sum(halo_tp["tp"]["launches"].get(k, 0) for k in ("K1 fwd", "K1 bwd")),
+        halo_tp["k1_tp"]["err"], halo_tp["k1_tp"]))
     for name, key, line in PROBE_KERNELS:
         kernels.append(kernel_row(name, PROBES_SOURCE, f"{PROBE_SCRIPT}:{line}",
                                   probe_counts[key], probe_kernels[key]["err"],
@@ -3644,6 +4192,7 @@ def main() -> int:
     print(f"[22 layerwise] {json.dumps(layerwise)}")
     print(f"[23 bf16] {json.dumps({k: v for k, v in bf16.items() if k != 'kernels'})}")
     print(f"[24 parallel] {json.dumps(parallel)}")
+    print(f"[25 halo_tp] {json.dumps(halo_tp)}")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -3656,4 +4205,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase24-rank"]:
         sys.exit(_phase24_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase25-rank"]:
+        sys.exit(_phase25_rank(sys.argv[2]))
     sys.exit(main())

@@ -71,6 +71,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
                                          f32p]
     lib.dgll_partition_pack.argtypes = [i64p, i64p, f32p, i64, i64, i64, i64, i32p, i32p,
                                         f32p]
+    lib.dgll_random_walks.argtypes = [i64p, i64p, i64p, i64, i64, u64, i64p]
+    lib.dgll_node2vec_walks.argtypes = [i64p, i64p, i64p, i64, i64, ctypes.c_double,
+                                        ctypes.c_double, u64, i64p]
+    lib.dgll_sort_rows.argtypes = [i64p, i64, i64p]
     return lib
 
 
@@ -245,3 +249,71 @@ def label_propagation(indptr: np.ndarray, nbrs: np.ndarray, n: int, max_iters: i
         n, max_iters, _p64(labels),
     )
     return True
+
+
+def random_walks(indptr, nbrs, starts, walk_length: int, seed: int) -> np.ndarray:
+    """Uniform walks ``[len(starts), walk_length]`` over the out-edge CSR ``(indptr,
+    nbrs)``, each from its start; a node without out-edges repeats itself. The library
+    seeds each worker's generator from ``seed`` and its chunk, so its walks depend on
+    the core count; the numpy fallback (``_np_walks``) draws from
+    ``default_rng(seed)``."""
+    lib = get_lib()
+    starts = np.ascontiguousarray(starts, np.int64)
+    nw = len(starts)
+    if lib is None:
+        return _np_walks(indptr, nbrs, starts, walk_length, seed)
+    walks = np.empty(nw * walk_length, np.int64)
+    lib.dgll_random_walks(
+        _p64(np.ascontiguousarray(indptr, np.int64)),
+        _p64(np.ascontiguousarray(nbrs, np.int64)),
+        _p64(starts), nw, walk_length, seed & 0xFFFFFFFFFFFFFFFF, _p64(walks),
+    )
+    return walks.reshape(nw, walk_length)
+
+
+def _np_walks(indptr, nbrs, starts, L, seed):
+    rng = np.random.default_rng(seed)
+    cur = starts.copy()
+    walks = np.empty((len(cur), L), np.int64)
+    walks[:, 0] = cur
+    for t in range(1, L):
+        deg = indptr[cur + 1] - indptr[cur]
+        off = (rng.random(len(cur)) * np.maximum(deg, 1)).astype(np.int64)
+        nxt = nbrs[np.minimum(indptr[cur] + off, max(len(nbrs) - 1, 0))] if len(nbrs) else cur
+        cur = np.where(deg > 0, nxt, cur)
+        walks[:, t] = cur
+    return walks
+
+
+def sort_rows(indptr: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """A copy of ``vals`` (int64) with each CSR row ``indptr[v]:indptr[v + 1]`` sorted,
+    multithreaded; a numpy loop where the library is missing."""
+    vals = np.ascontiguousarray(vals, np.int64).copy()
+    lib = get_lib()
+    n = len(indptr) - 1
+    if lib is None:
+        for v in range(n):
+            lo, hi = indptr[v], indptr[v + 1]
+            vals[lo:hi] = np.sort(vals[lo:hi])
+        return vals
+    lib.dgll_sort_rows(_p64(np.ascontiguousarray(indptr, np.int64)), n, _p64(vals))
+    return vals
+
+
+def node2vec_walks_native(indptr, nbrs_sorted, starts, walk_length: int, p: float,
+                          q: float, seed: int) -> Optional[np.ndarray]:
+    """node2vec's biased walks ``[len(starts), walk_length]`` over an out-edge CSR whose
+    rows are sorted (``sort_rows``), by rejection in the library; None where the
+    library is missing (the caller then runs its numpy loop)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    starts = np.ascontiguousarray(starts, np.int64)
+    nw = len(starts)
+    walks = np.empty(nw * walk_length, np.int64)
+    lib.dgll_node2vec_walks(
+        _p64(np.ascontiguousarray(indptr, np.int64)),
+        _p64(np.ascontiguousarray(nbrs_sorted, np.int64)),
+        _p64(starts), nw, walk_length, p, q, seed & 0xFFFFFFFFFFFFFFFF, _p64(walks),
+    )
+    return walks.reshape(nw, walk_length)

@@ -1,5 +1,5 @@
 from dgll_tpu_torch.nn.conv import GATConv, GCNConv, GINConv, SAGEConv
-from dgll_tpu_torch.nn.convert import params_from_flax
+from dgll_tpu_torch.nn.convert import params_from_flax, skipgram_from_jax, tp_params_from_numpy
 from dgll_tpu_torch.nn.models import GAT, GCN, GIN, GINNode, GraphSAGE
 from dgll_tpu_torch.nn.pooling import (
     Pooling,
@@ -11,4 +11,5 @@ from dgll_tpu_torch.nn.pooling import (
 
 __all__ = ["GATConv", "GCNConv", "GINConv", "SAGEConv", "GAT", "GCN", "GIN", "GINNode",
            "GraphSAGE", "Pooling", "batch_graphs", "max_pooling", "mean_pooling",
-           "sum_pooling", "params_from_flax"]
+           "sum_pooling", "params_from_flax", "skipgram_from_jax",
+           "tp_params_from_numpy"]

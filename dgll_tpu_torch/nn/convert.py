@@ -1,6 +1,8 @@
 """Carry parameters across from the JAX package.
 
-``params_from_flax`` takes a flax ``GCN``, ``GAT``, ``GraphSAGE``, ``GINNode`` or
+``skipgram_from_jax`` takes a ``SkipGramModel``'s tables, ``tp_params_from_numpy`` a
+tensor-parallel GCN's whole parameters (this rank's slices out). ``params_from_flax``
+takes a flax ``GCN``, ``GAT``, ``GraphSAGE``, ``GINNode`` or
 ``GIN`` parameter tree as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side)
 and returns a ``state_dict`` for this package's model of the same name. A flax
@@ -65,3 +67,23 @@ def _dense(prefix: str, dense: Mapping) -> Dict[str, torch.Tensor]:
     if "bias" in dense:
         state[f"{prefix}.bias"] = _tensor(dense["bias"])
     return state
+
+
+def skipgram_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``SkipGramModel.params`` (``w_in``, ``w_out``, ``[n_node, dim]``, as numpy)
+    -> the ``state_dict`` of the port's ``SkipGramModel`` (the same tables)."""
+    return {k: _tensor(params[k]) for k in ("w_in", "w_out")}
+
+
+def tp_params_from_numpy(params: Mapping, mesh) -> Dict[str, torch.Tensor]:
+    """The whole ``w1 [F, H]``, ``w2 [H, C]`` and ``b2 [C]`` of a tensor-parallel GCN
+    -> rank ``mesh.rank``'s parts: ``w1``'s columns and ``w2``'s rows of its ``H/D``
+    slice, ``b2`` whole (``parallel/tp.py``)."""
+    hidden = np.shape(params["w1"])[1]
+    if hidden % mesh.size:
+        raise ValueError(f"hidden {hidden} must split over {mesh.size} ranks")
+    k = hidden // mesh.size
+    cols = slice(mesh.rank * k, (mesh.rank + 1) * k)
+    return {"w1": _tensor(np.asarray(params["w1"])[:, cols]),
+            "w2": _tensor(np.asarray(params["w2"])[cols]),
+            "b2": _tensor(params["b2"])}

@@ -107,11 +107,13 @@ def hybrid_forward(h: HybridCSR, x: torch.Tensor, bias: Optional[torch.Tensor],
                    activation: Optional[str], out_dtype: torch.dtype,
                    backward: bool = False) -> torch.Tensor:
     """``act(A @ x + bias)`` over ``h`` as ``[h.win.n_rows, F]`` in ``out_dtype``,
-    not differentiable; ``backward`` says which counters the launches go to."""
+    not differentiable; ``backward`` says which counters the launches go to. A cut
+    that captured no edge launches no K2."""
     if h.res is None:
         return _windowed(h.win, x, bias, activation, out_dtype, backward)
-    out = _windowed(h.win, x, None, None, torch.float32, backward)
-    out = out + _residual(h.res, x, backward)
+    out = _residual(h.res, x, backward)
+    if h.win.src.numel():
+        out = _windowed(h.win, x, None, None, torch.float32, backward) + out
     if bias is not None:
         out = out + bias.float()
     if activation == "relu":

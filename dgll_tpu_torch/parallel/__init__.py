@@ -3,7 +3,8 @@
 windowed SpMM layout (``community``, ``reorder``); the launch and process groups
 (``launch``, ``mesh``), data parallelism (``dp``, and ``train.DeviceDPEpochRunner``),
 graph partitioning and graph-partition-parallel full-graph training (``partition``,
-``gp``). The halo exchange and tensor parallelism are still to port.
+``gp``, and ``halo``: the halo exchange, whose local sum may go through the windowed
+kernel), and tensor parallelism (``tp``).
 
 The names below load their module on first use, so that importing the host
 preprocessing does not import the trainers."""
@@ -15,9 +16,15 @@ _EXPORTS = {
     "stack_block_lists": "dp",
     "GraphShard": "gp", "make_gp_gcn_train_step": "gp", "make_sharded_spmm": "gp",
     "shard_partitioned_graph": "gp",
+    "HaloPlan": "halo", "ShardWindowed": "halo", "allgather_volume_bytes": "halo",
+    "build_halo_plan": "halo", "build_shard_windowed": "halo",
+    "halo_volume_bytes": "halo", "make_halo_spmm": "halo",
+    "make_halo_spmm_windowed": "halo", "make_partitioned_spmm": "halo",
     "initialize_distributed": "launch", "is_primary": "launch", "launch_local": "launch",
     "Mesh": "mesh", "make_mesh": "mesh", "replicated": "mesh", "sharded_dim0": "mesh",
     "PartitionedGraph": "partition", "partition_graph": "partition",
+    "init_tp_gcn_params": "tp", "make_feature_sharded_spmm": "tp",
+    "make_tp_gcn_apply": "tp", "replicate": "tp", "shard_features": "tp",
 }
 __all__ = sorted(_EXPORTS)
 

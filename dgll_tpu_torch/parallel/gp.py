@@ -26,6 +26,7 @@ import torch.distributed as dist
 from dgll_tpu_torch.ops.chunked import ChunkedCSR, build_chunked_pair
 from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
 from dgll_tpu_torch.parallel.dp import flat_grads, set_grads
+from dgll_tpu_torch.parallel.launch import rank_device
 from dgll_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce
 from dgll_tpu_torch.parallel.partition import PartitionedGraph
 from dgll_tpu_torch.train.trainer import TrainState
@@ -34,8 +35,10 @@ from dgll_tpu_torch.train.trainer import TrainState
 @dataclass
 class GraphShard:
     """Rank ``rank``'s shard of a ``PartitionedGraph``, on its device: the K1 layout
-    pair of its edges (``chunked``: ``[rows, n_node]``; ``chunked_t``: its transpose)
-    and its rows of the node arrays (None where the partitioned graph has none)."""
+    pair of its edges (``chunked``: ``[rows, n_node]``; ``chunked_t``: its transpose),
+    its rows of the node arrays (None where the partitioned graph has none) and the
+    whole partitioned graph on the host (``pg``), from which the halo exchange builds
+    its own layouts."""
 
     chunked: ChunkedCSR
     chunked_t: ChunkedCSR
@@ -47,18 +50,26 @@ class GraphShard:
     train_mask: Optional[torch.Tensor] = None
     val_mask: Optional[torch.Tensor] = None
     test_mask: Optional[torch.Tensor] = None
+    pg: Optional[PartitionedGraph] = None
 
     @property
     def n_node(self) -> int:
         return self.n_shard * self.rows_per_shard
 
+    @property
+    def device(self) -> torch.device:
+        return self.chunked.indptr.device
 
-def shard_partitioned_graph(pg: PartitionedGraph, mesh: Mesh, device="cpu") -> GraphShard:
-    """This rank's shard of ``pg`` on ``device``: its edge slab as K1's layout pair
-    (slots of weight 0, the padding, left out) and its rows of the node arrays."""
+
+def shard_partitioned_graph(pg: PartitionedGraph, mesh: Mesh, device="cuda") -> GraphShard:
+    """This rank's shard of ``pg`` on ``device`` (``cuda``: the rank's card,
+    ``launch.rank_device``, which raises where there is none; ``"cpu"`` where asked):
+    its edge slab as K1's layout pair (slots of weight 0, the padding, left out) and
+    its rows of the node arrays."""
     if pg.n_shard != mesh.size:
         raise ValueError(f"{pg.n_shard} shards over a mesh of {mesh.size} ranks")
     r, rows = mesh.rank, pg.rows_per_shard
+    device = rank_device(device, r)
     keep = pg.edge_weight[r] != 0
     c, ct = build_chunked_pair(pg.src[r][keep], pg.dst_local[r][keep], rows, pg.n_node,
                                pg.edge_weight[r][keep])
@@ -68,7 +79,7 @@ def shard_partitioned_graph(pg: PartitionedGraph, mesh: Mesh, device="cpu") -> G
 
     return GraphShard(c.to(device), ct.to(device), r, pg.n_shard, rows,
                       rows_of(pg.node_feat), rows_of(pg.labels), rows_of(pg.train_mask),
-                      rows_of(pg.val_mask), rows_of(pg.test_mask))
+                      rows_of(pg.val_mask), rows_of(pg.test_mask), pg)
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -108,17 +119,19 @@ def make_sharded_spmm(mesh: Mesh, shard: GraphShard) -> Callable:
     return spmm
 
 
-def make_gp_gcn_train_step(mesh: Mesh, shard: GraphShard, model_apply: Callable):
+def make_gp_gcn_train_step(mesh: Mesh, shard: GraphShard, model_apply: Callable,
+                           spmm: Optional[Callable] = None):
     """A training step of a model over the partitioned graph:
     ``step(state, x, labels, mask, generator=None) -> (state, loss)``.
 
     ``model_apply(model, spmm, x, generator) -> log-probs [rows, C]`` builds the
-    network on this rank's rows from the sharded SpMM. The loss is the masked NLL
-    mean over the train nodes of all shards; the parameter gradients and the loss are
-    summed over the ranks (one all-reduce) before the optimizer step, which every
-    rank takes alike.
+    network on this rank's rows from the sharded SpMM: ``spmm``, or the all-gather's
+    (``make_sharded_spmm``) where None. The loss is the masked NLL mean over the
+    train nodes of all shards; the parameter gradients and the loss are summed over
+    the ranks (one all-reduce) before the optimizer step, which every rank takes
+    alike.
     """
-    spmm = make_sharded_spmm(mesh, shard)
+    spmm = make_sharded_spmm(mesh, shard) if spmm is None else spmm
     counted: list = []  # (mask, the global number of its nodes): all-reduced once
 
     def global_count(mask: torch.Tensor) -> torch.Tensor:

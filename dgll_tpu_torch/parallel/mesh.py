@@ -82,6 +82,38 @@ def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _all_to_all(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=mesh.group)
+    return out
+
+
+class _AllToAllRows(torch.autograd.Function):
+    """The all-to-all and its gradient: the same all-to-all of the gradient, since
+    moving slot q of rank p to slot p of rank q is its own transpose."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_to_all(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(ctx.mesh, g.contiguous()), None
+
+
+def all_to_all_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x [D, ...]``'s slot q sent to rank q: the result's slot p is what rank p sent
+    to this rank (``jax.lax.all_to_all`` with ``split_axis=concat_axis=0``,
+    ``tiled=False``). One ``all_to_all_single``, over NCCL or gloo; differentiable in
+    ``x``. The identity on a one-rank mesh."""
+    if x.shape[0] != mesh.size:
+        raise ValueError(f"{x.shape[0]} slots over a mesh of {mesh.size} ranks")
+    if mesh.size == 1:
+        return x
+    return _AllToAllRows.apply(x.contiguous(), mesh)
+
+
 def broadcast_value(mesh: Mesh, value: float) -> float:
     """Rank 0's ``value`` on every rank (a decision all ranks must take alike)."""
     return sum_values(mesh, [value if mesh.rank == 0 else 0.0])[0]

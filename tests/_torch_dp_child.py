@@ -125,7 +125,7 @@ def gp_run(inp, mesh) -> dict:
     from dgll_tpu_torch.train import create_train_state
 
     pg = partition_graph(graph(inp), mesh.size, strategy=str(inp["strategy"]))
-    shard = gp.shard_partitioned_graph(pg, mesh)
+    shard = gp.shard_partitioned_graph(pg, mesh, device="cpu")
     spmm = gp.make_sharded_spmm(mesh, shard)
     x = shard.node_feat.clone().requires_grad_(True)
     out = spmm(x)

@@ -2,8 +2,9 @@
 
 The three that are the training CLI with fixed flags print the JAX CLI's keys for
 the same flags; the others train a few epochs and report finite numbers (the
-multi-rank one in two ranks over gloo). Each runs as ``python -m
-dgll_tpu_torch.examples.<name>`` too (one is run that way here).
+multi-rank one in two ranks over gloo; DeepWalk its five classifiers' accuracies).
+Each runs as ``python -m dgll_tpu_torch.examples.<name>`` too (one is run that way
+here).
 """
 import os
 import shutil
@@ -16,6 +17,7 @@ import pytest
 
 from dgll_tpu.run import main as jax_main
 from dgll_tpu_torch.examples import (
+    deepwalk_embedding,
     device_fastgcn_gcn,
     device_pipeline_sage,
     full_batch_gcn,
@@ -105,3 +107,13 @@ def test_multichip_example_trains_in_two_ranks(monkeypatch, capsys):
     assert out["dp_loss"][1] < out["dp_loss"][0]
     assert np.isfinite(out["gp_loss"])
     assert "gp loss after 10 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("kind", ["deepwalk", "node2vec"])
+def test_deepwalk_example(kind, capsys):
+    out = deepwalk_embedding.main([kind, "--device", "cpu", "--n_node", "120",
+                                   "--epochs", "1"])
+    assert out["kind"] == kind and out["finite"]
+    assert sorted(out["accuracy"]) == ["boosting", "forest", "logistic", "mlp", "tree"]
+    assert all(0 <= a <= 1 for a in out["accuracy"].values())
+    assert "'logistic'" in capsys.readouterr().out

@@ -13,8 +13,10 @@ LADIES and host FastGCN GIN runs and a GIN graph classifier's forward, runs the
 probe tool on the CPU, saves and loads a graph, trains bfloat16 GAT on it through
 the CLI with a checkpoint and resumes from it, each run inside ``device_trace``, and
 runs the GIN graph-classification example, the CLI's ``--n_devices 2`` branch in two
-ranks (``--async_dp``) and a graph-partition step on one rank. Every module of the
-package is imported, ``examples`` included. No source file of the package imports
+ranks (``--async_dp``), a graph-partition step on one rank, the halo SpMM (plain and
+windowed) and the tensor-parallel GCN on one rank, DeepWalk (walks, skip-gram,
+classifiers without sklearn) and ``compat.DGraph``. Every module of the package is
+imported, ``examples`` included. No source file of the package imports
 them either, nor the multi-rank tests' child scripts, and none names a path inside
 the JAX package: the port reads no file of it. ``chip_smoke.py`` refuses to run, and prints
 no result, without a CUDA device.
@@ -143,13 +145,36 @@ from dgll_tpu_torch.parallel import (make_gp_gcn_train_step, make_mesh, partitio
                                      shard_partitioned_graph)
 from dgll_tpu_torch.train import create_train_state
 mesh = make_mesh()
-shard = shard_partitioned_graph(partition_graph(g, 1, strategy="bfs"), mesh)
+shard = shard_partitioned_graph(partition_graph(g, 1, strategy="bfs"), mesh,
+                                device="cpu")
 w = torch.nn.ParameterDict(dict(w=torch.randn(128, int(g.labels.max()) + 1)))
 step = make_gp_gcn_train_step(mesh, shard, lambda m, spmm, x, gen: torch.log_softmax(
     spmm(x @ m["w"]), -1))
 _, loss = step(create_train_state(w, torch.optim.Adam), shard.node_feat, shard.labels,
                shard.train_mask)
 assert torch.isfinite(loss), loss
+from dgll_tpu_torch.parallel import (build_halo_plan, build_shard_windowed,
+                                     init_tp_gcn_params, make_halo_spmm,
+                                     make_halo_spmm_windowed, make_tp_gcn_apply)
+pg = partition_graph(g, 1, strategy="bfs")
+plan = build_halo_plan(pg)
+out = make_halo_spmm(mesh, shard, plan)(shard.node_feat)
+win = make_halo_spmm_windowed(mesh, shard, plan, build_shard_windowed(pg))(shard.node_feat)
+assert torch.allclose(out, win, atol=1e-5), (out - win).abs().max()
+e = g.n_real_edge
+tp_out = make_tp_gcn_apply(mesh, g.src[:e].numpy(), g.dst[:e].numpy(), None,
+                           g.n_real_node, device="cpu")(
+    init_tp_gcn_params(mesh, 128, 16, 4, device="cpu"), g.node_feat[:g.n_real_node])
+assert tp_out.shape == (g.n_real_node, 4) and torch.isfinite(tp_out).all()
+from dgll_tpu_torch import compat
+from dgll_tpu_torch.embedding import DeepWalk, train_all_classifiers
+sys.modules["sklearn"] = None  # the card's machine has no sklearn
+dw = DeepWalk(synthetic_classification_graph(n_node=100, feat_dim=8, seed=2), walk_length=6,
+              num_walks=2, dim=8, device="cpu").train(epochs=1)
+labels = np.arange(100) % 3
+assert sorted(train_all_classifiers(dw.embeddings, labels)) == sorted([
+    "logistic", "tree", "forest", "boosting", "mlp"])
+assert compat.DGraph([0, 1], {{0: [1]}}).n_real_edge == 1 and compat.backend is torch
 print("NOJAX_OK")
 """
 
