@@ -109,12 +109,17 @@ checkpoints and ``device_trace``:
   sum and mean pooling) through K1, its forward on the card against the CPU's;
 * GAT in bfloat16 (phase 23), on the slices' graph: K7 on bf16 rows against its
   plain version, bitwise, in 16-byte units and an element a unit (unaligned, F=12);
-  K1 on bf16 messages with identity columns on A and ``t_slot_perm`` columns on A^T,
-  within 1 bf16 ulp of the float64 sum beyond the bound of the float32 sum in K1's
-  own order (a segment of at most 512 edges, then the segments); both at
-  widths 64 and 16, timed beside ``index_select`` or ``sparse.mm`` on a bf16 CSR; the
-  CLI's GAT slice under ``--dtype bfloat16`` for 20 epochs (K1 and K7 launches
-  counted) beside phase 9's float32 run, and a bf16 ``--device_sampling`` run; then
+  K1's bfloat16 route on bf16 messages with identity columns on A and
+  ``t_slot_perm`` columns on A^T, within 1 bf16 ulp of the float64 sum beyond the
+  bound of the float32 sum in K1's own order (a segment of at most 512 edges, then
+  the segments) and beside its plain version, bitwise repeatable and equal to the
+  same sums with loaded columns and weights, at F 64, 16 and 12, aligned and one
+  element off, on the slices', power-law, planted and tail layouts; its general case
+  (the layout's columns and weights, bias and ReLU) into bf16 and float32; K7 and K1
+  at widths 64 and 16 timed beside ``index_select`` or ``sparse.mm`` on a bf16 CSR;
+  the CLI's GAT slice under ``--dtype bfloat16`` for 20 epochs (K1 and K7 launches
+  counted, every K1 launch on the bfloat16 route) beside phase 9's float32 run, and
+  a bf16 ``--device_sampling`` run; then
   ``save_graph``/``load_graph`` of the slice's graph, a ``--checkpoint_dir`` run and
   its ``--resume`` (the restored parameters equal those saved), and two resumed
   epochs on the loaded graph inside ``device_trace``, whose trace names K1 and K7;
@@ -1255,7 +1260,7 @@ def _counters() -> dict:
     from dgll_tpu_torch.ops.cuda import segment_matmul as sm
 
     return {**tk.launches, **gf.launches, "K1 fwd": sm.launches_fwd,
-            "K1 bwd": sm.launches_bwd}
+            "K1 bwd": sm.launches_bwd, "K1 bf16 route": sm.launches_bf16}
 
 
 def _zero_counters() -> None:
@@ -1266,7 +1271,7 @@ def _zero_counters() -> None:
     for counts in (tk.launches, gf.launches):
         for k in counts:
             counts[k] = 0
-    sm.launches_fwd = sm.launches_bwd = 0
+    sm.launches_fwd = sm.launches_bwd = sm.launches_bf16 = 0
 
 
 # the launches of one forward and one backward of each round-4 layer; every other
@@ -3039,6 +3044,11 @@ BF16_DEVICE_ARGS = ["--Model", "GAT", "--device_sampling", "--dtype", "bfloat16"
 K7_BF16 = "expand_rows (K7) on bfloat16 rows: the bf16 GAT backward's expand"
 K1_BF16 = ("spmm_csr (K1) on bfloat16 messages with runtime columns and unit weights: "
            "the bf16 GAT aggregation and scatter")
+# K1's bfloat16 route: the widths checked (the bf16 GAT's 64 and 16, and 12: 4 columns
+# a lane), of them those timed, and the widths of its general case
+K1_BF16_WIDTHS = (64, 16, 12)
+K1_BF16_TIMED = (64, 16)
+K1_BF16_GENERAL_WIDTHS = (16, 64, 128)
 TRACE_EPOCHS = 2
 
 
@@ -3069,29 +3079,19 @@ def _bf16_sum_bound(lay, cols, msg) -> tuple:
     return exact, _bf16_ulp(exact) + depth * 2.0 ** -24 * absum
 
 
-def _bf16_library(lay, cols, weights, msg):
-    """``torch.sparse.mm`` on a bfloat16 CSR of the layout with runtime columns, where
-    this torch takes one on the card; else None."""
-    mat = csr(lay.indptr, cols, weights.to(torch.bfloat16), (lay.n_rows, msg.shape[0]))
-    try:
-        torch.sparse.mm(mat, msg)
-        torch.cuda.synchronize()
-    except (RuntimeError, NotImplementedError) as err:
-        print(f"[23 time] torch.sparse.mm on a bfloat16 CSR: none on this torch ({err!s:.80})")
-        return None
-    return lambda: torch.sparse.mm(mat, msg)
-
-
 def _bf16_kernels() -> dict:
     """K7 on bfloat16 rows against its plain version (bitwise), aligned (16-byte units)
-    and unaligned or F % 8 != 0 (an element a unit); K1 on bfloat16 messages with
-    identity columns on A and ``t_slot_perm`` columns on A^T, within 1 bf16 ulp of the
-    float32 sum; each at GAT's widths 64 and 16 on the slices' graph, timed in turns
-    beside its plain version and library call. Returns the JSON rows' errors and
-    width-64 times."""
+    and unaligned or F % 8 != 0 (an element a unit); K1's bfloat16 route on bfloat16
+    messages (``_k1_bf16_checks``: identity columns on A and ``t_slot_perm`` columns
+    on A^T, every width of ``K1_BF16_WIDTHS``, aligned and not, on the slices', the
+    power-law, the planted and the tail layouts; ``_k1_bf16_general``: the layout's
+    columns and weights with bias and ReLU); each kernel at GAT's widths 64 and 16 on
+    the slices' graph timed in turns beside its plain version and library call.
+    Returns the JSON rows' errors and times (K1's four rows in ``k1_rows``)."""
     from dgll_tpu_torch.ops import gat_csr, spmm_chunked_reference
     from dgll_tpu_torch.ops.cuda import gat_fused as gf
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+    from dgll_tpu_torch.tools.profile_slice import bf16_sparse_mm
 
     c, ct, _ = slice_graph()
     gen = torch.Generator(device="cuda").manual_seed(23)
@@ -3117,32 +3117,141 @@ def _bf16_kernels() -> dict:
                   f"{describe(t)}")
             if f == 64:
                 out["k7"] = t
-    for f in (64, 16):
+    out["k1_err"] = _k1_bf16_checks(gen)
+    out["k1_general_err"] = _k1_bf16_general(c, gen)
+    for f in K1_BF16_TIMED:
         msg = torch.randn(c.src.numel(), f, generator=gen, device="cuda").to(bf)
-        for name, lay, cols in (("identity columns on A", c, c.edge_ids),
+        for name, lay, cols in (("identity columns on A", c, None),
                                 ("t_slot_perm columns on A^T", ct, c.t_slot_perm)):
+            kind = dict(identity_cols=True) if cols is None else dict(cols=cols)
+            idx = c.edge_ids if cols is None else cols
             ones = lay.unit_weight
-            got = spmm_csr_cuda(lay, msg, cols=cols, weights=ones)
-            again = spmm_csr_cuda(lay, msg, cols=cols, weights=ones)
-            exact, tol = _bf16_sum_bound(lay, cols, msg)
-            err = (got.double() - exact).abs()
-            check(got.dtype == bf and bool((err <= tol).all()),
-                  f"K1 bf16 F={f} {name}: within 1 bf16 ulp of the sum, beyond the bound "
-                  f"of the f32 sum in K1's segment order")
-            check(torch.equal(got, again), f"K1 bf16 F={f} {name}: bitwise repeatable")
-            out["k1_err"] = max(out["k1_err"], err.max().item())
             # the bytes the sum needs: the unit weights carry none, nor do the
             # identity columns (0..E-1); one add an edge and feature
-            reads = (lay.indptr, msg) if lay is c else (lay.indptr, cols, msg)
-            case = Case(lambda: (spmm_csr_cuda(lay, msg, cols=cols, weights=ones),),
-                        lambda: (spmm_chunked_reference(lay, msg, cols=cols, weights=ones),),
-                        _bf16_library(lay, cols, ones, msg), reads, c.src.numel() * f)
-            t = timed(case, (got,))
-            print(f"[23 time] K1 bf16 F={f} {name}: max abs err {err.max().item():.3e} "
-                  f"(within 1 ulp); {describe(t)}")
-            if f == 64 and lay is c:
-                out["k1"] = t
+            reads = (lay.indptr, msg) if cols is None else (lay.indptr, cols, msg)
+            case = Case(lambda: (spmm_csr_cuda(lay, msg, unit_weights=True, **kind),),
+                        lambda: (spmm_chunked_reference(lay, msg, cols=idx, weights=ones),),
+                        bf16_sparse_mm(lay, idx, msg), reads, c.src.numel() * f)
+            t = timed(case, case.kernel())
+            print(f"[23 time] K1 bf16 F={f} {name}: {describe(t)}")
+            out.setdefault("k1_rows", {})[f"F={f} {name}"] = t
+    out["k1"] = out["k1_rows"]["F=64 identity columns on A"]
     return out
+
+
+def _k1_bf16_layouts() -> list:
+    """Phase 23's K1 layouts: ``(name, layout of A, layout of A^T or None)``: the
+    slices' graph (hub rows, empty rows), the power-law test graph, the planted graph
+    whose rows cross the split threshold, and the power-law graph with every residue
+    of nnz % 4 (A only)."""
+    c, ct, _ = slice_graph()
+    out = [("slices' graph", c, ct)]
+    for name, (a, at, _) in (("power-law graph", power_law_layouts()),
+                             ("planted graph", planted_layouts())):
+        out.append((name, a, at))
+    for k, a in sorted(tail_layouts().items()):
+        out.append((f"power-law graph, nnz % 4 = {k}", a, None))
+    return out
+
+
+def _plain_sum_bound(lay, cols, msg, exact) -> torch.Tensor:
+    """The plain version's own bound on the float64 sum ``exact``: 1 bfloat16 ulp
+    plus ``n 2^-24 sum|x|``, since ``index_add`` sums a row of n edges in any order."""
+    rows = lay.rows.long()
+    shape = (lay.n_rows, msg.shape[1])
+    absum = torch.zeros(shape, dtype=torch.float64, device="cuda").index_add_(
+        0, rows, msg.double().index_select(0, cols.long()).abs())
+    deg = (lay.indptr[1:] - lay.indptr[:-1]).double()[:, None]
+    return _bf16_ulp(exact) + deg * 2.0 ** -24 * absum
+
+
+def _k1_bf16_case(lay, msg, cols, what: str) -> float:
+    """K1's bfloat16 route summing ``msg`` with unit weights on ``lay`` (identity
+    columns where ``cols`` is None), held: within ``_bf16_sum_bound`` of the float64
+    sum; beside the plain version within that bound plus the plain version's own;
+    bitwise repeatable; bitwise equal to the same route fed ``edge_ids`` and
+    ``unit_weight`` as loaded columns and weights (an add equals ``fmaf(1, x, acc)``).
+    Returns the max abs error against the float64 sum."""
+    from dgll_tpu_torch.ops import spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+
+    kind = dict(identity_cols=True) if cols is None else dict(cols=cols)
+    idx = lay.edge_ids if cols is None else cols
+    got = spmm_csr_cuda(lay, msg, unit_weights=True, **kind)
+    again = spmm_csr_cuda(lay, msg, unit_weights=True, **kind)
+    loaded = spmm_csr_cuda(lay, msg, cols=idx, weights=lay.unit_weight)
+    exact, tol = _bf16_sum_bound(lay, idx, msg)
+    err = (got.double() - exact).abs()
+    plain = spmm_chunked_reference(lay, msg, cols=idx, weights=lay.unit_weight)
+    off = (got.double() - plain.double()).abs()
+    check(got.dtype == torch.bfloat16 and bool((err <= tol).all()),
+          f"K1 bf16 {what}: within 1 bf16 ulp of the sum, beyond the bound of the f32 "
+          f"sum in K1's segment order")
+    check(bool((off <= tol + _plain_sum_bound(lay, idx, msg, exact)).all()),
+          f"K1 bf16 {what}: beside the plain version within both sums' bounds")
+    check(torch.equal(got, again), f"K1 bf16 {what}: bitwise repeatable")
+    check(torch.equal(got, loaded),
+          f"K1 bf16 {what}: the identity/unit cases equal loaded columns and weights")
+    return err.max().item()
+
+
+def _k1_bf16_checks(gen) -> float:
+    """``_k1_bf16_case`` at every width of ``K1_BF16_WIDTHS``, on 16-byte-aligned
+    messages and on messages one element off (an element a lane), with identity
+    columns on A and ``t_slot_perm`` columns on A^T, on each of ``_k1_bf16_layouts``.
+    Returns the max abs error against the float64 sum."""
+    from dgll_tpu_torch.ops.cuda.segment_matmul import k1_route
+
+    worst = 0.0
+    for name, a, at in _k1_bf16_layouts():
+        nnz, vecs = a.src.numel(), set()
+        kinds = [("identity columns on A", a, None)]
+        if at is not None:
+            kinds.append(("t_slot_perm columns on A^T", at, a.t_slot_perm))
+        for f in K1_BF16_WIDTHS:
+            flat = torch.randn(nnz * f + 1, generator=gen, device="cuda").to(torch.bfloat16)
+            for aligned in (True, False):
+                msg = (flat[:-1] if aligned else flat[1:]).view(nnz, f)
+                route = k1_route(msg, True, True)
+                vecs.add((f, route.vec))
+                for kname, lay, cols in kinds:
+                    worst = max(worst, _k1_bf16_case(
+                        lay, msg, cols, f"{name} F={f} {kname} (vec {route.vec})"))
+        print(f"[23 check] K1 bf16 on the {name} ({nnz} edges; {_split_summary(a)}; "
+              f"{a.items.n_items} runs of rows): {', '.join(k for k, *_ in kinds)} at "
+              f"(F, vec) {sorted(vecs)}: within the bound of the float64 sum and beside "
+              f"the plain version, bitwise repeatable, equal to loaded columns and weights")
+    return worst
+
+
+def _k1_bf16_general(c, gen) -> float:
+    """K1's bfloat16 route with the layout's own columns and weights, bias and ReLU,
+    stored in bfloat16 (phase 3's bar, |err| / max(|ref|, 1) <= 1e-2) and in float32
+    (the msg_dtype path of ``spmm_chunked`` and ``spmm_hybrid``; float32's bar, 1e-4 x
+    max|ref|: the inputs are exact in float32, only the order of the sums differs)
+    against the plain version on the slices' graph, bitwise repeatable. Returns the
+    max abs error."""
+    from dgll_tpu_torch.ops import spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_csr_cuda
+
+    worst = 0.0
+    for f in K1_BF16_GENERAL_WIDTHS:
+        x = torch.randn(c.n_cols, f, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn(f, generator=gen, device="cuda")
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = spmm_csr_cuda(c, x, b, "relu", out_dtype=out_dtype)
+            again = spmm_csr_cuda(c, x, b, "relu", out_dtype=out_dtype)
+            ref = spmm_chunked_reference(c, x, b, "relu", out_dtype=torch.float32)
+            diff = (got.float() - ref).abs()
+            ratio = ((diff / ref.abs().clamp_min(1.0)).max() / 1e-2
+                     if out_dtype == torch.bfloat16 else diff.max() / (1e-4 * ref.abs().max()))
+            what = f"K1 bf16 general F={f}, bias + ReLU, out {str(out_dtype)[6:]}"
+            check(got.dtype == out_dtype and ratio.item() <= 1.0, f"{what}: within tolerance")
+            check(torch.equal(got, again), f"{what}: bitwise repeatable")
+            worst = max(worst, diff.max().item())
+            print(f"[23 check] {what}: max abs err {diff.max().item():.3e}, "
+                  f"{ratio.item():.3f} of tolerance, bitwise repeatable")
+    return worst
 
 
 def _bf16_gat_cli(f32: dict) -> dict:
@@ -3170,6 +3279,8 @@ def _bf16_gat_cli(f32: dict) -> dict:
         check(counts.get(k) == 2 * EPOCHS, f"bf16 GAT: exactly 2 {k} launches an epoch")
     check(counts.get("gat_stats", 0) >= 2 * EPOCHS and counts.get("K1 fwd", 0) >= 2 * EPOCHS
           and counts.get("K1 bwd") == 2 * EPOCHS, f"bf16 GAT: K3 and K1 launched: {counts}")
+    check(counts.get("K1 bf16 route") == counts["K1 fwd"] + counts["K1 bwd"],
+          f"bf16 GAT: every K1 launch took the bfloat16 route: {counts}")
     ms = 1e3 * np.median(secs[1:])
     print(f"[23 gat bf16] {EPOCHS} epochs: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
           f"test_acc {trial['test_acc']:.4f}, epoch ms median {ms:.3f} (float32, phase 9: "
@@ -3238,8 +3349,8 @@ def _files_and_resume() -> dict:
         files = os.listdir(f"{tmp}/trace")
         check(len(files) == 1, f"device_trace wrote one trace file: {files}")
         text = open(f"{tmp}/trace/{files[0]}").read()
-        check("spmm_csr_kernel" in text and "expand_rows_kernel" in text,
-              "the trace names K1 and K7")
+        check("spmm_bf16_kernel" in text and "expand_rows_kernel" in text,
+              "the trace names K1 (its bfloat16 route) and K7")
         check(traced.get("resumed_from") == 2 and counts.get("expand_rows") == 2 * TRACE_EPOCHS,
               f"the traced run resumed and launched K7 twice an epoch: {counts}")
         out.update(trace_mib=len(text) / 2**20, resumed_from=resumed["resumed_from"],

@@ -7,7 +7,9 @@ None of that carries over to the GPU: the kernel (``csrc/segment_matmul.cu``) wa
 a plain dst-major CSR and needs no atomics. It takes a row of at most
 ``SPLIT_EDGES`` edges as one work item; a longer row is cut into segments of at
 most that many edges (``split_schedule``, built once per layout as
-``ChunkedCSR.split``), whose partial sums a second pass adds in segment order.
+``ChunkedCSR.split``), whose partial sums a second pass adds in segment order. Its
+bfloat16 route takes the other rows in runs of whole rows (``item_schedule``, built
+once per layout as ``ChunkedCSR.items``), a warp a run.
 
 The API conventions stay:
 
@@ -21,6 +23,7 @@ The API conventions stay:
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -31,6 +34,10 @@ import torch
 R_BLOCK = 128  # the output row space is padded to a multiple of this
 # K1 cuts a row of more in-edges than this into segments of at most this many
 SPLIT_EDGES = 512
+# K1's bfloat16 route packs the other rows into runs whose rows begin within one
+# window of this many edges, at most ITEM_ROWS rows a run (its shared memory)
+ITEM_EDGES = 256
+ITEM_ROWS = 256
 
 
 @dataclass
@@ -73,6 +80,44 @@ def split_schedule(indptr: torch.Tensor, max_edges: int = SPLIT_EDGES) -> SplitS
 
 
 @dataclass
+class ItemSchedule:
+    """K1's bfloat16 route's runs of whole rows (``item_schedule``)."""
+
+    item_beg: torch.Tensor  # [n_items] int32, first row of each run
+    item_end: torch.Tensor  # [n_items] int32, one past its last row
+    max_rows: int           # a run holds at most this many rows
+
+    @property
+    def n_items(self) -> int:
+        return self.item_beg.numel()
+
+
+def item_schedule(indptr: torch.Tensor, max_edges: int = SPLIT_EDGES,
+                  window: int = ITEM_EDGES, max_rows: int = ITEM_ROWS) -> ItemSchedule:
+    """Cut the rows of at most ``max_edges`` edges into runs of consecutive rows, on
+    ``indptr``'s device: a run ends before a row of more than ``max_edges`` edges
+    (``split_schedule`` cuts those into segments), before a row whose first edge lies
+    in another window of ``window`` edges than the run's first row's, and after
+    ``max_rows`` rows (rows ``k * max_rows`` begin runs). A run's edges are then one
+    contiguous range of fewer than ``window + max_edges``; rows without edges belong
+    to runs like any other. Every row lies in one run or is split."""
+    indptr = indptr.long()
+    dev = indptr.device
+    n = indptr.numel() - 1
+    split = indptr[1:] - indptr[:-1] > max_edges
+    r = torch.arange(n, device=dev)
+    begins = torch.ones(n, dtype=torch.bool, device=dev)
+    begins[1:] = ((indptr[1:-1] // window != indptr[:-2] // window)
+                  | (r[1:] % max_rows == 0) | split[:-1])
+    beg = torch.nonzero(begins & ~split).flatten()
+    # a run ends at the next row that begins a run or is split
+    stops = torch.cat([torch.nonzero(begins | split).flatten(),
+                       torch.tensor([n], device=dev)])
+    end = stops[torch.searchsorted(stops, beg, right=True)]
+    return ItemSchedule(beg.int(), end.int(), int(max_rows))
+
+
+@dataclass
 class ChunkedCSR:
     """Weighted dst-major CSR over ``n_rows`` output rows and ``n_cols`` sources."""
 
@@ -102,11 +147,26 @@ class ChunkedCSR:
         the layout's device at first use."""
         return split_schedule(self.indptr)
 
+    @functools.cached_property
+    def items(self) -> ItemSchedule:
+        """K1's bfloat16 route's runs of the rows that ``split`` leaves whole
+        (``item_schedule``), built on the layout's device at first use."""
+        return item_schedule(self.indptr, self.split.max_edges)
+
     def to(self, device) -> "ChunkedCSR":
         perm = None if self.t_slot_perm is None else self.t_slot_perm.to(device)
-        return ChunkedCSR(self.indptr.to(device), self.src.to(device),
-                          self.weight.to(device), self.rows.to(device),
-                          self.n_rows, self.n_cols, perm)
+        out = ChunkedCSR(self.indptr.to(device), self.src.to(device),
+                         self.weight.to(device), self.rows.to(device),
+                         self.n_rows, self.n_cols, perm)
+        # schedules already built move with the layout; the rest are built at first use
+        for name in ("split", "items"):
+            if name in self.__dict__:
+                sched = self.__dict__[name]
+                out.__dict__[name] = dataclasses.replace(sched, **{
+                    f.name: getattr(sched, f.name).to(device)
+                    for f in dataclasses.fields(sched)
+                    if isinstance(getattr(sched, f.name), torch.Tensor)})
+        return out
 
 
 def build_chunked(

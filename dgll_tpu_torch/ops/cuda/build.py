@@ -95,7 +95,9 @@ def load_library() -> ctypes.CDLL:
     signatures = {
         "dgll_quantize_int8": [p, p, p, p, ll, i, i, ull, p],
         "dgll_quantize_int8_fill": [p] * 5 + [ll, i, i, ull, p],
-        "dgll_spmm_csr": [p] * 6 + [i] * 7 + [p] * 5 + [i] * 3 + [p],
+        "dgll_spmm_csr": [p] * 6 + [i] * 5 + [p] * 5 + [i] * 3 + [p],
+        "dgll_spmm_csr_bf16": [p] * 6 + [i] * 5 + [p] * 5 + [i] * 2 + [p] * 2 + [i] * 2
+                              + [p],
         "dgll_spmm_windowed": [p] * 10 + [i] * 6 + [p],
         "dgll_gat_stats": [p] * 6 + [i] * 4 + [f] + [p] * 6 + [i] * 3 + [p],
         "dgll_gat_alpha": [p] * 7 + [ll, i, f, i, i, p],

@@ -41,7 +41,6 @@ tile padding the GPU does not have).
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -49,32 +48,10 @@ import torch.nn.functional as F
 
 from dgll_tpu_torch.ops import gat_csr
 from dgll_tpu_torch.ops.chunked import ChunkedCSR, SplitSchedule
-from dgll_tpu_torch.ops.cuda.build import load_library
-from dgll_tpu_torch.ops.cuda.segment_matmul import _check, _uses_kernel, spmm_edges
+from dgll_tpu_torch.ops.cuda.segment_matmul import _check, _launch, _uses_kernel, spmm_edges
 
 launches = dict.fromkeys(
     ("gat_stats", "gat_alpha", "gat_bwd_softmax", "edges_to_rows_sum", "expand_rows"), 0)
-
-
-@functools.cache
-def _entry(name: str):
-    return getattr(load_library(), f"dgll_{name}")
-
-
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call the C entry ``dgll_<name>`` with ``args`` and the current stream of
-    ``dev``, on ``dev``; raise if it reports an error. A kernel of a few tens of
-    microseconds waits on this host path, so the entry is looked up once, the device
-    is switched only when it is not the current one, and the stream is read as a raw
-    handle (``current_stream(dev).cuda_stream`` without the ``Stream`` object)."""
-    if dev.index == torch.cuda.current_device():
-        err = _entry(name)(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = _entry(name)(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + load_library().dgll_cuda_error_string(err).decode())
 
 
 def _check_layout(c: ChunkedCSR, dev: torch.device) -> None:

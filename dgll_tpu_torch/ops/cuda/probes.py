@@ -17,8 +17,7 @@ from typing import Optional
 
 import torch
 
-from dgll_tpu_torch.ops.cuda.gat_fused import _launch
-from dgll_tpu_torch.ops.cuda.segment_matmul import _check
+from dgll_tpu_torch.ops.cuda.segment_matmul import _check, _launch
 from dgll_tpu_torch.ops.probes import OUT_TILE, P4Plan, p4_plan
 
 

@@ -18,8 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from dgll_tpu_torch.ops.cuda.gat_fused import _launch
-from dgll_tpu_torch.ops.cuda.segment_matmul import _uses_kernel
+from dgll_tpu_torch.ops.cuda.segment_matmul import _launch, _uses_kernel
 
 launches = 0
 

@@ -2,6 +2,7 @@
 
     python -m dgll_tpu_torch.tools.profile_slice [--gat | --clustered | --small |
                                                   --device_sampling | --host_packed]
+                                                 [--dtype float32|bfloat16]
                                                  [--sampler neighbor|fastgcn|ladies]
 
 It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph with
@@ -20,6 +21,10 @@ It takes a slice that ``chip_smoke.py`` trains, on a 200k-node power-law graph w
 * for GAT, K3 and K5 on copies of the layout of A whose long rows are cut at each
   split threshold of ``SPLIT_SWEEP`` (``split_sweep``), at the hidden layer's head
   count and at one head.
+
+``--gat --dtype bfloat16`` trains the GAT slice in bfloat16 (the CLI's ``--dtype``)
+and profiles only its epochs: the hub probe and the split sweep time float32
+kernels, and ``--small`` splits K1's bfloat16 calls.
 
 With ``--clustered`` it profiles the full-graph bench's GCN step instead
 (``dgll_tpu_torch.bench``, 200k-node clustered graph, widths 128): ``STEPS`` train
@@ -46,10 +51,12 @@ replayed as a CUDA graph): one epoch under ``torch.profiler`` after a warm-up ep
 (wall, device busy, idle share, the kernels' shares).
 
 With ``--small`` it splits the time of each kernel under 0.15 ms at the slices'
-shapes (and of K4 at 8 heads beside its one head), and of the library calls beside
-them, into the device time of the kernels it launches and the host time of its
-wrapper (``small_kernels``): at a few tens of microseconds the wrapper's host work
-before the launch is part of what a CUDA-event timing of one call reads.
+shapes (and of K4 at 8 heads beside its one head), of K1 on the bfloat16 GAT's
+messages (identity columns on A and ``t_slot_perm`` columns on A^T, widths 16 and
+64), and of the library calls beside them, into the device time of the kernels it
+launches and the host time of its wrapper (``small_kernels``): at a few tens of
+microseconds the wrapper's host work before the launch is part of what a CUDA-event
+timing of one call reads.
 
 Each result is a line; the last line is one JSON object with every number.
 """
@@ -127,8 +134,13 @@ def _traced(fn):
     return wall_ms, kernels
 
 
+# the names of K1's kernels (csrc/segment_matmul.cu): pass 1 of either route, pass 2
+K1_KERNELS = ("::spmm_csr_kernel<", "::spmm_bf16_kernel<", "::combine_kernel<")
+
+
 def profile(fn) -> dict:
-    """Trace ``fn()`` and split its host wall time into device busy and idle."""
+    """Trace ``fn()`` and split its host wall time into device busy and idle; ``k1``
+    sums K1's kernels (both passes), which the top 8 may leave out."""
     wall_ms, kernels = _traced(fn)
     busy_ms = sum(k["ms"] for k in kernels.values())
     if busy_ms <= 0:
@@ -136,8 +148,11 @@ def profile(fn) -> dict:
     for k in kernels.values():
         k["share"] = k["ms"] / busy_ms
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:8])
+    k1 = [v for name, v in kernels.items() if any(n in name for n in K1_KERNELS)]
+    k1_ms = sum(v["ms"] for v in k1)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "kernels": top}
+            "kernels": top, "k1": {"ms": k1_ms, "share": k1_ms / busy_ms,
+                                   "count": sum(v["count"] for v in k1)}}
 
 
 def profile_training(cfg, steps: int):
@@ -255,11 +270,50 @@ def wrapper_split(fn, reps: int = SMALL_REPS) -> dict:
             "kernels": sum(k["count"] for k in kernels.values()) / reps}
 
 
-def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS) -> dict:
+def bf16_sparse_mm(lay: ChunkedCSR, cols: torch.Tensor, msg: torch.Tensor):
+    """``torch.sparse.mm`` of a bfloat16 CSR with ``lay``'s rows, the columns ``cols``
+    and unit values, by the bfloat16 messages ``msg``: the library call that computes
+    K1's unit-weight sum of per-edge messages; None where this torch has none."""
+    ones = torch.ones(cols.numel(), dtype=torch.bfloat16, device=msg.device)
+    mat = torch.sparse_csr_tensor(lay.indptr, cols, ones, size=(lay.n_rows, msg.shape[0]),
+                                  check_invariants=False)
+    try:
+        torch.sparse.mm(mat, msg)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return lambda: torch.sparse.mm(mat, msg)
+
+
+def k1_bf16_calls(c: ChunkedCSR, ct: ChunkedCSR, gen, widths=(16, 64)) -> dict:
+    """The bfloat16 GAT's K1 calls at each width of ``widths``, as its fused op makes
+    them (``spmm_edges``: identity columns on A, the forward; ``t_slot_perm`` columns
+    on A^T, the backward scatter), each followed by ``bf16_sparse_mm`` of the same
+    sum where this torch has it."""
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_edges
+
+    calls = {}
+    for f in widths:
+        msg = torch.randn(c.src.numel(), f, generator=gen, device=c.src.device).to(
+            torch.bfloat16)
+        for name, lay, cols, fn in (
+                ("identity columns on A", c, c.edge_ids, lambda m=msg: spmm_edges(c, m)),
+                ("t_slot_perm columns on A^T", ct, c.t_slot_perm,
+                 lambda m=msg: spmm_edges(ct, m, c.t_slot_perm, backward=True))):
+            calls[f"K1 bf16 F={f} {name}"] = fn
+            lib = bf16_sparse_mm(lay, cols, msg)
+            if lib is not None:
+                calls[f"sparse.mm bf16 (K1 bf16 F={f} {name})"] = lib
+    return calls
+
+
+def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS,
+                  ct: Optional[ChunkedCSR] = None) -> dict:
     """``wrapper_split`` of each kernel under 0.15 ms at the slices' shapes, on the
     slices' layout ``c`` (K8 at the int8 cache's fill shape: its pass alone, the scale
-    given, and the whole fill the cache runs, ``quantize_int8``), and of the library
-    calls that compute K10's functions."""
+    given, and the whole fill the cache runs, ``quantize_int8``), of the library
+    calls that compute K10's functions and, given A^T's layout ``ct``, of
+    ``k1_bf16_calls``."""
     from dgll_tpu_torch.ops import quantize as q
     from dgll_tpu_torch.ops.cuda import edge_ops as tk
     from dgll_tpu_torch.ops.cuda import gat_fused as gf
@@ -296,6 +350,8 @@ def small_kernels(c: ChunkedCSR, reps: int = SMALL_REPS) -> dict:
         "K8 fill 50000x256": lambda: quantize_int8_cuda(x, scale, "xla"),
         "K8 whole fill 50000x256": lambda: q.quantize_int8(x),
     }
+    if ct is not None:
+        calls.update(k1_bf16_calls(c, ct, gen))
     return {name: wrapper_split(fn, reps) for name, fn in calls.items()}
 
 
@@ -449,6 +505,9 @@ def _print_profile(name: str, p: dict, span: str = f"{STEPS} epochs") -> None:
           f"{p['busy_ms']:.3f} ms, idle {100 * p['idle_share']:.2f}%")
     for k, v in p["kernels"].items():
         print(f"    {100 * v['share']:6.2f}%  {v['ms']:10.3f} ms  x{v['count']:<4d} {k}")
+    k1 = p["k1"]
+    print(f"    {100 * k1['share']:6.2f}%  {k1['ms']:10.3f} ms  x{k1['count']:<4d} K1, "
+          f"both passes (segment_matmul.cu)")
 
 
 def profile_clustered(card: str) -> dict:
@@ -475,7 +534,7 @@ def profile_small(card: str) -> dict:
     from dgll_tpu_torch.utils import parse_train_config
 
     g = build_dataset(parse_train_config(SLICE_ARGS)).with_chunked()
-    split = small_kernels(g.chunked.to("cuda"))
+    split = small_kernels(g.chunked.to("cuda"), ct=g.chunked_t.to("cuda"))
     print(f"card: {card}, small kernels on the slices' graph, ms a call ({SMALL_REPS} "
           f"calls): CUDA events around the call, device time, host time")
     for name, entry in split.items():
@@ -501,12 +560,17 @@ def main(argv=None) -> dict:
     which.add_argument("--host_packed", action="store_true",
                        help="profile an epoch of the packed host pipeline at the "
                             "headline bench's sizes")
+    p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                   help="with --gat: the slice's --dtype (bfloat16 profiles only the "
+                        "epochs)")
     p.add_argument("--sampler", default="neighbor", choices=("neighbor", "fastgcn", "ladies"),
                    help="with --device_sampling: the flagship's neighbour sampler, or "
                         "the layer-wise configuration's FastGCN or LADIES")
     args = p.parse_args(argv)
     if args.sampler != "neighbor" and not args.device_sampling:
         p.error("--sampler goes with --device_sampling")
+    if args.dtype != "float32" and not args.gat:
+        p.error("--dtype goes with --gat")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -519,25 +583,28 @@ def main(argv=None) -> dict:
     if args.host_packed:
         return profile_host_packed(card)
     gat = args.gat
-    cfg = parse_train_config(GAT_SLICE_ARGS if gat else SLICE_ARGS)
+    cfg = parse_train_config([*GAT_SLICE_ARGS, "--dtype", args.dtype] if gat
+                             else SLICE_ARGS)
     prof, g, n_class = profile_training(cfg, STEPS)
-    sweep = None
-    if gat:
+    sweep = probe = None
+    if gat and cfg.dtype == "float32":
         probe = hub_probe(g.chunked, (cfg.nhid * cfg.n_heads, n_class), HUB, CAP,
                           heads=cfg.n_heads)
         sweep = split_sweep(g.chunked, (cfg.n_heads, 1))
-    else:
+    elif not gat:
         probe = hub_probe(g.chunked, (cfg.nhid, n_class), HUB, CAP)
 
-    print(f"card: {card}, slice: {cfg.model}")
+    print(f"card: {card}, slice: {cfg.model}, {cfg.dtype}")
     for name, p in (("train only", prof["train_only"]),
                     ("with validation", prof["with_validation"])):
         _print_profile(name, p)
-    print(f"hub probe: {probe['hub_rows']} rows above {HUB} edges, "
-          f"max in-degree {probe['max_degree']}")
-    for name, entry in probe["layouts"].items():
-        print(f"    {name}: " + _entry_line(entry))
-    result = {"card": card, "model": cfg.model, "profile": prof, "hub_probe": probe}
+    result = {"card": card, "model": cfg.model, "dtype": cfg.dtype, "profile": prof}
+    if probe is not None:
+        print(f"hub probe: {probe['hub_rows']} rows above {HUB} edges, "
+              f"max in-degree {probe['max_degree']}")
+        for name, entry in probe["layouts"].items():
+            print(f"    {name}: " + _entry_line(entry))
+        result["hub_probe"] = probe
     if sweep is not None:
         print("K3 and K5 on A by split threshold:")
         for name, entry in sweep.items():

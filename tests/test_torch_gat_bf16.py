@@ -116,7 +116,7 @@ def test_expand_rows_unit_choice():
         tgf.expand_rows_cuda(c, torch.ones(c.n_rows, 8, dtype=BF16))
 
 
-@pytest.mark.parametrize("width", [64, 16])
+@pytest.mark.parametrize("width", [64, 16, 12])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_spmm_edges_bf16_matches_jax(layouts, transpose, width):
     """K1 summing bf16 per-edge messages with f32 accumulation into bf16 rows:
