@@ -59,11 +59,13 @@ checkpoints and ``device_trace``:
   with the int8 fill's K8 launch counted and its peak memory;
 * the primitive probes P0-P4 (phase 19): each probe's kernel against its plain
   version on ragged shapes and at the probe script's full sizes (E 2^22 rows of 128
-  floats; P0, P2, P4 exact, P2b within rtol 1e-5, P3 within rtol 1e-4 and 1e-5 x
-  max|ref|), each timed beside its plain version, ``copy_``, ``index_select`` or
-  ``index_add_``, and its bound; P4 in both of its paths (direct and bucketed) on the
-  ragged cases, at the probe's size, at GAT's ``h[src]`` gather and at item 1's
-  feature gather, timed beside ``index_select``; P0 against ``copy_`` and ``clone`` in
+  floats; P0, P2, P4 exact, P2b bitwise, P3 within rtol 1e-4 and 1e-5 x max|ref|;
+  P2b also on ragged tiles and window widths, values from 1e-30 to 1e30, bitwise,
+  with its kernel's registers and spills from the build), each timed beside its
+  plain version, ``copy_``, ``index_select`` or ``index_add_``, and its bound; P4 in
+  both of its paths (direct and bucketed) on the ragged cases, at the probe's size,
+  at GAT's ``h[src]`` gather and at item 1's feature gather, timed beside
+  ``index_select``; P0 against ``copy_`` and ``clone`` in
   alternating turns; P3 again with every row sent to 64 or 1,024
   destination rows (contended atomics, integer values: exact); then the probe
   tool's run at those sizes, whose JSON (with ``index_select`` as P1 and P0's
@@ -244,8 +246,8 @@ PROBE_SCRIPT = "benchmarks/pallas_probe_r4.py"
 PROBE_KERNELS = (
     ("p0_copy (P0: streaming copy)", "p0_copy", 53),
     ("p2_dynread (P2: window gather from shared memory)", "p2_dynread", 72),
-    ("p2b_onehot (P2b: one-hot product on the tensor cores, TF32 hi + lo)", "p2b_onehot",
-     102),
+    ("p2b_onehot (P2b: one-hot product on wgmma, the window split exactly into three "
+     "bf16 parts)", "p2b_onehot", 102),
     ("p3_dynacc (P3: scatter-add through L2 atomics, zeroing included)", "p3_dynacc", 126),
     ("p4_dma (P4: row gather, in order or bucketed by table slice, as p4_plan picks)",
      "p4_dma", 171),
@@ -1867,10 +1869,71 @@ def phase_cache() -> dict:
     return {name: {k: v for k, v in r.items() if k != "losses"} for name, r in rows.items()}
 
 
+# P2b's ragged cases (phase 19): row counts against its 64-row M tiles, windows that
+# need zero rows up to a K step of 16, widths cut into column slices (96: 32 a pass;
+# 192: 64); values of either sign from 1e-30 to 1e30, inside the range over which the
+# split into three bfloat16 parts is exact (2^-103 .. FLT_MAX)
+P2B_RAGGED = {"e": (1, 63, 65), "win": (8, 264), "f": (96, 192)}
+
+
+def _p2b_build_lines() -> str:
+    """P2b's kernel instances as ptxas reported them in the build's log: registers,
+    spilled bytes, and any note that it serialised their ``wgmma``."""
+    from dgll_tpu_torch.ops.cuda import build
+
+    log = build.library_path().with_suffix(".log")
+    entry, regs, spills, notes = None, {}, {}, []
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"onehot_kernelILi(\d+)E", entry or "")
+        if "wgmma" in line and "onehot_kernel" in line:
+            notes.append(line.strip())
+        if not m:
+            continue
+        if (r := re.search(r"Used (\d+) registers", line)):
+            regs[int(m.group(1))] = int(r.group(1))
+        if (r := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spills[int(m.group(1))] = (int(r.group(1)), int(r.group(2)))
+    check(sorted(regs) == [16, 32, 64, 128], f"P2b's four instances in the build log: {regs}")
+    return ("; ".join(f"onehot_kernel<{n}> {regs[n]} registers, spills {spills.get(n)}"
+                      for n in sorted(regs))
+            + (f"; {len(notes)} notes: {notes}" if notes else "; no wgmma serialised"))
+
+
+def _probe_p2b_ragged(gen: torch.Generator) -> int:
+    """Phase 19: P2b on every combination of ``P2B_RAGGED``, with an index past the
+    window's padding and one negative, bitwise against its plain version and within
+    ``probe.max_error``'s bar. Returns the number of cases."""
+    from dgll_tpu_torch.ops import probes as pp
+    from dgll_tpu_torch.ops.cuda import probes as kp
+    from dgll_tpu_torch.tools import probe
+
+    n = 0
+    for e in P2B_RAGGED["e"]:
+        for win_rows in P2B_RAGGED["win"]:
+            for f in P2B_RAGGED["f"]:
+                mag = 10.0 ** (torch.rand(win_rows, f, generator=gen, device="cuda") * 60 - 30)
+                sign = torch.randint(0, 2, (win_rows, f), generator=gen, device="cuda") * 2 - 1
+                win = (mag * sign).float()
+                idxv = torch.randint(0, win_rows + 12, (e, 1), dtype=torch.int32,
+                                     generator=gen, device="cuda")
+                idxv[0] = win_rows + 100
+                if e > 1:
+                    idxv[-1] = -3
+                got, want = kp.p2b_onehot_cuda(idxv, win), pp.p2b_onehot_reference(idxv, win)
+                probe.max_error("p2b_onehot", got, want)
+                check(torch.equal(got, want), f"P2b bitwise at E={e}, WIN={win_rows}, F={f}")
+                n += 1
+    return n
+
+
 def _probe_edge_cases() -> None:
     """Phase 19: the probe kernels on ragged shapes against their plain versions, at
     the probes' bars: row counts that no tile, chunk or unroll divides, narrow and odd
-    widths, and for P2b an index outside the window (a zero row)."""
+    widths, and for P2b an index outside the window (a zero row); then P2b's ragged
+    tiles (``_probe_p2b_ragged``) bitwise, and its build."""
     from dgll_tpu_torch.ops import probes as pp
     from dgll_tpu_torch.ops.cuda import probes as kp
     from dgll_tpu_torch.tools import probe
@@ -1904,10 +1967,14 @@ def _probe_edge_cases() -> None:
         for plan in (pp.P4Plan(bucketed=False), pp.p4_bucketed_plan(x.shape[0], x.shape[1],
                                                                     16 * 4 * x.shape[1])):
             probe.max_error("p4_dma", kp.p4_dma_cuda(idx, x, plan), want)
+    n_p2b = _probe_p2b_ragged(gen)
     torch.cuda.synchronize()
     print(f"[19 probes] {len(cases)} ragged cases (rows 21-1001, widths 4-128, an index "
           f"outside P2b's window) agree with the plain versions; P4 also in both paths on "
-          f"{len(p4_cases)} cases (ids in one bucket, in the last partial bucket)")
+          f"{len(p4_cases)} cases (ids in one bucket, in the last partial bucket); P2b "
+          f"bitwise on {n_p2b} more (E {P2B_RAGGED['e']}, WIN {P2B_RAGGED['win']}, F "
+          f"{P2B_RAGGED['f']}, values 1e-30..1e30, ids outside the window)")
+    print(f"[19 probes] P2b's build: {_p2b_build_lines()}")
 
 
 # P4's further shapes (phase 19) are GAT's msg = h[src] gather (the slices' graph's
@@ -2023,9 +2090,11 @@ def phase_probe_kernels() -> dict:
     ``index_add_``) and its bound; P4 at two further shapes (``_probe_p4_shapes``);
     P0 against ``copy_`` and ``clone`` in turns; then P3 under contention. A gather's
     bytes count the
-    table rows its ids touch. P2b's bound is the larger of its bytes and the function's
+    table rows its ids touch. P2b is also held bitwise to its plain version (its split
+    is exact at these values). Its bound is the larger of its bytes and the function's
     one product (2 x E x WIN x F operations) at TF32's 495 TFLOP/s: splitting win
-    into hi + lo is the kernel's way to f32 accuracy, not work the function needs."""
+    into three bf16 parts is the kernel's way to f32 accuracy, not work the function
+    needs."""
     from dgll_tpu_torch.ops.cuda import probes as kp
     from dgll_tpu_torch.tools import probe
     from dgll_tpu_torch.utils.profiling import cuda_median_ms
@@ -2064,7 +2133,11 @@ def phase_probe_kernels() -> dict:
         def kernel():
             return kp.KERNELS[key](*args)
 
-        err = probe.max_error(key, kernel(), plain(*args))
+        got, want = kernel(), plain(*args)
+        err = probe.max_error(key, got, want)
+        if key == "p2b_onehot":
+            check(torch.equal(got, want), "P2b bitwise at the probe's size")
+        del got, want
         torch.cuda.synchronize()
         t = {"ms": cuda_median_ms(kernel), "plain_ms": cuda_median_ms(lambda: plain(*args)),
              "library_ms": cuda_median_ms(library)}

@@ -19,8 +19,8 @@
 // What bounds them on this card: bytes, except P2b. P0 reads and writes each byte
 // once (the achieved-bandwidth calibration). P2 and P2b read the window once a block
 // and write E rows; P4 reads E rows anywhere in x and writes them; P3 reads E rows and
-// adds them into a 4 MiB accumulator that stays in the 50 MB L2. P2b is a dense
-// product of E x WIN x F multiply-adds, twice (see below), on the tensor cores.
+// adds them into a 4 MiB accumulator that stays in the 50 MB L2. P2b is three dense
+// products of E x WIN x F multiply-adds on the tensor cores (see below).
 //
 // Designs, against what the TPU kernels did:
 //
@@ -32,17 +32,33 @@
 //   a block, then each warp takes 32 consecutive rows: lane l loads idx of row l, the
 //   warp broadcasts each index with a shuffle and copies that window row, one float4
 //   a lane (32 lanes x 16 bytes is one 128-float row).
-// * P2b: the one-hot product on the tensor cores, mma.sync.m16n8k8 at TF32 with f32
-//   accumulation. TF32 keeps 10 bits of mantissa, so win is split as win = hi + lo,
-//   each rounded to TF32, and the product is G @ hi + G @ lo: G is 0 or 1 (exact in
-//   TF32) and each output row has one nonzero term, so the result is hi + lo, within
-//   about 2^-21 of win. The window is staged once a block as float32 (rows padded by 8
-//   floats, so that a B fragment's 32 loads hit 32 banks) and split as each B fragment
-//   is loaded. G never exists in memory: each lane holds the window rows of its
-//   fragment rows and builds its A fragment (1.0 where the row's index equals the
-//   column, else 0) in registers at every K step. A warp takes 64 rows (4 M tiles)
-//   and 32 columns (4 N tiles) at a time, so each B fragment, split once, feeds 8
-//   products.
+// * P2b: the one-hot product on the tensor cores, as the TPU's MXU computes it. A row
+//   gather gives the same function, but P2 is that gather; P2b measures the one-hot
+//   product, and a P2b that gathered would make the probe say nothing. wgmma
+//   m64nNk16 with bfloat16 inputs and float32 sums. Each block splits the window once
+//   into three bfloat16 parts, hi = x cut to bfloat16, mid = x - hi cut, lo = x - hi
+//   - mid (cut toward zero; see split3): both subtractions are exact and the parts
+//   hold all 24 bits of x's significand; G is 0 or 1, exact in bfloat16, and each
+//   output element has one nonzero term in each product. So G @ hi + G @ mid + G @
+//   lo, added in that order, is win[idx] exactly wherever lo and mid are normal:
+//   2^-103 <= |x| <= FLT_MAX, and 0. (Rounding the parts to nearest is as fast and as
+//   exact on the H100, but its hi overflows above 3.3961e38, and its partial sums
+//   can leave x's binade.) The three products are 6 E WIN F operations, 0.83 ms at
+//   bfloat16's 989 TFLOP/s at the probe's size (two TF32 products, hi + lo, would be
+//   1.11 ms at 495), beside 0.65 ms for the 2 GB of output at 3.35 TB/s: the tensor
+//   cores bound it, the output's writes run beside them. The parts sit in shared
+//   memory in wgmma's K-major layout without swizzle (core matrices of 8 columns x 8
+//   rows), 3 x 64 KB at WIN = 256 and F = 128. Where 128 does not divide F, or the
+//   parts would not fit, the window is cut into column slices of 64, 32 or 16, one
+//   pass each. G never exists in memory:
+//   each thread holds the window rows of its two fragment rows and builds its four
+//   bfloat16x2 A registers by comparison at every K step, once for the three
+//   products. Two warpgroups a block walk M tiles of 64 rows, two K steps in flight
+//   each; one's epilogue (8-byte streaming stores straight from the accumulators, so
+//   that the output does not crowd L2) runs while the other's products do. It
+//   replaces a design on mma.sync at TF32 (win split into hi + lo, re-split at every
+//   fragment load by every warp, no overlap of stores and products), which mma.sync's
+//   throughput held to about 42% of TF32's wgmma peak.
 // * P3: the TPU carried the accumulator in VMEM through a sequential grid. Blocks here
 //   run concurrently, so the rows are scattered through L2 with atomicAdd whose result
 //   is unused (RED.ADD.F32), one warp a message row, 32 consecutive floats a
@@ -72,10 +88,9 @@ constexpr int kCopyThreads = 256;
 constexpr int kWarpRows = 32;       // rows a warp takes at once (one index a lane)
 constexpr int kDynreadThreads = 1024;
 constexpr int kScatterThreads = 256;
-constexpr int kOnehotWarps = 8;
-constexpr int kMTiles = 4;          // P2b: 16-row M tiles a warp takes at once
-constexpr int kNTiles = 4;          // P2b: 8-column N tiles a warp takes at once
-constexpr int kWinPad = 8;          // P2b: floats of padding after each window row
+constexpr int kOnehotGroups = 2;    // P2b: warpgroups a block
+constexpr int kTileRows = 64;       // P2b: rows of an M tile (wgmma's M)
+constexpr int kParts = 3;           // P2b: bfloat16 parts of the window, hi + mid + lo
 constexpr int kGatherThreads = 256; // P4's gather: threads a block, at most
 constexpr int kBucketThreads = 512;
 constexpr int kSpanItems = 8;       // P4: positions a thread of the bucket pass takes
@@ -133,89 +148,248 @@ dynread_kernel(const int* __restrict__ idx, const float* __restrict__ win,
 }
 
 // ---------------------------------------------------- P2b: one-hot product
-// TF32 by rounding to nearest (ties away from zero) the 13 low bits of the mantissa
-__device__ __forceinline__ uint32_t tf32_bits(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+// x = hi + mid + lo exactly, three bfloat16 values (their bits in .x, .y, .z), each
+// the one before's remainder cut to its top 8 significant bits (rounded toward zero):
+// both subtractions are exact in float32, what is left after mid has at most 8
+// significant bits, and every part has x's sign and at most its magnitude, so no part
+// overflows and each partial sum hi, hi + mid, x lies in x's own binade.
+__device__ __forceinline__ uint3 split3(float x) {
+  const uint32_t hi = __float_as_uint(x) & 0xFFFF0000u;
+  const float r = x - __uint_as_float(hi);
+  const uint32_t mid = __float_as_uint(r) & 0xFFFF0000u;
+  const float lo = r - __uint_as_float(mid);
+  return make_uint3(hi >> 16, mid >> 16, __float_as_uint(lo) >> 16);
 }
 
-// c += a @ b: a 16 x 8 TF32 A fragment, an 8 x 8 B fragment, a 16 x 8 f32 accumulator
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// Byte offset of element (k, n) of a [kp, ns] window part in wgmma's K-major layout
+// without swizzle: core matrices of 8 columns x 8 window rows, 128 contiguous bytes
+// (a column's 8 rows are 16 bytes), the two 8-row halves of a K step 128 bytes apart
+// (the descriptor's leading offset), the 8-column groups 256 apart (its stride
+// offset), the K steps ns * 32 apart.
+__device__ __forceinline__ int core_offset(int k, int n, int ns) {
+  return (k >> 4) * ns * 32 + (n >> 3) * 256 + ((k >> 3) & 1) * 128 + (n & 7) * 16 +
+         (k & 7) * 2;
+}
+
+// A shared-memory matrix descriptor for B at byte address `addr`, laid out as
+// core_offset says: start >> 4, leading offset 128 >> 4, stride offset 256 >> 4, no
+// swizzle
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+#define P2B_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define P2B_ACC8(i) P2B_ACC4(i), P2B_ACC4(i + 4)
+#define P2B_ACC16(i) P2B_ACC8(i), P2B_ACC8(i + 8)
+#define P2B_ACC32(i) P2B_ACC16(i), P2B_ACC16(i + 16)
+#define P2B_ACC64(i) P2B_ACC32(i), P2B_ACC32(i + 32)
+
+// d = a @ B (scale_d 0) or d += a @ B (scale_d 1), one wgmma m64nNk16 with float32
+// sums: a is the warpgroup's 64 x 16 bfloat16 A in registers, B (16 x N bfloat16) is
+// read from shared memory through `desc`. Accumulator element d[i] of a thread is at
+// row 16 * warp + lane / 4 + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2 * (lane % 4)
+// + (i & 1); A's register a[j] holds columns 2 * (lane % 4) + 8 * (j >> 1) and the
+// next one (the lower in the low half) of row 16 * warp + lane / 4 + 8 * (j & 1).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : P2B_ACC8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-__global__ void __launch_bounds__(kOnehotWarps * 32)
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : P2B_ACC16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : P2B_ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : P2B_ACC64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// The accumulators are written by wgmma after the instruction that names them: this
+// keeps the compiler from moving their reads above the wait that completes them, or
+// their last reads below a tile's first product.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A's pair of columns (c, c + 1), bfloat16 1.0 (0x3F80) where the row's window index
+// lies `rel` = index - c columns past c at 0 or 1, else 0.
+__device__ __forceinline__ uint32_t onehot_pair(int rel) {
+  return rel == 0 ? 0x3F80u : rel == 1 ? 0x3F800000u : 0u;
+}
+
+// One K step of a tile: A built from the rows' indices (rel0, rel1: index - 2 * t -
+// 16 * step, of rows g and g + 8), then its product with hi, mid and lo of the step's
+// 16 window rows (at byte address `addr`, the parts `part_bytes` apart), in that order,
+// into d; one commit group.
+template <int NS>
+__device__ __forceinline__ void onehot_step(float (&d)[NS / 2], uint32_t (&a)[4], int rel0,
+                                            int rel1, uint32_t addr, int part_bytes,
+                                            int scale_d) {
+  a[0] = onehot_pair(rel0);
+  a[1] = onehot_pair(rel1);
+  a[2] = onehot_pair(rel0 - 8);
+  a[3] = onehot_pair(rel1 - 8);
+  wgmma_fence();
+  wgmma_rs<NS>(d, a, b_desc(addr), scale_d);
+  wgmma_rs<NS>(d, a, b_desc(addr + part_bytes), 1);
+  wgmma_rs<NS>(d, a, b_desc(addr + 2 * part_bytes), 1);
+  wgmma_commit();
+}
+
+size_t onehot_smem(int win_rows, int ns) {
+  return static_cast<size_t>(kParts) * ((win_rows + 15) / 16 * 16) * ns * 2;
+}
+
+// A persistent block of kOnehotGroups warpgroups. For each pass over NS output
+// columns n0.., the block splits that column slice of the window into its three parts
+// in shared memory (rows padded with zeros up to kp, a multiple of 16), then each
+// warpgroup walks its M tiles of 64 rows: K steps of 16 window rows, each one A built
+// in registers and three wgmma, two steps in flight (the A registers alternate, and
+// a step waits for the one before the last before its A is rebuilt); then the tile's
+// 64 x NS sums go out as 8-byte streaming stores while the other warpgroup's products
+// run. A row at or past e takes index -1, which no column matches.
+template <int NS>
+__global__ void __launch_bounds__(kOnehotGroups * 128, 1)
 onehot_kernel(const int* __restrict__ idx, const float* __restrict__ win,
               float* __restrict__ out, int64_t e, int win_rows, int f) {
-  extern __shared__ __align__(16) float win_p[];   // [win_rows, f + kWinPad]
-  const int ld = f + kWinPad;
-  for (int i = threadIdx.x; i < win_rows * (f / 4); i += blockDim.x) {
-    const int r = i / (f / 4), c = i % (f / 4);
-    reinterpret_cast<float4*>(win_p + r * ld)[c] =
-        __ldg(reinterpret_cast<const float4*>(win + (int64_t)r * f) + c);
-  }
-  __syncthreads();
-
-  // fragment coordinates (PTX ISA, mma.m16n8k8 .tf32): A element a[j] is at row
-  // g + 8 * (j & 1), column t + 4 * (j >> 1); B's b0, b1 at rows t, t + 4 and column g;
-  // C's c[j] at row g + 8 * (j >> 1), column 2 * t + (j & 1)
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  constexpr int kRows = kMTiles * 16;
-  const int64_t tiles = (e + kRows - 1) / kRows;
-  const int64_t warp = blockIdx.x * (int64_t)kOnehotWarps + (threadIdx.x >> 5);
-  const int64_t warps = (int64_t)gridDim.x * kOnehotWarps;
-  const uint32_t one = __float_as_uint(1.0f);
-  for (int64_t tile = warp; tile < tiles; tile += warps) {
-    const int64_t row0 = tile * kRows;
-    int r[kMTiles][2];   // the window row of fragment rows g and g + 8 (-1: none)
+  extern __shared__ __align__(128) unsigned char parts[];   // [kParts][kp, NS] bfloat16
+  const int kp = (win_rows + 15) / 16 * 16, steps = kp / 16, part_bytes = kp * NS * 2;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(parts));
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t tiles = (e + kTileRows - 1) / kTileRows;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kOnehotGroups;
+  auto ids_of = [&](int64_t tile) {
+    const int64_t r = tile * kTileRows + warp * 16 + g;
+    return make_int2(r < e ? __ldg(idx + r) : -1, r + 8 < e ? __ldg(idx + r + 8) : -1);
+  };
+  float d[NS / 2];
 #pragma unroll
-    for (int m = 0; m < kMTiles; ++m)
+  for (int i = 0; i < NS / 2; ++i) d[i] = 0.f;
+  uint32_t a0[4], a1[4];
+  for (int n0 = 0; n0 < f; n0 += NS) {
+    __syncthreads();   // every product of the last pass has completed (wait_group 0)
+    for (int i = threadIdx.x; i < kp / 8 * NS; i += blockDim.x) {
+      const int k0 = i / NS * 8, n = i % NS;
+      uint32_t w[kParts][4];
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        const float* src = win + static_cast<int64_t>(k0 + j) * f + n0 + n;
+        const uint3 x0 = split3(k0 + j < win_rows ? __ldg(src) : 0.f);
+        const uint3 x1 = split3(k0 + j + 1 < win_rows ? __ldg(src + f) : 0.f);
+        w[0][j / 2] = x0.x | (x1.x << 16);
+        w[1][j / 2] = x0.y | (x1.y << 16);
+        w[2][j / 2] = x0.z | (x1.z << 16);
+      }
+      const int off = core_offset(k0, n, NS);
+#pragma unroll
+      for (int p = 0; p < kParts; ++p)
+        *reinterpret_cast<uint4*>(parts + p * part_bytes + off) =
+            make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");   // for wgmma's reads
+    __syncthreads();
+
+    int64_t tile = blockIdx.x * static_cast<int64_t>(kOnehotGroups) + wg;
+    int2 next = ids_of(tile);
+    for (; tile < tiles; tile += stride) {
+      const int rel0 = next.x - 2 * t, rel1 = next.y - 2 * t;
+      next = ids_of(tile + stride);
+      fence_acc(d);
+      for (int s = 0; s < steps; s += 2) {
+        onehot_step<NS>(d, a0, rel0 - 16 * s, rel1 - 16 * s, base + s * NS * 32, part_bytes,
+                        s > 0);
+        wgmma_wait<1>();
+        if (s + 1 < steps) {
+          onehot_step<NS>(d, a1, rel0 - 16 * (s + 1), rel1 - 16 * (s + 1),
+                          base + (s + 1) * NS * 32, part_bytes, 1);
+          wgmma_wait<1>();
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      const int64_t row = tile * kTileRows + warp * 16 + g;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int64_t row = row0 + m * 16 + g + 8 * h;
-        r[m][h] = row < e ? __ldg(idx + row) : -1;
+        if (row + 8 * h >= e) continue;
+        float* dst = out + (row + 8 * h) * f + n0 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NS / 8; ++j)
+          __stcs(reinterpret_cast<float2*>(dst + 8 * j),
+                 make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));
       }
-    for (int n0 = 0; n0 < f; n0 += kNTiles * 8) {
-      float acc[kMTiles][kNTiles][4] = {};
-      for (int k = 0; k < win_rows; k += 8) {
-        uint32_t hi[kNTiles][2], lo[kNTiles][2];
-#pragma unroll
-        for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v = win_p[(k + t + 4 * h) * ld + n0 + n * 8 + g];
-            hi[n][h] = tf32_bits(v);
-            lo[n][h] = tf32_bits(v - __uint_as_float(hi[n][h]));  // exact in float32
-          }
-#pragma unroll
-        for (int m = 0; m < kMTiles; ++m) {
-          const uint32_t a[4] = {r[m][0] == k + t ? one : 0u, r[m][1] == k + t ? one : 0u,
-                                 r[m][0] == k + t + 4 ? one : 0u,
-                                 r[m][1] == k + t + 4 ? one : 0u};
-#pragma unroll
-          for (int n = 0; n < kNTiles; ++n) {
-            mma_tf32(acc[m][n], a, hi[n][0], hi[n][1]);
-            mma_tf32(acc[m][n], a, lo[n][0], lo[n][1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int64_t row = row0 + m * 16 + g + 8 * h;
-          if (row >= e) continue;
-#pragma unroll
-          for (int n = 0; n < kNTiles; ++n)
-            *reinterpret_cast<float2*>(out + row * f + n0 + n * 8 + 2 * t) =
-                make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
-        }
     }
   }
+}
+
+template <int NS>
+cudaError_t launch_onehot(const int* idx, const float* win, float* out, int64_t e,
+                          int win_rows, int f, cudaStream_t s) {
+  const size_t smem = onehot_smem(win_rows, NS);
+  cudaError_t err = cudaFuncSetAttribute(
+      onehot_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t want = ((e + kTileRows - 1) / kTileRows + kOnehotGroups - 1) / kOnehotGroups;
+  const int64_t cap = sm_count();
+  onehot_kernel<NS><<<static_cast<int>(want < cap ? want : cap), kOnehotGroups * 128, smem, s>>>(
+      idx, win, out, e, win_rows, f);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------ P3: scatter-add
@@ -455,21 +629,29 @@ int dgll_probe_dynread(const void* idx, const void* win, void* out, long long e,
 }
 
 // P2b: out = onehot(idx)[e, win_rows] @ win[win_rows, f]; win_rows % 8 == 0 and
-// f % 32 == 0 (the mma tiles); an index outside [0, win_rows) gives a zero row.
+// f % 32 == 0; an index outside [0, win_rows) gives a zero row. Each pass takes the
+// widest column slice of 128, 64, 32 or 16 that divides f and whose three parts fit
+// in shared memory.
 int dgll_probe_onehot(const void* idx, const void* win, void* out, long long e,
                       int win_rows, int f, void* stream) {
-  if (e < 0 || win_rows <= 0 || win_rows % 8 != 0 || f <= 0 || f % (kNTiles * 8) != 0)
+  if (e < 0 || win_rows <= 0 || win_rows % 8 != 0 || f <= 0 || f % 32 != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(win_rows) * (f + kWinPad) * sizeof(float);
-  if (smem > static_cast<size_t>(max_dynamic_smem())) return cudaErrorInvalidValue;
+  int ns = 128;
+  while (ns >= 16 && (f % ns != 0 || onehot_smem(win_rows, ns) >
+                                         static_cast<size_t>(max_dynamic_smem())))
+    ns /= 2;
+  if (ns < 16) return cudaErrorInvalidValue;
   if (e == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  onehot_kernel<<<sm_count(), kOnehotWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(win), static_cast<float*>(out),
-      e, win_rows, f);
-  return cudaGetLastError();
+  const int* i = static_cast<const int*>(idx);
+  const float* w = static_cast<const float*>(win);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ns) {
+    case 128: return launch_onehot<128>(i, w, o, e, win_rows, f, s);
+    case 64: return launch_onehot<64>(i, w, o, e, win_rows, f, s);
+    case 32: return launch_onehot<32>(i, w, o, e, win_rows, f, s);
+    default: return launch_onehot<16>(i, w, o, e, win_rows, f, s);
+  }
 }
 
 // P3: acc = 0 ([out_rows, f], zeroed here), then acc[idx[i]] += msg[i] for i < e.

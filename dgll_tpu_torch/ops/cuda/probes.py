@@ -64,13 +64,19 @@ def p2_dynread_cuda(idx: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
 
 
 def p2b_onehot_cuda(idxv: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
-    """P2b: ``onehot(idxv[:, 0]) @ win`` on the tensor cores (TF32, win split in two),
-    ``[E, F]``; WIN a multiple of 8 and F of 32."""
+    """P2b: ``onehot(idxv[:, 0]) @ win`` on the tensor cores, ``[E, F]``; WIN a
+    multiple of 8 and F of 32. ``win`` is split into three bfloat16 parts (hi, mid,
+    lo, each cut toward zero) that sum to it exactly, and the one-hot rows meet each
+    part in a bfloat16 ``wgmma`` product with float32 sums: each output row is its
+    window row, exactly for values from 2^-103 up in magnitude (and 0), or a zero row
+    for an index outside the window."""
+    if (idxv.dim() != 2 or idxv.shape[1] != 1 or win.dim() != 2 or win.shape[0] % 8
+            or win.shape[1] % 32 or not win.shape[1]):
+        raise ValueError(f"p2b_onehot: need idxv [E, 1] and a window of a multiple of 8 "
+                         f"rows and 32 columns, got {tuple(idxv.shape)} and "
+                         f"{tuple(win.shape)}")
     win_rows, f, dev = _rows("win", win, width=32)
     e = _index("idxv", idxv, dev)
-    if idxv.dim() != 2 or idxv.shape[1] != 1 or win_rows % 8:
-        raise ValueError(f"idxv: need [E, 1] and a window of a multiple of 8 rows, got "
-                         f"{tuple(idxv.shape)} and {win_rows} rows")
     out = torch.empty((e, f), dtype=torch.float32, device=dev)
     _launch("probe_onehot", dev, idxv.data_ptr(), win.data_ptr(), out.data_ptr(), e,
             win_rows, f)
