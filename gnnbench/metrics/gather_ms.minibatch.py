@@ -1,0 +1,12 @@
+"""Device ms a batch of the gather of the batch's input features and labels: CUDA events that the
+runner's capture(..., marks) records around the step's phases, averaged over an
+epoch of replays, each waited for."""
+UNIT = "ms/batch"
+BETTER = "lower"
+SOURCE = "program_span"
+LAYER = "feature gather"
+MOVES = "train_seeds_per_s"
+
+
+def read(run):
+    return None if run.phases is None else run.phases["gather"]
