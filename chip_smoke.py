@@ -3468,7 +3468,7 @@ K1_SHARD = ("spmm_csr (K1) on a rank's shard of A, [rows, n_node] (graph-partiti
             "GCN's sharded SpMM)")
 
 
-def _dp_runner(csr, train_nodes, mesh, cuda_graph=None, time_collective=False):
+def _dp_runner(csr, train_nodes, mesh, cuda_graph=None):
     """``(runner, state)``: the flagship's GraphSAGE (weights from the bench's seed,
     dropout 0) and Adam (capturable, fused) in a ``DeviceDPEpochRunner`` of
     ``PAR_BATCH`` seeds a rank, block-window draws, as the bench's."""
@@ -3481,7 +3481,7 @@ def _dp_runner(csr, train_nodes, mesh, cuda_graph=None, time_collective=False):
     runner = DeviceDPEpochRunner(
         model, functools.partial(torch.optim.Adam, lr=1e-3, **GRAPH_ADAM), csr,
         bench.FANOUTS, PAR_BATCH, train_nodes, mesh, seed=bench.SEED, window=True,
-        cuda_graph=cuda_graph, time_collective=time_collective)
+        cuda_graph=cuda_graph)
     return runner, runner.init_state()
 
 
@@ -3499,15 +3499,17 @@ def _gp_model(weights, device="cuda"):
 
 def _phase24_rank(work: str) -> int:
     """One rank of phase 24 (started by ``launch_local``): (a) one device-DP epoch of
-    the flagship (its parameters saved for the check), then one timed with the
-    all-reduce's CUDA events; (b) the GP GCN on this rank's shard: its log-probs and
-    one SGD step (K1's launches counted from 0), then ``PAR_GP_STEPS`` timed steps."""
+    the flagship (its parameters saved for the check), one timed, then one timed with
+    the all-reduces traced (their spans' CUDA events); (b) the GP GCN on this rank's
+    shard: its log-probs and one SGD step (K1's launches counted from 0), then
+    ``PAR_GP_STEPS`` timed steps."""
     from dgll_tpu_torch.ops.cuda import segment_matmul as sm
     from dgll_tpu_torch.parallel import gp, launch
     from dgll_tpu_torch.parallel import mesh as meshes
     from dgll_tpu_torch.parallel.partition import PartitionedGraph
     from dgll_tpu_torch.sampling import DeviceCSR
     from dgll_tpu_torch.train import create_train_state
+    from dgll_tpu_torch.utils import profiling
 
     launch.initialize_distributed(device="cuda")
     mesh = meshes.make_mesh()
@@ -3516,16 +3518,22 @@ def _phase24_rank(work: str) -> int:
     d = torch.load(os.path.join(work, "flagship.pt"), weights_only=False)
     csr = DeviceCSR.from_host_arrays(d["indptr"], d["src"], dev)
     feats, labels = d["feats"].to(dev), d["labels"].to(dev)
-    runner, state = _dp_runner(csr, d["train_nodes"], mesh, time_collective=True)
+    runner, state = _dp_runner(csr, d["train_nodes"], mesh)
     t0 = time.perf_counter()
     state, loss = runner.run_epoch(state, feats, labels)  # the draws: draw_epoch's
     out["first_epoch_s"] = time.perf_counter() - t0
     out["params"] = [p.detach().cpu() for p in state.model.parameters()]
     out["batch_losses"] = runner.batch_losses.cpu()
     t0 = time.perf_counter()
-    _, loss = runner.run_epoch(state, feats, labels)
+    state, loss = runner.run_epoch(state, feats, labels)
     float(loss)
     out["epoch_s"] = time.perf_counter() - t0
+    profiling.reset()
+    t0 = time.perf_counter()
+    with profiling.tracing():  # the all-reduces' spans, for collective_ms
+        _, loss = runner.run_epoch(state, feats, labels)
+        float(loss)
+    out["traced_epoch_s"] = time.perf_counter() - t0
     out["n_batches"] = runner.n_batches
     out["collective_ms"] = runner.collective_ms()
     del runner, state, csr, feats, labels, d
@@ -3741,14 +3749,16 @@ def phase_parallel(data, flagship: dict) -> dict:
     _dp_reference(data, ranks)
     nb = ranks[0]["n_batches"]
     batch_ms = [1e3 * r["epoch_s"] / nb for r in ranks]
-    share = [r["collective_ms"] / (1e3 * r["epoch_s"]) for r in ranks]
+    traced_ms = [1e3 * r["traced_epoch_s"] / nb for r in ranks]
+    share = [r["collective_ms"] / (1e3 * r["traced_epoch_s"]) for r in ranks]
     single = flagship["bench"]["value"]
     print(f"[24 dp] {PAR_RANKS} ranks ({ranks[0]['backend']}, {ranks[0]['device']}), "
           f"{nb} batches of {PAR_RANKS} x {PAR_BATCH}: parameters within {PAR_TOL} x "
           f"max|ref| of one process, the ranks' bitwise equal; ms a global batch "
-          f"{[round(v, 4) for v in batch_ms]} (one process, phase 20: {single:.4f}); the "
-          f"all-reduce's share (CUDA events around it, the wait for the other rank's "
-          f"step on the shared card included) {[round(v, 4) for v in share]} "
+          f"{[round(v, 4) for v in batch_ms]} (one process, phase 20: {single:.4f}), "
+          f"traced {[round(v, 4) for v in traced_ms]}; the all-reduce's share of the "
+          f"traced epoch (its span's CUDA events, the wait for the other rank's step on "
+          f"the shared card included) {[round(v, 4) for v in share]} "
           f"({[round(r['collective_ms'] / nb, 4) for r in ranks]} ms a batch); first "
           f"epoch (capture) {[round(r['first_epoch_s'], 2) for r in ranks]} s")
     for r, got in enumerate(ranks):
@@ -3763,7 +3773,8 @@ def phase_parallel(data, flagship: dict) -> dict:
           f"{[round(1e3 * r['gp_step_s'], 3) for r in ranks]}")
     k1 = _k1_shard_times(pg)
     cli = _parallel_cli()
-    out = {"dp_batch_ms": batch_ms, "dp_allreduce_share": share, "single_batch_ms": single,
+    out = {"dp_batch_ms": batch_ms, "dp_traced_batch_ms": traced_ms,
+           "dp_allreduce_share": share, "single_batch_ms": single,
            "gp_step_ms": [1e3 * r["gp_step_s"] for r in ranks], "gp_check": gp_check,
            "k1_launches": ranks[0]["k1_launches"], "k1_shard": k1, "cli": cli,
            "files_s": t_files, "ranks_s": t_ranks}

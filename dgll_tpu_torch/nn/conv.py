@@ -24,6 +24,11 @@ from torch import nn
 from dgll_tpu_torch.ops.gat_csr import gat_attention_coo, leaky_relu
 from dgll_tpu_torch.ops.spmm import block_aggregate, spmm_coo, spmm_max_coo, spmm_mean_coo
 from dgll_tpu_torch.sampling.base import SparseBlock, WeightedBlock
+from dgll_tpu_torch.utils import profiling
+
+# Each layer's neighbour aggregation is this span while tracing (``utils.profiling``),
+# and its backward the span of the same name with ``_bwd``.
+AGGREGATE = "dgll.conv.aggregate"
 
 
 def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None):
@@ -156,7 +161,7 @@ class GCNConv(nn.Module):
 
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
         h = _dense(self.linear, x, self.dtype)
-        out = _weighted_aggregate(g, h, _n_dst(g))
+        out = profiling.spanned(AGGREGATE, _weighted_aggregate, g, h, _n_dst(g))
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
@@ -190,17 +195,19 @@ class SAGEConv(nn.Module):
         if use_bias:
             nn.init.zeros_(self.self.bias)
 
+    def _aggregate(self, g, x: torch.Tensor, n_dst: int) -> torch.Tensor:
+        if _is_dense_block(g):
+            return block_aggregate(x, n_dst, g.fanout, g.neigh_mask, self.aggregator)
+        if self.aggregator == "mean":
+            return spmm_mean_coo(g.src, g.dst, x, n_dst)
+        if self.aggregator == "sum":
+            return spmm_coo(g.src, g.dst, x, n_dst, g.edge_weight)
+        return spmm_max_coo(g.src, g.dst, x, n_dst)
+
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
         n_dst = _n_dst(g)
         _require_self_at_head(g, "SAGEConv")
-        if _is_dense_block(g):
-            agg = block_aggregate(x, n_dst, g.fanout, g.neigh_mask, self.aggregator)
-        elif self.aggregator == "mean":
-            agg = spmm_mean_coo(g.src, g.dst, x, n_dst)
-        elif self.aggregator == "sum":
-            agg = spmm_coo(g.src, g.dst, x, n_dst, g.edge_weight)
-        else:
-            agg = spmm_max_coo(g.src, g.dst, x, n_dst)
+        agg = profiling.spanned(AGGREGATE, self._aggregate, g, x, n_dst)
         h_neigh = _dense(self.neigh, agg, self.dtype)
         h_self = _dense(self.self, x[:n_dst], self.dtype)
         if self.combine == "concat":
@@ -281,6 +288,13 @@ class GATConv(nn.Module):
             alpha = alpha * mask.to(alpha.dtype)
         return torch.einsum("nfh,nfhd->nhd", alpha, neigh_h)
 
+    def _coo(self, g, h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+             n_dst: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Attention over the COO edges ``g.src -> g.dst`` (``gat_attention_coo``)."""
+        mask = self._drop_mask((g.src.numel(), self.num_heads), h.device, generator)
+        return gat_attention_coo(g.src, g.dst, h, a_src, a_dst, n_dst,
+                                 self.negative_slope, mask)
+
     def forward(self, g, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         H, F = self.num_heads, self.features
@@ -288,23 +302,20 @@ class GATConv(nn.Module):
         _require_self_at_head(g, "GATConv")
         h = _dense(self.linear, x, self.dtype)              # [n, H*F]
         a_src, a_dst = self.attn_src.to(h.dtype), self.attn_dst.to(h.dtype)
-        if _is_dense_block(g):
-            out = self._dense_block(g, h, a_src, a_dst, n_dst, generator)
-            if self.concat_heads:
-                return out.reshape(n_dst, H * F)
-            return out.mean(dim=1)
-        layouts = None if _is_layerwise_block(g) else kernel_layouts(g, n_dst, x.device)
+        layouts = (None if _is_dense_block(g) or _is_layerwise_block(g)
+                   else kernel_layouts(g, n_dst, x.device))
         if layouts is not None:
             from dgll_tpu_torch.ops.cuda.gat_fused import gat_attention_fused
 
             c, ct = layouts
-            mask = self._drop_mask((c.src.numel(), H), x.device, generator)
-            out = gat_attention_fused(c, ct, h, a_src, a_dst, self.negative_slope,
-                                      mask)[:n_dst]
+            with profiling.span(AGGREGATE, h):  # the fused op spans its own backward
+                mask = self._drop_mask((c.src.numel(), H), x.device, generator)
+                out = gat_attention_fused(c, ct, h, a_src, a_dst, self.negative_slope,
+                                          mask)[:n_dst]
         else:
-            mask = self._drop_mask((g.src.numel(), H), x.device, generator)
-            out = gat_attention_coo(g.src, g.dst, h, a_src, a_dst, n_dst,
-                                    self.negative_slope, mask)
+            attend = self._dense_block if _is_dense_block(g) else self._coo
+            out = profiling.spanned(AGGREGATE, attend, g, h, a_src, a_dst, n_dst,
+                                    generator)
         if self.concat_heads:
             return out.reshape(n_dst, H * F)
         return out.mean(dim=1)
@@ -330,7 +341,7 @@ class GINConv(nn.Module):
     def forward(self, g, x: torch.Tensor) -> torch.Tensor:
         n_dst = _n_dst(g)
         _require_self_at_head(g, "GINConv")
-        agg = _weighted_aggregate(g, x, n_dst)
+        agg = profiling.spanned(AGGREGATE, _weighted_aggregate, g, x, n_dst)
         eps = 0.0 if self.eps is None else self.eps
         h = _dense(self.mlp, (1.0 + eps) * x[:n_dst] + agg, self.dtype)
         return h if self.activation is None else self.activation(h)

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from dgll_tpu_torch.ops import gat_csr
 from dgll_tpu_torch.ops.chunked import ChunkedCSR, SplitSchedule
 from dgll_tpu_torch.ops.cuda.segment_matmul import _check, _launch, _uses_kernel, spmm_edges
+from dgll_tpu_torch.utils import profiling
 
 launches = dict.fromkeys(
     ("gat_stats", "gat_alpha", "gat_bwd_softmax", "edges_to_rows_sum", "expand_rows"), 0)
@@ -311,6 +312,11 @@ class _GatFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with profiling.span("dgll.conv.aggregate_bwd", g):  # nn/conv.py's span
+            return _GatFused._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         h, a_src, a_dst, msg, alpha, lgrad, drop_mask = ctx.saved_tensors
         c, ct = ctx.c, ctx.ct
         heads, f = a_src.shape

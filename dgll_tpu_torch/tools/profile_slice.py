@@ -113,9 +113,8 @@ def restrict_rows(c: ChunkedCSR, keep_row: Optional[np.ndarray] = None,
 
 
 def _traced(fn):
-    """Run ``fn()`` under ``torch.profiler``: (host wall ms, {kernel name cut to 90
-    characters: {"ms", "count"}}), kernels that share a cut name added up."""
-    from torch.autograd import DeviceType
+    """Run ``fn()`` under ``torch.profiler``: (host wall ms, ``device_ops`` of its
+    ``key_averages()``)."""
     from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
@@ -125,13 +124,26 @@ def _traced(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, device_ops(prof.key_averages())
+
+
+def device_ops(averages) -> dict:
+    """{kernel name cut to 90 characters: {"ms", "count"}} of a profiler's
+    ``key_averages()``, kernels that share a cut name added up. The device images of
+    ``record_function`` ranges (the port's spans record while a profiler does) are no
+    device work and are left out: a user annotation, or a name also on the host."""
+    from torch.autograd import DeviceType
+
+    host = {e.key for e in averages if e.device_type != DeviceType.CUDA}
     kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            k = kernels.setdefault(e.key[:90], {"ms": 0.0, "count": 0})
-            k["ms"] += e.self_device_time_total / 1e3
-            k["count"] += e.count
-    return wall_ms, kernels
+    for e in averages:
+        if (e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0
+                or getattr(e, "is_user_annotation", False) or e.key in host):
+            continue
+        k = kernels.setdefault(e.key[:90], {"ms": 0.0, "count": 0})
+        k["ms"] += e.self_device_time_total / 1e3
+        k["count"] += e.count
+    return kernels
 
 
 # the names of K1's kernels (csrc/segment_matmul.cu): pass 1 of either route, pass 2

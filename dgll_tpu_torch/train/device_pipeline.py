@@ -40,6 +40,7 @@ from dgll_tpu_torch.sampling.device_sampler import layer_sizes, sample_blocks_de
 from dgll_tpu_torch.train import cuda_graph
 from dgll_tpu_torch.train.metrics import masked_nll_loss
 from dgll_tpu_torch.train.trainer import TrainState, create_train_state
+from dgll_tpu_torch.utils import profiling
 
 
 def make_sample_fn(fanouts: Sequence[int], window: bool = False,
@@ -311,21 +312,34 @@ class DeviceEpochRunner:
                   draws: Optional[EpochDraws] = None):
         """One epoch: ``(state, mean loss)``, the loss a device tensor; no host
         synchronisation inside it. ``draws``: the epoch's randomness, drawn from the
-        runner's generator where None."""
-        self.load_epoch(draws)
-        if self.cuda_graph:
-            key = (id(state.model), id(state.optimizer), feats.data_ptr(),
-                   labels.data_ptr())
-            if self._graph_key != key:
-                self._graph = self.capture(state, feats, labels)
-                self._graph_key = key
-            for _ in range(self.n_batches):
-                self._graph.replay()
-        else:
-            for _ in range(self.n_batches):
-                self._eager_step(state, feats, labels)
-        state.step += self.n_batches
-        return state, self.batch_losses.mean()
+        runner's generator where None.
+
+        While tracing (``utils.profiling``) the epoch is the span ``dgll.runner.epoch``,
+        its draws ``dgll.runner.load_epoch``, and each replay ``dgll.runner.replay``
+        (counted as ``runner.replay``), whose events lie just around the replay; from
+        one replay's end to the next one's start, across epochs, is
+        ``dgll.runner.between_replays``, where the device waits on the host or runs
+        the epoch boundary's work."""
+        with profiling.span("dgll.runner.epoch", feats):
+            with profiling.span("dgll.runner.load_epoch", feats):
+                self.load_epoch(draws)
+            if self.cuda_graph:
+                key = (id(state.model), id(state.optimizer), feats.data_ptr(),
+                       labels.data_ptr())
+                if self._graph_key != key:
+                    self._graph = self.capture(state, feats, labels)
+                    self._graph_key = key
+                replay = profiling.span("dgll.runner.replay", feats,
+                                        gap="dgll.runner.between_replays")
+                for _ in range(self.n_batches):
+                    with replay:
+                        self._graph.replay()
+                profiling.count("runner.replay", self.n_batches)
+            else:
+                for _ in range(self.n_batches):
+                    self._eager_step(state, feats, labels)
+            state.step += self.n_batches
+            return state, self.batch_losses.mean()
 
     # -- evaluation -----------------------------------------------------------
     def _eval_fn(self, n_batches: int):
@@ -400,8 +414,8 @@ class DeviceDPEpochRunner(DeviceEpochRunner):
     backward, the gradients and the loss into one fixed buffer), the all-reduce of
     that buffer (a gloo collective cannot be captured), then a replay of a second
     graph (the optimizer step). ``cuda_graph=False`` and the CPU run the
-    same three parts eagerly. ``time_collective``: record CUDA events around each
-    all-reduce (``collective_ms``).
+    same three parts eagerly. While tracing (``utils.profiling``) each all-reduce is
+    the span ``dgll.dp.all_reduce``, which ``collective_ms`` reads.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer: Callable, csr,
@@ -409,8 +423,7 @@ class DeviceDPEpochRunner(DeviceEpochRunner):
                  loss_fn: Callable = masked_nll_loss, seed: int = 0,
                  window: bool = False, sampler: str = "neighbor",
                  cuda_graph: Optional[bool] = None,
-                 feat_dtype: Optional[torch.dtype] = None,
-                 time_collective: bool = False):
+                 feat_dtype: Optional[torch.dtype] = None):
         self.mesh = mesh
         self.per_device_batch = int(per_device_batch)
         super().__init__(model, optimizer, csr, fanouts,
@@ -419,8 +432,6 @@ class DeviceDPEpochRunner(DeviceEpochRunner):
         self.rank_generator = torch.Generator(device=self.device).manual_seed(
             rank_seed(seed, mesh.rank))
         self._flat: Optional[torch.Tensor] = None
-        self.time_collective = time_collective and self.device.type == "cuda"
-        self._events: list = []
 
     def _buffers(self, b: int) -> None:
         super()._buffers(self.per_device_batch)  # a step holds this rank's sub-batch
@@ -461,13 +472,7 @@ class DeviceDPEpochRunner(DeviceEpochRunner):
         self._flat.copy_(dp.flat_grads(state, loss))
 
     def _reduce(self) -> None:
-        if self.time_collective:
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            meshes.all_reduce(self.mesh, self._flat)
-            ev[1].record()
-            self._events.append(ev)
-        else:
+        with profiling.span("dgll.dp.all_reduce", self._flat):
             meshes.all_reduce(self.mesh, self._flat)
 
     def _apply_step(self, state: TrainState) -> None:
@@ -505,14 +510,12 @@ class DeviceDPEpochRunner(DeviceEpochRunner):
             n = sum(p.numel() for p in state.model.parameters() if p.requires_grad)
             self._flat = torch.zeros(n + 1, device=self.device)
         self.load_epoch(draws)
-        self._events = []
         if self.cuda_graph:
             key = (id(state.model), id(state.optimizer), feats.data_ptr(),
                    labels.data_ptr())
             if self._graph_key != key:
                 self._graph = self._capture_dp(state, feats, labels)
                 self._graph_key = key
-                self._events = []
             grads, apply = self._graph
             for _ in range(self.n_batches):
                 grads.replay()
@@ -527,7 +530,10 @@ class DeviceDPEpochRunner(DeviceEpochRunner):
         return state, self.batch_losses.mean()
 
     def collective_ms(self) -> float:
-        """The all-reduces' time in the last epoch, from the CUDA events around them
-        (``time_collective``; synchronises)."""
-        torch.cuda.synchronize(self.device)
-        return sum(a.elapsed_time(b) for a, b in self._events)
+        """The all-reduces' milliseconds traced since the tracer's last ``reset``
+        (the span ``dgll.dp.all_reduce``): device time on a CUDA device, host time
+        elsewhere, 0 where none was traced. Waits for the device."""
+        s = profiling.report()["spans"].get("dgll.dp.all_reduce")
+        if s is None:
+            return 0.0
+        return s["device_ms"] if s["device_ms"] is not None else 1e3 * s["host_s"]

@@ -35,6 +35,7 @@ import torch
 from dgll_tpu_torch.sampling.base import Block
 from dgll_tpu_torch.train.cuda_graph import GraphedStep
 from dgll_tpu_torch.train.metrics import accuracy, masked_nll_loss
+from dgll_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -52,14 +53,21 @@ def make_full_batch_step(loss_fn=masked_nll_loss):
     """Full-batch train step: state, graph, x, labels, mask, generator -> state, loss.
 
     The loss comes back as a device tensor, so the step does not wait for the device.
+    While tracing (``utils.profiling``) its phases are the spans ``dgll.step.forward``
+    (the model and the loss), ``dgll.step.backward`` and ``dgll.step.optimizer``, and
+    the counter ``step.full_batch`` counts the steps.
     """
 
     def step(state: TrainState, g, x, labels, mask, generator):
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state.model(g, x, generator=generator), labels, mask)
-        loss.backward()
-        state.optimizer.step()
+        with profiling.span("dgll.step.forward", x):
+            loss = loss_fn(state.model(g, x, generator=generator), labels, mask)
+        with profiling.span("dgll.step.backward", x):
+            loss.backward()
+        with profiling.span("dgll.step.optimizer", x):
+            state.optimizer.step()
+        profiling.count("step.full_batch")
         state.step += 1
         return state, loss.detach()
 

@@ -25,3 +25,4 @@ assert jax.default_backend() == "cpu", (
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: multi-process / long-running tests")
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
