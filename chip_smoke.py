@@ -133,7 +133,14 @@ checkpoints and ``device_trace``:
   one-process K1 GCN with every launch counted; K2 on a shard, K1 on the halo layout
   and K1 on a tensor-parallel slice against their plain versions and timed; the TP
   GCN against one process; ``dryrun_multichip(2)``; DeepWalk's skip-gram on the card
-  against the CPU and an epoch timed.
+  against the CPU and an epoch timed;
+* full-batch GraphSAGE's aggregation (phase 26), on an ogbn-arxiv-sized power-law
+  graph (169,343 nodes, 2,501,829 edges with both directions and self-loops; the
+  benchmark's degree law): ``Graph.mean_chunked`` built on the card and timed,
+  then ``spmm_chunked`` forward and autograd backward on it at F 128 and 512 (SAGE's
+  two layers) against the plain version through autograd (1e-5 x max|ref|), every
+  launch counted; K1 on A and A^T at both widths timed beside the plain version,
+  ``sparse.mm`` and its bound, and the COO mean it replaced (``spmm_mean_coo``).
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -2355,8 +2362,9 @@ def _flagship_profile(runner, state, data) -> dict:
 
 def _flagship_cli() -> dict:
     """The CLI's device-sampling runs (``FLAGSHIP_CLI_RUNS``), every counter set to 0
-    just before each and read just after: GCN's exact inference launches K1 (one call a
-    layer), and nothing else launches a kernel of the port."""
+    just before each and read just after: exact inference launches K1 (GCN's and
+    GraphSAGE's mean, one call a layer), and nothing else launches a kernel of the
+    port."""
     from dgll_tpu_torch import run
 
     out = {}
@@ -2372,7 +2380,7 @@ def _flagship_cli() -> dict:
         check(trial["test_acc"] > 2 / 16, f"{name}: test_acc above 2/16")
         check(trial["device_sampling"] and trial["exact_eval"] == ("--exact_eval" in extra),
               f"{name}: the device branch ran")
-        if "GCN" in name:
+        if "--exact_eval" in extra:
             check(counts.get("K1 fwd", 0) > 0 and set(counts) == {"K1 fwd"},
                   f"{name}: exact inference launched K1, and nothing else ran: {counts}")
         else:
@@ -3809,6 +3817,8 @@ K1_HALO = ("spmm_csr (K1) on a rank's halo layout, [rows, rows + D*H] (the halo 
            "of graph-partition GCN)")
 K1_TP = ("spmm_csr (K1) on a rank's feature slice, [n_node, F/D] (tensor-parallel "
          "GCN)")
+K1_SAGE = ("spmm_csr (K1) on a full graph's mean layout, 1 / deg on each edge (full-batch "
+           "GraphSAGE's mean, forward and backward)")
 HALO_REPLACES = "dgll_tpu/parallel/halo.py:284"
 
 
@@ -4024,7 +4034,7 @@ def _k2_shard_times(win) -> dict:
     return {**t, "err": err}
 
 
-def _k1_layout_times(lay, f: int, tag: str, seed: int) -> dict:
+def _k1_layout_times(lay, f: int, tag: str, seed: int, phase: int = 25) -> dict:
     """K1 on ``lay`` at width ``f`` against its plain version (1e-5 x max|ref|),
     timed beside ``sparse.mm`` on the same CSR, with its bound (``k1_reads``)."""
     from dgll_tpu_torch.ops import spmm_chunked_reference
@@ -4040,9 +4050,89 @@ def _k1_layout_times(lay, f: int, tag: str, seed: int) -> dict:
     t = timed(Case(lambda: spmm_csr_cuda(lay, x), lambda: spmm_chunked_reference(lay, x),
                    lambda: torch.sparse.mm(mat, x), k1_reads(lay, x),
                    2 * lay.src.numel() * f), (got,))
-    print(f"[25 K1 {tag}] [{lay.n_rows}, {lay.n_cols}] layout, {lay.src.numel()} edges, "
+    print(f"[{phase} K1 {tag}] [{lay.n_rows}, {lay.n_cols}] layout, {lay.src.numel()} edges, "
           f"F={f}: {describe(t)}; max abs err {err:.3e}")
     return {**t, "err": err}
+
+
+SAGE_N, SAGE_PAIRS = 169_343, 1_166_243  # ogbn-arxiv's published sizes
+SAGE_WIDTHS = (128, 512)  # a two-layer GraphSAGE's aggregations: features, hidden 512
+
+
+def sage_graph(seed: int = 27):
+    """An ogbn-arxiv-sized graph on the card: ``SAGE_PAIRS`` pairs, destinations by
+    ``(v + 1) ** -0.9``, sources uniform, stored both ways, and a self-loop a node."""
+    from dgll_tpu_torch.graph import Graph
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cdf = torch.cumsum((torch.arange(SAGE_N, dtype=torch.float64, device="cuda") + 1)
+                       ** -0.9, 0)
+    u = torch.rand(SAGE_PAIRS, generator=gen, device="cuda", dtype=torch.float64)
+    dst = torch.searchsorted(cdf / cdf[-1], u).clamp_max_(SAGE_N - 1)
+    src = torch.randint(0, SAGE_N, (SAGE_PAIRS,), generator=gen, device="cuda")
+    src = torch.where(src == dst, (src + 1) % SAGE_N, src)
+    loops = torch.arange(SAGE_N, device="cuda")
+    src, dst = torch.cat([src, dst, loops]), torch.cat([dst, src, loops])
+    return Graph.from_edges(src.cpu().numpy(), dst.cpu().numpy(), SAGE_N).to("cuda")
+
+
+def phase_sage_k1() -> dict:
+    """Phase 26: full-batch GraphSAGE's mean on K1. ``Graph.mean_chunked`` built on
+    the card (timed at its first use, and again by CUDA events on a copy); the
+    wrapper as ``SAGEConv`` calls it (``spmm_chunked(a, at, x)``, forward and autograd
+    backward on A^T) at each of ``SAGE_WIDTHS`` against the plain version through
+    autograd, 1e-5 x max|ref| for out and dx, its launches counted (one forward and
+    one backward a width, nothing else); then K1 alone on A and A^T at each width
+    (``_k1_layout_times``) and the COO mean it replaced. Returns {"A 128": times, ...,
+    "launches", "err", "build_s", "build_ms", "coo_ms"}."""
+    from dgll_tpu_torch.ops import spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
+    from dgll_tpu_torch.ops.spmm import spmm_mean_coo
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    g = sage_graph()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, at = g.mean_chunked
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "build_ms": cuda_median_ms(
+        lambda: g.replace().mean_chunked, 2, 7)}
+    print(f"[26 sage] {g.n_node} nodes, {g.n_edge} edges; A: {_split_summary(a)}; "
+          f"A^T: {_split_summary(at)}; mean_chunked at first use {out['build_s']:.3f} s, "
+          f"then {out['build_ms']:.3f} ms")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    err = 0.0
+    _zero_counters()
+    for f in SAGE_WIDTHS:
+        x = torch.randn(g.n_node, f, generator=gen, device="cuda", requires_grad=True)
+        cot = torch.randn(a.n_rows, f, generator=gen, device="cuda")
+        (spmm_chunked(a, at, x) * cot).sum().backward()
+        got = spmm_chunked(a, at, x.detach())
+        xr = x.detach().clone().requires_grad_(True)
+        ref = spmm_chunked_reference(a, xr)
+        (ref * cot).sum().backward()
+        for name, have, want in (("out", got, ref.detach()), ("dx", x.grad, xr.grad)):
+            e = (have - want).abs().max().item()
+            tol = 1e-5 * want.abs().max().item()
+            print(f"[26 sage] F={f} {name} {tuple(have.shape)}: max abs err {e:.3e}, "
+                  f"tolerance {tol:.3e}")
+            check(e <= tol, f"SAGE's mean on K1 within 1e-5 x max|ref| (F={f}, {name})")
+            err = max(err, e)
+        del ref, xr, got
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _counters().items() if v}
+    want = {"K1 fwd": 2 * len(SAGE_WIDTHS), "K1 bwd": len(SAGE_WIDTHS)}
+    check(counts == want, f"SAGE's mean launched K1 {want} and nothing else: {counts}")
+    out.update(launches=counts, err=err, coo_ms={})
+    for f in SAGE_WIDTHS:
+        for name, lay in (("A", a), ("A^T", at)):
+            out[f"{name} {f}"] = _k1_layout_times(lay, f, f"sage {name}", 28, phase=26)
+        x = torch.randn(g.n_node, f, generator=gen, device="cuda")
+        out["coo_ms"][f] = cuda_median_ms(
+            lambda: spmm_mean_coo(g.src, g.dst, x, g.n_node), 1, 5)
+        print(f"[26 sage] F={f}: the COO mean it replaced (spmm_mean_coo) "
+              f"{out['coo_ms'][f]:.4f} ms")
+    return out
 
 
 def _tp_reference(t, ranks, device="cuda") -> dict:
@@ -4330,6 +4420,7 @@ def main() -> int:
     parallel = phase_parallel(data, flagship)
     del data
     halo_tp = phase_halo_tp()
+    sage = phase_sage_k1()
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -4374,6 +4465,10 @@ def main() -> int:
         K1_TP, KERNEL_SOURCE, REPLACES,
         sum(halo_tp["tp"]["launches"].get(k, 0) for k in ("K1 fwd", "K1 bwd")),
         halo_tp["k1_tp"]["err"], halo_tp["k1_tp"]))
+    kernels.append(kernel_row(K1_SAGE, KERNEL_SOURCE, REPLACES,
+                              sage["launches"]["K1 fwd"] + sage["launches"]["K1 bwd"],
+                              max(sage["err"], *(sage[f"A {f}"]["err"] for f in SAGE_WIDTHS)),
+                              sage["A 128"]))
     for name, key, line in PROBE_KERNELS:
         kernels.append(kernel_row(name, PROBES_SOURCE, f"{PROBE_SCRIPT}:{line}",
                                   probe_counts[key], probe_kernels[key]["err"],
@@ -4388,6 +4483,7 @@ def main() -> int:
     print(f"[23 bf16] {json.dumps({k: v for k, v in bf16.items() if k != 'kernels'})}")
     print(f"[24 parallel] {json.dumps(parallel)}")
     print(f"[25 halo_tp] {json.dumps(halo_tp)}")
+    print(f"[26 sage] {json.dumps(sage)}")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

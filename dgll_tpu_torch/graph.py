@@ -10,11 +10,13 @@ Counterpart of ``dgll_tpu/graph.py``. The conventions are the same:
 * Features, labels and split masks ride along as optional tensors.
 
 Construction is host-side: a graph is built on the CPU and moved once with
-``Graph.to(device)``.
+``Graph.to(device)``. Its kernel layouts (``with_chunked``, ``mean_chunked``,
+``sum_chunked``) are built on the device the graph is on.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -133,17 +135,36 @@ class Graph:
 
     def with_chunked(self) -> "Graph":
         """Attach the SpMM kernel layouts (A and A^T) built from the real edges and
-        the current edge weights. Layers then route weighted-sum aggregation through
-        the kernel (``ops/cuda/segment_matmul.py``)."""
+        the current edge weights, on the graph's device. Layers then route
+        weighted-sum aggregation through the kernel (``ops/cuda/segment_matmul.py``)."""
         from dgll_tpu_torch.ops.chunked import build_chunked_pair
 
         e = self.n_real_edge
-        src = _np(self.src)[:e]
-        dst = _np(self.dst)[:e]
-        w = None if self.edge_weight is None else _np(self.edge_weight)[:e]
-        c, ct = build_chunked_pair(src, dst, self.n_real_node, self.n_real_node, w)
-        return self.replace(chunked=c.to(self.src.device),
-                            chunked_t=ct.to(self.src.device))
+        w = None if self.edge_weight is None else self.edge_weight[:e]
+        c, ct = build_chunked_pair(self.src[:e], self.dst[:e], self.n_real_node,
+                                   self.n_real_node, w)
+        return self.replace(chunked=c, chunked_t=ct)
+
+    @functools.cached_property
+    def mean_chunked(self) -> tuple:
+        """The SpMM kernel layouts ``(A, A^T)`` of SAGE's mean: every edge, padded
+        ones included, weighed ``1 / max(deg(dst), 1)`` (the in-degree read from
+        ``indptr``), so that A is the mean and A^T its exact transpose. Built on the
+        graph's device at first use and kept on this instance; ``replace`` and
+        ``to`` give new instances, which build their own."""
+        from dgll_tpu_torch.ops.chunked import build_chunked_pair
+
+        deg = (self.indptr[1:] - self.indptr[:-1]).clamp_min(1)
+        w = torch.reciprocal(deg.float())[self.dst.long()]
+        return build_chunked_pair(self.src, self.dst, self.n_node, self.n_node, w)
+
+    @functools.cached_property
+    def sum_chunked(self) -> tuple:
+        """``mean_chunked``'s layouts weighed by the edge weights (or 1): SAGE's sum."""
+        from dgll_tpu_torch.ops.chunked import build_chunked_pair
+
+        return build_chunked_pair(self.src, self.dst, self.n_node, self.n_node,
+                                  self.edge_weight)
 
     def with_windowed(self, min_fill: float = 0.25, min_fraction: float = 0.5,
                       reorder: bool = False) -> "Graph":

@@ -4,8 +4,9 @@ Counterpart of ``dgll_tpu/nn/conv.py``: ``GCNConv``, ``GATConv``, ``SAGEConv`` a
 ``GINConv``. A layer takes a *message structure* ``g``: a full ``Graph``, which
 carries the kernel layouts ``chunked``/``chunked_t`` when ``Graph.with_chunked``
 attached them, and ``hybrid``/``hybrid_t`` (GCN and GIN) when
-``Graph.with_windowed`` did; a sampled fanout-dense ``Block``; or a layer-wise
-sampler's ``SparseBlock`` (host) or ``WeightedBlock`` (device). A block's first
+``Graph.with_windowed`` did (SAGE's mean and sum build their own,
+``Graph.mean_chunked``/``sum_chunked``); a sampled fanout-dense ``Block``; or a
+layer-wise sampler's ``SparseBlock`` (host) or ``WeightedBlock`` (device). A block's first
 ``n_dst`` source rows are the destinations themselves, where ``self_at_head`` holds.
 
 The layer-wise blocks are chosen by their type, not as a fallback: the JAX package
@@ -21,6 +22,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from dgll_tpu_torch.graph import Graph
 from dgll_tpu_torch.ops.gat_csr import gat_attention_coo, leaky_relu
 from dgll_tpu_torch.ops.spmm import block_aggregate, spmm_coo, spmm_max_coo, spmm_mean_coo
 from dgll_tpu_torch.sampling.base import SparseBlock, WeightedBlock
@@ -173,9 +175,13 @@ class SAGEConv(nn.Module):
     (``self``, with the bias), and concatenate (``[self | neigh]``) or add them.
 
     On a ``Block`` the aggregation is ``block_aggregate`` (its ``sum`` is the
-    mask-weighted mean); on a full graph ``spmm_mean_coo``, ``spmm_coo`` with the
-    graph's edge weights, or ``spmm_max_coo``. All of them are plain PyTorch on every
-    device, as the JAX package computes them in XLA.
+    mask-weighted mean). On a full ``Graph`` the mean and the sum run kernel K1
+    (``spmm_chunked``, its plain version on the CPU) on layouts built from the
+    graph's edges on its device at first use (``Graph.mean_chunked``,
+    ``Graph.sum_chunked``): every edge, the mean's ``1 / deg`` or the graph's edge
+    weights on each, the backward on A^T; rows without in-edges give 0. The max, and the layer-wise blocks' COO views,
+    stay plain PyTorch on every device (``spmm_max_coo``, ``spmm_mean_coo``,
+    ``spmm_coo``), as the JAX package computes them in XLA.
     """
 
     def __init__(self, in_features: int, features: int, aggregator: str = "mean",
@@ -198,6 +204,12 @@ class SAGEConv(nn.Module):
     def _aggregate(self, g, x: torch.Tensor, n_dst: int) -> torch.Tensor:
         if _is_dense_block(g):
             return block_aggregate(x, n_dst, g.fanout, g.neigh_mask, self.aggregator)
+        if isinstance(g, Graph) and self.aggregator != "max":
+            from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
+
+            profiling.count("conv.aggregate_k1")
+            a, at = g.mean_chunked if self.aggregator == "mean" else g.sum_chunked
+            return spmm_chunked(a, at, x.contiguous())[:n_dst]
         if self.aggregator == "mean":
             return spmm_mean_coo(g.src, g.dst, x, n_dst)
         if self.aggregator == "sum":

@@ -14,7 +14,8 @@ once per layout as ``ChunkedCSR.items``), a warp a run.
 The API conventions stay:
 
 * the output row space is padded up to a multiple of ``R_BLOCK`` (``n_rows``);
-* the layouts hold real edges only;
+* the layouts hold the edges they are given (``Graph.with_chunked``: the real ones;
+  ``Graph.mean_chunked``: every edge, padded ones included), built on their device;
 * padded rows and rows without edges come out as ``act(bias)``;
 * ``build_chunked_pair`` gives the layouts of A and of A^T, the second driving the
   backward pass, and attaches to A's layout ``t_slot_perm``: for each edge of A^T,
@@ -28,7 +29,6 @@ import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 R_BLOCK = 128  # the output row space is padded to a multiple of this
@@ -169,60 +169,77 @@ class ChunkedCSR:
         return out
 
 
-def build_chunked(
-    src: np.ndarray,
-    dst: np.ndarray,
-    n_rows: int,
-    n_cols: int,
-    weight: Optional[np.ndarray] = None,
-) -> ChunkedCSR:
-    """Pack a COO edge list (any order) into the kernel's CSR layout (host, numpy).
+def _as_tensor(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(a, device=device).to(dtype)
 
-    Within a row, edges are sorted by source, so that the kernel's gather reads
-    ascending rows of ``x``.
-    """
-    src = np.asarray(src, np.int64)
-    dst = np.asarray(dst, np.int64)
-    w = np.ones(len(src), np.float32) if weight is None else np.asarray(weight, np.float32)
-    if len(src) and (src.min() < 0 or src.max() >= n_cols
-                     or dst.min() < 0 or dst.max() >= n_rows):
+
+def _sorted_layout(src, dst, n_rows, n_cols, weight) -> Tuple[ChunkedCSR, torch.Tensor]:
+    """``build_chunked``'s layout, and its edge order: the input index of each of
+    its edges."""
+    device = src.device if isinstance(src, torch.Tensor) else None
+    src = _as_tensor(src, torch.int64, device)
+    dst = _as_tensor(dst, torch.int64, src.device)
+    w = (torch.ones(src.numel(), device=src.device) if weight is None
+         else _as_tensor(weight, torch.float32, src.device))
+    if src.numel() and (src.min() < 0 or src.max() >= n_cols
+                        or dst.min() < 0 or dst.max() >= n_rows):
         raise ValueError("edge endpoints out of range for the layout")
     n_rows_pad = -(-n_rows // R_BLOCK) * R_BLOCK
-    if max(n_rows_pad, len(src)) >= 2**31:
+    if max(n_rows_pad, src.numel()) >= 2**31:
         raise ValueError("layout exceeds int32 indexing")
 
-    order = np.lexsort((src, dst))
-    indptr = np.zeros(n_rows_pad + 1, np.int64)
-    np.cumsum(np.bincount(dst, minlength=n_rows_pad), out=indptr[1:])
+    m = max(int(n_cols), 1)
+    key, order = torch.sort(dst * m + src, stable=True)
+    rows = key // m
+    indptr = torch.searchsorted(rows, torch.arange(n_rows_pad + 1, device=src.device))
     return ChunkedCSR(
-        indptr=torch.from_numpy(indptr.astype(np.int32)),
-        src=torch.from_numpy(src[order].astype(np.int32)),
-        weight=torch.from_numpy(w[order]),
-        rows=torch.from_numpy(dst[order].astype(np.int32)),
+        indptr=indptr.int(),
+        src=(key - rows * m).int(),
+        weight=w[order],
+        rows=rows.int(),
         n_rows=n_rows_pad,
         n_cols=int(n_cols),
-    )
+    ), order
+
+
+def build_chunked(
+    src,
+    dst,
+    n_rows: int,
+    n_cols: int,
+    weight=None,
+) -> ChunkedCSR:
+    """Pack a COO edge list (any order; tensors or arrays) into the kernel's CSR
+    layout, with torch ops on the edges' device (numpy arrays and lists: the host).
+
+    Within a row, edges are sorted by source, so that the kernel's gather reads
+    ascending rows of ``x``; duplicate edges keep their input order (one stable
+    sort of ``dst * n_cols + src``).
+    """
+    return _sorted_layout(src, dst, n_rows, n_cols, weight)[0]
 
 
 def build_chunked_pair(
-    src: np.ndarray,
-    dst: np.ndarray,
+    src,
+    dst,
     n_rows: int,
     n_cols: int,
-    weight: Optional[np.ndarray] = None,
+    weight=None,
 ) -> Tuple[ChunkedCSR, ChunkedCSR]:
     """Layouts for A and A^T (the transpose drives the backward pass), with
-    ``a.t_slot_perm`` attached.
+    ``a.t_slot_perm`` attached, on the edges' device.
 
     A^T's edges are sorted by (A's source, A's destination), so ``t_slot_perm`` is
-    A's edge order sorted by the same keys. Duplicate edges pair in a consistent
-    order, as the JAX package's lexsort pairs them; per-edge GAT quantities depend
-    only on the endpoints, so duplicates carry the same values.
+    the inverse of A's sort order composed with A^T's. Duplicate edges keep their
+    input order in both, so they pair in a consistent order, as the JAX package's
+    lexsort pairs them; per-edge GAT quantities depend only on the endpoints, so
+    duplicates carry the same values.
     """
-    a = build_chunked(src, dst, n_rows, n_cols, weight)
-    at = build_chunked(dst, src, n_cols, n_rows, weight)
-    perm = np.lexsort((a.rows.numpy(), a.src.numpy())).astype(np.int32)
-    a.t_slot_perm = torch.from_numpy(perm)
+    a, order = _sorted_layout(src, dst, n_rows, n_cols, weight)
+    at, order_t = _sorted_layout(dst, src, n_cols, n_rows, weight)
+    slot = torch.empty_like(order)
+    slot[order] = torch.arange(order.numel(), device=order.device)
+    a.t_slot_perm = slot[order_t].int()
     return a, at
 
 

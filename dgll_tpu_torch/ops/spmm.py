@@ -3,10 +3,11 @@
 Counterpart of ``dgll_tpu/ops/spmm.py``: ``spmm_coo`` is a gather of source rows, a
 per-edge weight and a scatter-add into the destinations, the aggregation for graphs
 that carry no kernel layout; ``spmm_mean_coo`` and ``spmm_max_coo`` are SAGE's mean
-and max over a COO edge list; ``block_aggregate`` is the fanout-dense reduction over
-a sampled ``Block``; ``sddmm_coo`` the per-edge scores; ``fused_gcn_layer`` a whole
-GCN layer with its own backward. All are differentiable. The JAX package computes
-these in XLA, outside any Pallas kernel, so they stay plain PyTorch on every device.
+and max over a COO edge list (a full ``Graph``'s mean runs K1 instead);
+``block_aggregate`` is the fanout-dense reduction over a sampled ``Block``;
+``sddmm_coo`` the per-edge scores; ``fused_gcn_layer`` a whole GCN layer with its own
+backward. All are differentiable. The JAX package computes these in XLA, outside any
+Pallas kernel, so they stay plain PyTorch on every device.
 """
 from __future__ import annotations
 

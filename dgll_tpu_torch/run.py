@@ -46,8 +46,10 @@ aggregates through the windowed kernel K2 and K1 on the residual edges; where it
 declines, through K1 alone. Every GAT layer runs the fused attention op (K3-K7 and
 K1) on ``with_chunked()`` only, since GAT never reads the windowed layout. The JAX
 package's 100k-edge threshold is the TPU's launch-overhead rule; the port's layers
-have no plain version on the card. GraphSAGE's aggregations are plain PyTorch (XLA
-in the JAX package), so a full-batch GraphSAGE run attaches no layout.
+have no plain version on the card. A full-batch GraphSAGE run attaches no layout:
+its mean and sum run K1 on layouts built from the graph's edges on the device at the
+first step (``Graph.mean_chunked``), its max plain PyTorch (XLA in the JAX
+package).
 
 On the host minibatch path the graph stays on the host for the sampler, and the
 features and labels live on the device; with the cache only the cached rows do, and
@@ -264,7 +266,7 @@ def attach_kernel_layouts(cfg, g):
     t_pre = time.perf_counter()
     extra: dict = {}
     if cfg.model.upper() in ("GRAPHSAGE", "SAGE"):
-        return g, extra  # no kernel on its path
+        return g, extra  # its layers derive their layouts on the device
     if cfg.model.upper() == "GAT":
         g = g.with_chunked()
         extra["gat_kernel"] = GAT_KERNEL

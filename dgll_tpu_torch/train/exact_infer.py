@@ -7,8 +7,8 @@ layer aggregates over the complete in-neighbourhood, with no sampling noise.
 
 On a CUDA device a GCN, GIN or GAT layer runs its kernels (K1; K3-K7 for GAT),
 which read the chunked layouts: they are attached to the graph first where it lacks
-them (``Graph.with_chunked``). GraphSAGE's full-graph aggregation is plain PyTorch on
-every device, as the JAX package computes it in XLA.
+them (``Graph.with_chunked``). GraphSAGE's mean and sum run K1 too, on layouts
+built from the graph's edges on the device (``Graph.mean_chunked``); its max is plain PyTorch on every device, as the JAX package computes it in XLA.
 """
 from __future__ import annotations
 

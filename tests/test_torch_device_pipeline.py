@@ -13,7 +13,9 @@ package's wherever its logits' top-two margin exceeds 1e-4; exact inference's eq
 it everywhere, their log-probabilities within 1e-5; the dense-block ``GATConv``'s
 output and gradients within 1e-5. Under bfloat16 (both runners given it as
 ``feat_dtype``): GraphSAGE's exact log-probabilities within 1e-2 x max|ref| and an
-epoch's loss within 1e-2, relative (bf16's 8 significant bits, sums in other orders).
+epoch's loss within 1e-2, relative (bf16's 8 significant bits, sums in other orders),
+both packages' exact log-probabilities held to the JAX model's in float32, the port's
+no farther from them than JAX's (its full-graph mean sums bfloat16 in float32).
 """
 import functools
 
@@ -234,10 +236,14 @@ def test_exact_inference_matches_jax(data, name):
 
 def test_runner_exact_inference_in_bf16_matches_jax(data):
     """Both runners given bfloat16 as ``feat_dtype``: GraphSAGE aggregates the cast
-    features before its first ``Dense``. Log-probabilities within 1e-2 x max|ref|
-    (bf16 keeps 8 significant bits; the packages sum in other orders), predictions
-    equal wherever the JAX top-two margin exceeds twice that; an epoch's mean loss
-    within 1e-2 of JAX's, relative."""
+    features before its first ``Dense``. Both packages' log-probabilities are held to
+    the exact ones: the JAX model in float32 on the same bfloat16-rounded features
+    (float32's 24 significant bits against bf16's 8). The port's within 1e-2 x
+    max|exact| of them (bf16 keeps 8 significant bits) and no farther from them than
+    the JAX package's (its full-graph mean sums bfloat16 in bfloat16, the port's K1
+    in float32); its predictions equal the exact ones wherever their top-two margin
+    exceeds twice that, and the JAX runner's wherever both packages' margins do; an
+    epoch's mean loss within 1e-2 of JAX's, relative."""
     from dgll_tpu.train.exact_infer import make_exact_logits_fn
 
     from dgll_tpu_torch.train.exact_infer import exact_logits
@@ -259,13 +265,22 @@ def test_runner_exact_inference_in_bf16_matches_jax(data):
         state_j.params, gjd, gjd.node_feat).astype(jnp.float32))
     got_logp = exact_logits(state_t.model, gt, gt.node_feat, feat_dtype=torch.bfloat16)
     assert got_logp.dtype == torch.bfloat16
-    tol = 1e-2 * np.abs(logp).max()
-    np.testing.assert_allclose(got_logp.float().numpy(), logp, rtol=0, atol=tol)
+    rounded = gjd.node_feat.astype(jnp.bfloat16).astype(jnp.float32)
+    exact = np.asarray(make_exact_logits_fn(JaxGraphSAGE(
+        hidden=16, n_class=4, dropout=0.0).apply)(state_j.params, gjd, rounded))
+    tol = 1e-2 * np.abs(exact).max()
+    got_logp = got_logp.float().numpy()
+    np.testing.assert_allclose(got_logp, exact, rtol=0, atol=tol)
+    assert np.abs(got_logp - exact).max() <= np.abs(logp - exact).max()
     got = rt.predict_nodes_exact(state_t, gt, gt.node_feat, nodes)
-    top2 = np.sort(logp[nodes], -1)[:, -2:]
-    clear = top2[:, 1] - top2[:, 0] > 2 * tol
+    margin = {k: np.diff(np.sort(v[nodes], -1)[:, -2:], axis=-1)[:, 0]
+              for k, v in (("exact", exact), ("jax", logp))}
+    clear = margin["exact"] > 2 * tol
     assert got.shape == want.shape and clear.mean() > 0.5
-    np.testing.assert_array_equal(got[clear], np.asarray(want)[clear])
+    np.testing.assert_array_equal(got[clear], exact[nodes].argmax(-1)[clear])
+    both = clear & (margin["jax"] > 2 * tol)
+    assert both.mean() > 0.5
+    np.testing.assert_array_equal(got[both], np.asarray(want)[both])
     np.testing.assert_array_equal(
         got, exact_predict(state_t.model, gt, gt.node_feat, nodes, torch.bfloat16))
     labels = gt.labels.numpy()
