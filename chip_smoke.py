@@ -140,7 +140,13 @@ checkpoints and ``device_trace``:
   then ``spmm_chunked`` forward and autograd backward on it at F 128 and 512 (SAGE's
   two layers) against the plain version through autograd (1e-5 x max|ref|), every
   launch counted; K1 on A and A^T at both widths timed beside the plain version,
-  ``sparse.mm`` and its bound, and the COO mean it replaced (``spmm_mean_coo``).
+  ``sparse.mm`` and its bound, and the COO mean it replaced (``spmm_mean_coo``);
+* full-batch GCNII's propagation (phase 27), on the same graph:
+  ``Graph.gcn_chunked`` (``D^-1/2 (A + I) D^-1/2``) built on the card and timed, then
+  ``spmm_chunked`` forward and autograd backward on it at F 64 (GCNII's width)
+  against the plain version through autograd (1e-5 x max|ref|), every launch
+  counted; K1 on A and A^T timed beside the plain version, ``sparse.mm`` and its
+  bound.
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -3819,6 +3825,8 @@ K1_TP = ("spmm_csr (K1) on a rank's feature slice, [n_node, F/D] (tensor-paralle
          "GCN)")
 K1_SAGE = ("spmm_csr (K1) on a full graph's mean layout, 1 / deg on each edge (full-batch "
            "GraphSAGE's mean, forward and backward)")
+K1_GCN = ("spmm_csr (K1) on a full graph's GCN layout, dinv[dst] * dinv[src] on each "
+          "edge (full-batch GCNII's propagation, forward and backward)")
 HALO_REPLACES = "dgll_tpu/parallel/halo.py:284"
 
 
@@ -4135,6 +4143,61 @@ def phase_sage_k1() -> dict:
     return out
 
 
+GCN_WIDTH = 64  # GCNII's hidden width (gnnbench/configs/gcnii64-64.json)
+
+
+def phase_gcn_k1() -> dict:
+    """Phase 27: full-batch GCNII's propagation on K1. ``Graph.gcn_chunked`` built on
+    the card (timed at its first use, and again by CUDA events on a copy); the
+    wrapper as ``GCN2Conv`` calls it (``spmm_chunked(a, at, x)``, forward and autograd
+    backward on A^T) at ``GCN_WIDTH`` against the plain version through autograd,
+    1e-5 x max|ref| for out and dx, its launches counted (two forward, one backward,
+    nothing else); then K1 alone on A and A^T (``_k1_layout_times``). Returns {"A":
+    times, "A^T": times, "launches", "err", "build_s", "build_ms"}."""
+    from dgll_tpu_torch.ops import spmm_chunked_reference
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
+    from dgll_tpu_torch.utils.profiling import cuda_median_ms
+
+    g = sage_graph()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, at = g.gcn_chunked
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "build_ms": cuda_median_ms(
+        lambda: g.replace().gcn_chunked, 2, 7)}
+    print(f"[27 gcn] {g.n_node} nodes, {g.n_edge} edges; A: {_split_summary(a)}; "
+          f"A^T: {_split_summary(at)}; gcn_chunked at first use {out['build_s']:.3f} s, "
+          f"then {out['build_ms']:.3f} ms")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    f = GCN_WIDTH
+    err = 0.0
+    _zero_counters()
+    x = torch.randn(g.n_node, f, generator=gen, device="cuda", requires_grad=True)
+    cot = torch.randn(a.n_rows, f, generator=gen, device="cuda")
+    (spmm_chunked(a, at, x) * cot).sum().backward()
+    got = spmm_chunked(a, at, x.detach())
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _counters().items() if v}
+    xr = x.detach().clone().requires_grad_(True)
+    ref = spmm_chunked_reference(a, xr)
+    (ref * cot).sum().backward()
+    for name, have, want in (("out", got, ref.detach()), ("dx", x.grad, xr.grad)):
+        e = (have - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item()
+        print(f"[27 gcn] F={f} {name} {tuple(have.shape)}: max abs err {e:.3e}, "
+              f"tolerance {tol:.3e}")
+        check(e <= tol, f"GCNII's propagation on K1 within 1e-5 x max|ref| ({name})")
+        err = max(err, e)
+    del ref, xr, got
+    want = {"K1 fwd": 2, "K1 bwd": 1}
+    check(counts == want, f"GCNII's propagation launched K1 {want} and nothing else: "
+                          f"{counts}")
+    out.update(launches=counts, err=err)
+    for name, lay in (("A", a), ("A^T", at)):
+        out[name] = _k1_layout_times(lay, f, f"gcn {name}", 30, phase=27)
+    return out
+
+
 def _tp_reference(t, ranks, device="cuda") -> dict:
     """(d)'s check: the one-process K1 GCN with the whole weights; every rank's
     log-probs and its slices' gradients against it, within ``HALO_TOL`` x max|ref|."""
@@ -4421,6 +4484,7 @@ def main() -> int:
     del data
     halo_tp = phase_halo_tp()
     sage = phase_sage_k1()
+    gcn = phase_gcn_k1()
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -4469,6 +4533,9 @@ def main() -> int:
                               sage["launches"]["K1 fwd"] + sage["launches"]["K1 bwd"],
                               max(sage["err"], *(sage[f"A {f}"]["err"] for f in SAGE_WIDTHS)),
                               sage["A 128"]))
+    kernels.append(kernel_row(K1_GCN, KERNEL_SOURCE, REPLACES,
+                              gcn["launches"]["K1 fwd"] + gcn["launches"]["K1 bwd"],
+                              max(gcn["err"], gcn["A"]["err"], gcn["A^T"]["err"]), gcn["A"]))
     for name, key, line in PROBE_KERNELS:
         kernels.append(kernel_row(name, PROBES_SOURCE, f"{PROBE_SCRIPT}:{line}",
                                   probe_counts[key], probe_kernels[key]["err"],
@@ -4484,6 +4551,7 @@ def main() -> int:
     print(f"[24 parallel] {json.dumps(parallel)}")
     print(f"[25 halo_tp] {json.dumps(halo_tp)}")
     print(f"[26 sage] {json.dumps(sage)}")
+    print(f"[27 gcn] {json.dumps(gcn)}")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

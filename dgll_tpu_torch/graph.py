@@ -11,7 +11,7 @@ Counterpart of ``dgll_tpu/graph.py``. The conventions are the same:
 
 Construction is host-side: a graph is built on the CPU and moved once with
 ``Graph.to(device)``. Its kernel layouts (``with_chunked``, ``mean_chunked``,
-``sum_chunked``) are built on the device the graph is on.
+``sum_chunked``, ``gcn_chunked``) are built on the device the graph is on.
 """
 from __future__ import annotations
 
@@ -165,6 +165,32 @@ class Graph:
 
         return build_chunked_pair(self.src, self.dst, self.n_node, self.n_node,
                                   self.edge_weight)
+
+    @functools.cached_property
+    def gcn_chunked(self) -> tuple:
+        """The SpMM kernel layouts ``(A, A^T)`` of GCN's ``P = D^-1/2 (A + I) D^-1/2``
+        (GCNII's propagation): every edge, weighed ``dinv[dst] * dinv[src]`` on the
+        real ones and 0 on padded ones, the degrees counted over the real edges, in
+        float64 then stored in float32 (``data.transforms.gcn_normalize``'s rule).
+        The graph's own edge weights are not read: P belongs to the model. Raises
+        where a real node lacks its self-loop, as ``gcn_normalize`` does. Built on the
+        graph's device at first use and kept on this instance, as ``mean_chunked``."""
+        from dgll_tpu_torch.ops.chunked import build_chunked_pair
+
+        e = self.n_real_edge
+        src, dst = self.src.long(), self.dst.long()
+        loops = dst[:e][src[:e] == dst[:e]]
+        has_loop = torch.zeros(self.n_node, dtype=torch.bool, device=dst.device)
+        has_loop[loops] = True
+        if not bool(has_loop[: self.n_real_node].all()):
+            raise ValueError("GCN's normalisation D^-1/2 (A + I) D^-1/2 on a graph without "
+                             "self-loops: build with Graph.from_edges(..., "
+                             "add_self_loops=True)")
+        deg = torch.bincount(dst[:e], minlength=self.n_node).double()
+        dinv = 1.0 / torch.sqrt(deg.clamp_min(1.0))
+        real = torch.arange(self.n_edge, device=dst.device) < e
+        w = torch.where(real, dinv[dst] * dinv[src], 0.0).float()
+        return build_chunked_pair(self.src, self.dst, self.n_node, self.n_node, w)
 
     def with_windowed(self, min_fill: float = 0.25, min_fraction: float = 0.5,
                       reorder: bool = False) -> "Graph":

@@ -1,11 +1,12 @@
 """Graph convolution layers.
 
 Counterpart of ``dgll_tpu/nn/conv.py``: ``GCNConv``, ``GATConv``, ``SAGEConv`` and
-``GINConv``. A layer takes a *message structure* ``g``: a full ``Graph``, which
-carries the kernel layouts ``chunked``/``chunked_t`` when ``Graph.with_chunked``
-attached them, and ``hybrid``/``hybrid_t`` (GCN and GIN) when
-``Graph.with_windowed`` did (SAGE's mean and sum build their own,
-``Graph.mean_chunked``/``sum_chunked``); a sampled fanout-dense ``Block``; or a
+``GINConv``; ``GCN2Conv`` (GCNII's layer) is the port's own, on full graphs only. A
+layer takes a *message structure* ``g``: a full ``Graph``, which carries the kernel
+layouts ``chunked``/``chunked_t`` when ``Graph.with_chunked`` attached them, and
+``hybrid``/``hybrid_t`` (GCN and GIN) when ``Graph.with_windowed`` did (SAGE's mean
+and sum, and GCNII, build their own, ``Graph.mean_chunked``/``sum_chunked``/
+``gcn_chunked``); a sampled fanout-dense ``Block``; or a
 layer-wise sampler's ``SparseBlock`` (host) or ``WeightedBlock`` (device). A block's first
 ``n_dst`` source rows are the destinations themselves, where ``self_at_head`` holds.
 
@@ -331,6 +332,63 @@ class GATConv(nn.Module):
         if self.concat_heads:
             return out.reshape(n_dst, H * F)
         return out.mean(dim=1)
+
+
+def uniform_(w: torch.Tensor, bound: float,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """In-place uniform init on ``[-bound, bound]``, drawn on the CPU as
+    ``lecun_normal_``."""
+    cpu = torch.empty(w.shape, dtype=torch.float32)
+    nn.init.uniform_(cpu, -bound, bound, generator=generator)
+    with torch.no_grad():
+        w.copy_(cpu)
+    return w
+
+
+# GCN2Conv's initial residual and identity mapping is this span while tracing, and
+# its backward the span of the same name with ``_bwd``.
+IDENTITY_MAP = "dgll.conv.identity_map"
+
+
+def _gcn_aggregate(g: Graph, x: torch.Tensor) -> torch.Tensor:
+    """``P x`` over ``g.gcn_chunked`` through K1 (its plain version on the CPU)."""
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
+
+    return spmm_chunked(*g.gcn_chunked, x.contiguous())[: g.n_node]
+
+
+class GCN2Conv(nn.Module):
+    """GCNII's layer (Chen et al., "Simple and Deep Graph Convolutional Networks",
+    ICML 2020): the initial residual ``s = (1 - alpha) P x + alpha x0``, then the
+    identity mapping ``beta (s W) + (1 - beta) s``, with ``P = D^-1/2 (A + I)
+    D^-1/2`` and ``W [features, features]`` (no bias; ``s @ W``, the paper's
+    orientation). The activation is the model's.
+
+    ``P x`` runs kernel K1 (``spmm_chunked``, its plain version on the CPU) on the
+    layouts ``Graph.gcn_chunked`` builds on the graph's device at first use, the
+    backward on A^T. The paper defines the layer on full graphs: a sampled block
+    raises. ``W`` is drawn as the authors' code draws it, uniform on
+    ``±1/sqrt(features)``.
+    """
+
+    def __init__(self, features: int, alpha: float, beta: float, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.alpha, self.beta = alpha, beta
+        self.weight = nn.Parameter(torch.empty(features, features, device=device))
+        uniform_(self.weight, 1.0 / math.sqrt(features), generator)
+
+    def _identity_map(self, agg: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+        s = torch.lerp(agg, x0, self.alpha)
+        return torch.addmm(s, s, self.weight, beta=1.0 - self.beta, alpha=self.beta)
+
+    def forward(self, g, x: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+        if not isinstance(g, Graph):
+            raise ValueError(f"GCN2Conv runs on a full Graph (GCNII is defined on full "
+                             f"graphs), not on a {type(g).__name__}")
+        profiling.count("conv.aggregate_gcn")
+        agg = profiling.spanned(AGGREGATE, _gcn_aggregate, g, x)
+        return profiling.spanned(IDENTITY_MAP, self._identity_map, agg, x0)
 
 
 class GINConv(nn.Module):

@@ -1,5 +1,5 @@
 """End-to-end models. Counterpart of ``dgll_tpu/nn/models.py``: ``GCN``, ``GAT``,
-``GraphSAGE``, ``GINNode`` and ``GIN``.
+``GraphSAGE``, ``GINNode`` and ``GIN``; ``GCNII`` is the port's own (full batch only).
 
 A node classifier's ``forward`` takes one message graph for every layer (full batch)
 or a list of sampled blocks, one per layer, outermost first (minibatch), as the
@@ -7,18 +7,22 @@ samplers emit them. ``GIN`` classifies whole graphs: one batched graph
 (``nn.pooling.batch_graphs``) and its ``graph_id``."""
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from dgll_tpu_torch.graph import Graph
 from dgll_tpu_torch.nn.conv import (
     GATConv,
+    GCN2Conv,
     GCNConv,
     GINConv,
     SAGEConv,
     _dense,
     lecun_normal_,
+    uniform_,
 )
 from dgll_tpu_torch.nn.pooling import Pooling
 
@@ -147,6 +151,59 @@ class GraphSAGE(nn.Module):
         if self.out_proj is not None:
             x = _dense(self.out_proj, x, self.dtype)
         return torch.log_softmax(x, dim=-1)
+
+
+def gcnii_beta(lamda: float, layer: int) -> float:
+    """GCNII's identity-mapping weight of layer ``layer`` (from 1):
+    ``ln(lamda / layer + 1)``."""
+    return math.log(lamda / layer + 1.0)
+
+
+class GCNII(nn.Module):
+    """GCNII (Chen et al., "Simple and Deep Graph Convolutional Networks", ICML 2020;
+    the authors' ``model.py`` ``GCNII``, not the starred variant):
+
+        h0 = ReLU(dropout(x) W_in + b_in)                        (fcs.0)
+        h  = ReLU(GCN2Conv_l(dropout(h), h0)),  l = 1 .. n_layers
+        out = log_softmax(dropout(h) W_out + b_out)              (fcs.1)
+
+    with ``beta_l = ln(lamda / l + 1)`` the identity mapping's weight of layer ``l``
+    and ``alpha`` the initial residual's (``GCN2Conv``). In training mode dropout
+    ``dropout`` applies where shown, its masks drawn from the generator passed to
+    ``forward`` in that order: the input, each layer, the head. Full graphs only,
+    float32. ``fcs`` are drawn as ``nn.Linear`` draws them (uniform on
+    ``±1/sqrt(in)``, the authors' default), on the CPU from ``generator``."""
+
+    def __init__(self, in_features: int, hidden: int, n_class: int, n_layers: int = 64,
+                 alpha: float = 0.1, lamda: float = 0.5, dropout: float = 0.6,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            GCN2Conv(hidden, alpha, gcnii_beta(lamda, i + 1), device=device,
+                     generator=generator)
+            for i in range(n_layers)
+        )
+        self.fcs = nn.ModuleList([nn.Linear(in_features, hidden, device=device),
+                                  nn.Linear(hidden, n_class, device=device)])
+        for fc in self.fcs:
+            bound = 1.0 / math.sqrt(fc.in_features)
+            uniform_(fc.weight, bound, generator)
+            uniform_(fc.bias, bound, generator)
+        self.dropout = dropout
+
+    def _drop(self, x: torch.Tensor, generator: Optional[torch.Generator]):
+        return _dropout(x, self.dropout, generator) if self.training else x
+
+    def forward(self, g, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not isinstance(g, Graph):
+            raise ValueError("GCNII trains on a full Graph (--samp_type full), not on "
+                             "sampled blocks")
+        h0 = torch.relu(self.fcs[0](self._drop(x, generator)))
+        h = h0
+        for conv in self.convs:
+            h = torch.relu(conv(g, self._drop(h, generator), h0))
+        return torch.log_softmax(self.fcs[1](self._drop(h, generator)), dim=-1)
 
 
 class GINNode(nn.Module):

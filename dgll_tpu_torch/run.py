@@ -1,4 +1,4 @@
-"""Training CLI: ``python -m dgll_tpu_torch.run --Model GCN|GAT|GraphSAGE|GIN ...``
+"""Training CLI: ``python -m dgll_tpu_torch.run --Model GCN|GAT|GraphSAGE|GIN|GCNII ...``
 
 Counterpart of ``dgll_tpu/run.py``, for the part of it this package has ported, on
 one device: the synthetic dataset, a saved graph (``--dataset <path>.graph`` or
@@ -7,7 +7,10 @@ one device: the synthetic dataset, a saved graph (``--dataset <path>.graph`` or
 GraphSAGE and GIN (``--samp_type full``), and the minibatch paths for all four, with
 the uniform neighbour sampler (``--samp_type neighbor``, the default) or the
 layer-wise FastGCN and LADIES samplers (``--samp_type fastgcn|ladies``, layer sizes
-from ``--n_samp`` and ``--samp_growth_rate``, with ``--flatten`` and ``--wrs``). The
+from ``--n_samp`` and ``--samp_growth_rate``, with ``--flatten`` and ``--wrs``).
+GCNII (``--Model GCNII``, ``--n_layers`` layers of ``--nhid`` with ``--alpha`` and
+``--lamda``; the port's own model, which the JAX CLI lacks) trains full batch only,
+in float32: the CLI refuses it with another ``--samp_type`` or ``--dtype``. The
 host path samples
 on the host, a prefetching ``DataLoader`` moves each batch's blocks to the device and
 ``MiniBatchTrainer`` steps, with the device feature cache (``--cached_nPercent``)
@@ -49,7 +52,8 @@ package's 100k-edge threshold is the TPU's launch-overhead rule; the port's laye
 have no plain version on the card. A full-batch GraphSAGE run attaches no layout:
 its mean and sum run K1 on layouts built from the graph's edges on the device at the
 first step (``Graph.mean_chunked``), its max plain PyTorch (XLA in the JAX
-package).
+package). Nor does a GCNII run: its propagation runs K1 on ``Graph.gcn_chunked``,
+built on the device at the first step.
 
 On the host minibatch path the graph stays on the host for the sampler, and the
 features and labels live on the device; with the cache only the cached rows do, and
@@ -86,11 +90,15 @@ def is_data_parallel(cfg) -> bool:
 
 def check_supported(cfg) -> None:
     """Raise ``ValueError`` for a configuration the JAX CLI refuses: an unknown model
-    or sampler, and, before any rank starts, the data-parallel branch's refusals."""
-    if cfg.model.upper() not in ("GCN", "GAT", "GRAPHSAGE", "SAGE", "GIN"):
+    or sampler, and, before any rank starts, the data-parallel branch's refusals; and
+    for GCNII, the port's own model, off full batch or float32."""
+    if cfg.model.upper() not in ("GCN", "GAT", "GRAPHSAGE", "SAGE", "GIN", "GCNII"):
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.sampler not in ("full", "neighbor", "fastgcn", "ladies"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
+    if cfg.model.upper() == "GCNII" and (cfg.sampler != "full" or _dtype(cfg)):
+        raise ValueError("GCNII is defined on full graphs and runs in float32: "
+                         "--samp_type full, --dtype float32")
     if is_data_parallel(cfg):
         if cfg.sampler != "neighbor" and not (
                 cfg.device_sampling and cfg.sampler in ("fastgcn", "ladies")):
@@ -140,8 +148,12 @@ def _dtype(cfg):
 
 
 def build_model(cfg, n_class: int, in_features: int, generator=None):
-    from dgll_tpu_torch.nn import GAT, GCN, GINNode, GraphSAGE
+    from dgll_tpu_torch.nn import GAT, GCN, GCNII, GINNode, GraphSAGE
 
+    if cfg.model.upper() == "GCNII":
+        return GCNII(in_features, hidden=cfg.nhid, n_class=n_class, n_layers=cfg.n_layers,
+                     alpha=cfg.alpha, lamda=cfg.lamda, dropout=cfg.dropout,
+                     generator=generator)
     if cfg.model.upper() == "GAT":
         return GAT(in_features, hidden=cfg.nhid, n_class=n_class, num_heads=cfg.n_heads,
                    n_layers=cfg.n_layers, dropout=cfg.dropout, dtype=_dtype(cfg),
@@ -262,11 +274,11 @@ def attach_kernel_layouts(cfg, g):
     """The graph with the kernel layouts of ``cfg``'s model attached, and what the
     CLI reports of them: GCN and GIN try the windowed layouts (relabelling for
     locality where needed) and keep the chunked ones for a decline; GAT takes the
-    chunked ones only."""
+    chunked ones only; GraphSAGE and GCNII take none."""
     t_pre = time.perf_counter()
     extra: dict = {}
-    if cfg.model.upper() in ("GRAPHSAGE", "SAGE"):
-        return g, extra  # its layers derive their layouts on the device
+    if cfg.model.upper() in ("GRAPHSAGE", "SAGE", "GCNII"):
+        return g, extra  # their layers derive their layouts on the device
     if cfg.model.upper() == "GAT":
         g = g.with_chunked()
         extra["gat_kernel"] = GAT_KERNEL

@@ -19,7 +19,7 @@ from typing import List, Optional
 @dataclass
 class TrainConfig:
     dataset: str = "synthetic"
-    model: str = "GCN"              # GCN | GAT | GraphSAGE | GIN
+    model: str = "GCN"              # GCN | GAT | GraphSAGE | GIN | GCNII
     sampler: str = "neighbor"       # neighbor | fastgcn | ladies | full
     n_samp: int = 512               # layer-wise sample size
     samp_growth_rate: float = 1.0   # geometric layer growth (flat variants)
@@ -50,6 +50,8 @@ class TrainConfig:
     sage_aggregator: str = "mean"   # SAGEConv neighbour aggregator (ref
                                     # NeighborAggregator: mean|sum|max)
     sage_combine: str = "concat"    # SAGEConv combine (ref: concat|sum)
+    alpha: float = 0.1              # GCNII's initial residual (the authors' --alpha)
+    lamda: float = 0.5              # GCNII's identity mapping, beta_l = ln(lamda/l + 1)
     exact_eval: bool = False        # final test metric via full-neighborhood
                                     # inference (train/exact_infer.py) instead
                                     # of the sampled sweep
@@ -109,6 +111,10 @@ def add_train_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    choices=["mean", "sum", "max"])
     p.add_argument("--sage_combine", default=d.sage_combine,
                    choices=["concat", "sum"])
+    p.add_argument("--alpha", type=float, default=d.alpha,
+                   help="GCNII: the initial residual's weight")
+    p.add_argument("--lamda", type=float, default=d.lamda,
+                   help="GCNII: the identity mapping's beta_l = ln(lamda / l + 1)")
     p.add_argument("--exact_eval", action="store_true")
     p.add_argument("--no_window_sampling", dest="window_sampling",
                    action="store_false", help="exact per-slot i.i.d. draws (default)")

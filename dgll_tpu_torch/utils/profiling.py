@@ -277,7 +277,9 @@ def spanned(name: str, fn: Callable, *args):
     with _Span(name, stream, None):
         out = fn(*args)
     if marks and out.grad_fn is not None:
-        _backward_span(name + "_bwd", out.grad_fn, marks, where)
+        # the device alone: the hooks live until the backward, and a tensor they held
+        # would stay allocated that long (64 layers' inputs in a deep model)
+        _backward_span(name + "_bwd", out.grad_fn, marks, where.device)
     return out
 
 

@@ -275,7 +275,8 @@ def test_cli_gin_branches_print_the_jax_cli_keys(args):
     want = jax_main(CLI + args)
     got = torch_run.main(CLI + args + ["--device", "cpu"])
     assert set(got) == set(want) == {"config", "trials", "aggregate"}
-    assert set(got["config"]) == set(want["config"]) | {"device"}
+    # the port's flags: --device, and GCNII's --alpha and --lamda
+    assert set(got["config"]) == set(want["config"]) | {"device", "alpha", "lamda"}
     assert set(got["trials"][0]) == set(want["trials"][0]) | {"epoch_loss", "epoch_s"}
     assert set(got["aggregate"]) == set(want["aggregate"])
     trial = got["trials"][0]

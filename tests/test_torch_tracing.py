@@ -245,6 +245,25 @@ def test_pooled_events_are_reused_only_when_nothing_holds_them(monkeypatch):
     assert rep["dgll.runner.epoch"]["device_ms"] == epochs * (2 * n + 1)
 
 
+def test_backward_span_keeps_no_input_alive():
+    """A traced span's backward hooks hold its device, not its input: an input that
+    nothing else keeps (a deep model's dropped-out activations) is freed after the
+    forward, as it is untraced, and the backward span still records."""
+    import gc
+    import weakref
+
+    x = torch.randn(64, 8, requires_grad=True)
+    with profiling.tracing():
+        h = torch.relu(x)
+        alive = weakref.ref(h)
+        out = profiling.spanned("dgll.test.span", lambda t: t * 2.0, h)
+        del h
+        gc.collect()
+        assert alive() is None
+        out.sum().backward()
+    assert profiling.report()["spans"]["dgll.test.span_bwd"]["count"] == 1
+
+
 def test_capture_records_nothing(monkeypatch):
     monkeypatch.setattr(profiling, "_stream", lambda where: False)
     with profiling.tracing():

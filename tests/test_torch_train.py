@@ -90,7 +90,8 @@ def test_cli_prints_the_jax_cli_keys(capsys):
     want = jax_main(args)
     got = torch_run.main(args + ["--device", "cpu"])
     assert set(got) == set(want) == {"config", "trials", "aggregate"}
-    assert set(got["config"]) == set(want["config"]) | {"device"}
+    # the port's flags: --device, and GCNII's --alpha and --lamda
+    assert set(got["config"]) == set(want["config"]) | {"device", "alpha", "lamda"}
     # the port adds the loss curve and step times to each trial
     assert set(got["trials"][0]) == set(want["trials"][0]) | {"epoch_loss", "epoch_s"}
     assert set(got["aggregate"]) == set(want["aggregate"])
