@@ -146,7 +146,16 @@ checkpoints and ``device_trace``:
   ``spmm_chunked`` forward and autograd backward on it at F 64 (GCNII's width)
   against the plain version through autograd (1e-5 x max|ref|), every launch
   counted; K1 on A and A^T timed beside the plain version, ``sparse.mm`` and its
-  bound.
+  bound;
+* GCNII's fused layer (phase 28): its forward and backward kernels
+  (``csrc/gcnii_fused.cu``) at ``[169343, F]`` against the composition they replace
+  through autograd (1e-5 x max|ref|; the masks equal to ``_dropout``'s, the flags to
+  the composition's off the sign of a rounding; bitwise repeatable, ``dW`` included),
+  at F 64 (GCNII's width, the kernels with W whole in shared memory) and at F 128 and
+  256 (the tiled kernels), each timed beside the plain formulas and the composition;
+  one 64-layer training step on the same graph through the model and through the
+  composition written out, from one state and generator seed (loss and gradients held
+  to each other, 64 launches of each kernel, each step's ms).
 
 Each slice's launch counters are set to 0 just before its run and read just after.
 Each kernel is timed beside its plain version, one PyTorch library call computing
@@ -168,6 +177,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -4198,6 +4208,226 @@ def phase_gcn_k1() -> dict:
     return out
 
 
+GCNII_SOURCE = "dgll_tpu_torch/csrc/gcnii_fused.cu"
+GCNII_FWD = ("gcnii_fused_fwd (GCNII's layer after P x: initial residual, identity mapping, "
+             "ReLU and the next dropout in one pass)")
+GCNII_BWD = ("gcnii_fused_bwd (its backward: g_agg, g_h0 and dW through per-block partials "
+             "summed in block order)")
+GCNII_RATE = 0.6                 # the benchmark configuration's dropout
+GCNII_BETAS = (0.4054651081081644, 0.0077821404420549489)  # layers 1 and 64 (lamda 0.5)
+GCNII_TILED = (128, 256)         # widths of the tiled kernels checked and timed
+
+
+def _gcnii_composition(agg, h0, w, u, alpha, beta, keep):
+    """The composition the fused layer replaces, as GCNII ran it: ``GCN2Conv``'s
+    ``lerp`` and ``addmm`` after the padded row's slice, the ReLU, and ``_dropout``'s
+    select on the mask ``u < keep``."""
+    n = h0.shape[0]
+    s = torch.lerp(agg[:n], h0, alpha)
+    z = torch.addmm(s, s, w, beta=1.0 - beta, alpha=beta)
+    return torch.where(u < keep, torch.relu(z) / keep, 0.0), z
+
+
+def _gcnii_checks(n: int, f: int, gen, beta: float) -> dict:
+    """The forward and backward kernels at ``[n, f]`` against the composition through
+    autograd, the padded row space one row longer: values within 1e-5 x max|ref|; the
+    masks equal to ``_dropout``'s on the same generator state; the flags equal to the
+    composition's ``~(z <= 0) & kept`` except where ``|z|`` is within 1e-6 x max|z| of
+    0 (the sign of a rounding; the cotangent is 0 there, so that both backwards see one
+    ReLU); everything bitwise repeatable."""
+    from dgll_tpu_torch.nn.models import _dropout
+    from dgll_tpu_torch.ops.cuda import gcnii_fused as gf
+
+    alpha, keep = 0.1, 1.0 - GCNII_RATE
+    agg = torch.randn(n + 1, f, generator=gen, device="cuda")
+    h0 = torch.relu(torch.randn(n, f, generator=gen, device="cuda"))
+    w = (torch.rand(f, f, generator=gen, device="cuda") * 2 - 1) / math.sqrt(f)
+    state = gen.get_state()
+    u = torch.rand(n, f, generator=gen, device="cuda")
+    gen.set_state(state)
+    mask = _dropout(torch.ones(n, f, device="cuda"), GCNII_RATE, gen) != 0
+    check(torch.equal(mask, u < keep), "the kernel's uniforms draw _dropout's mask")
+    args = (agg, h0, w, u, alpha, beta, keep)
+    out, s, flags = gf.gcnii_fused_fwd_cuda(*args)
+    again = gf.gcnii_fused_fwd_cuda(*args)
+    check(all(torch.equal(a, b) for a, b in zip((out, s, flags), again)),
+          "the forward kernel is bitwise repeatable")
+    leaves = [t.clone().requires_grad_(True) for t in (agg, h0, w)]
+    want, z = _gcnii_composition(leaves[0], leaves[1], leaves[2], u, alpha, beta, keep)
+    z = z.detach()
+    edge = z.abs() <= 1e-6 * z.abs().max()
+    ref_flags = ~(z <= 0) & mask
+    off = flags != ref_flags
+    check(not bool((off & ~edge).any()), "the flags equal (z > 0) & kept off the edge")
+    check(torch.equal(flags & mask, flags), "no flag where the mask drops")
+    errs, out_exact = {}, int((out == want.detach()).sum())
+    for name, have, ref in (("out", out, want.detach()),
+                            ("s", s, torch.lerp(agg[:n], h0, alpha))):
+        errs[name] = (have - ref).abs().max().item()
+        check(errs[name] <= 1e-5 * ref.abs().max().item(),
+              f"GCNII's fused forward within 1e-5 x max|ref| ({name}, beta {beta:.4f})")
+    g = torch.randn(n, f, generator=gen, device="cuda").masked_fill_(off | edge, 0.0)
+    want.backward(g)
+    got = gf.gcnii_fused_bwd_cuda(g, flags, s, w, n + 1, alpha, beta, keep)
+    again = gf.gcnii_fused_bwd_cuda(g, flags, s, w, n + 1, alpha, beta, keep)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "the backward kernel is bitwise repeatable (dW through its partials)")
+    check(not bool(got[0][n:].any()), "the padded row's gradient is 0")
+    for name, have, leaf in zip(("g_agg", "g_h0", "dW"), got, leaves):
+        errs[name] = (have - leaf.grad).abs().max().item()
+        check(errs[name] <= 1e-5 * leaf.grad.abs().max().item(),
+              f"GCNII's fused backward within 1e-5 x max|ref| ({name}, beta {beta:.4f})")
+    print(f"[28 gcnii] [{n}, {f}] beta {beta:.4f}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; out bitwise equal to the composition at {out_exact} of {n * f}; flags off "
+          f"the composition's at {int(off.sum())}, {int(edge.sum())} values within 1e-6 x "
+          f"max|z| of 0; masks, repeats: equal")
+    return {"err": max(errs.values()), "out_exact": out_exact, "flags_off": int(off.sum())}
+
+
+def _gcnii_times(n: int, f: int, gen) -> dict:
+    """Each kernel alone at ``[n, f]`` beside the plain formulas on the card and the
+    composition it replaces (forward; backward through autograd, the padded row's slice
+    included): ``timed``'s plain and library columns, and its bound."""
+    from dgll_tpu_torch.ops.cuda import gcnii_fused as gf
+
+    alpha, beta, keep = 0.1, GCNII_BETAS[0], 1.0 - GCNII_RATE
+    agg = torch.randn(n + 1, f, generator=gen, device="cuda")
+    h0 = torch.relu(torch.randn(n, f, generator=gen, device="cuda"))
+    w = (torch.rand(f, f, generator=gen, device="cuda") * 2 - 1) / math.sqrt(f)
+    u = torch.rand(n, f, generator=gen, device="cuda")
+    g = torch.randn(n, f, generator=gen, device="cuda")
+    args = (agg, h0, w, u, alpha, beta, keep)
+    out, s, flags = gf.gcnii_fused_fwd_cuda(*args)
+    fwd = timed(Case(lambda: gf.gcnii_fused_fwd_cuda(*args),
+                     lambda: gf.gcnii_layer_reference(*args),
+                     lambda: _gcnii_composition(*args), (agg[:n], h0, w, u),
+                     2 * n * f * f), (out, s, flags))
+    leaves = [t.clone().requires_grad_(True) for t in (agg, h0, w)]
+
+    def composition_bwd():
+        want, _ = _gcnii_composition(*leaves, u, alpha, beta, keep)
+        want.backward(g)
+
+    bargs = (g, flags, s, w, n + 1, alpha, beta, keep)
+    got = gf.gcnii_fused_bwd_cuda(*bargs)
+    bwd = timed(Case(lambda: gf.gcnii_fused_bwd_cuda(*bargs),
+                     lambda: gf.gcnii_layer_backward_reference(*bargs),
+                     composition_bwd, (g, flags, s, w), 4 * n * f * f), got)
+    for name, t in (("forward", fwd), ("backward", bwd)):
+        print(f"[28 gcnii {name}] [{n}, {f}]: {describe(t)} (library: the composition "
+              f"it replaces{', its forward and autograd backward' if name == 'backward' else ''})")
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _gcnii_composed(model, g, x, gen):
+    """GCNII's forward as the composition of PyTorch operations the fused layer
+    replaces, on the model's weights: ``_dropout`` before each layer and the head,
+    K1's sum, ``lerp``, ``addmm`` and ``relu``."""
+    from dgll_tpu_torch.nn.models import _dropout
+    from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
+
+    h0 = torch.relu(model.fcs[0](_dropout(x, model.dropout, gen)))
+    h = h0
+    for conv in model.convs:
+        agg = spmm_chunked(*g.gcn_chunked, _dropout(h, model.dropout, gen))[: g.n_node]
+        s = torch.lerp(agg, h0, conv.alpha)
+        h = torch.relu(torch.addmm(s, s, conv.weight, beta=1.0 - conv.beta, alpha=conv.beta))
+    return torch.log_softmax(model.fcs[1](_dropout(h, model.dropout, gen)), dim=-1)
+
+
+def _gcnii_step(g, fused: bool, layers: int, gen_seed: int = 31) -> dict:
+    """One training step of GCNII (``layers`` x 64, dropout 0.6) on ``g``, through the
+    model (``fused``) or the composition written out: its loss, the launches of K1 and
+    of the fused kernels, the traced counters, and the step's ms over 5 steps after 2."""
+    from dgll_tpu_torch.nn import GCNII
+    from dgll_tpu_torch.ops.cuda import gcnii_fused as gf
+    from dgll_tpu_torch.ops.cuda import segment_matmul as sm
+    from dgll_tpu_torch.utils import profiling
+
+    x = torch.randn(g.n_node, 128, generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda")
+    model = GCNII(128, GCN_WIDTH, 40, n_layers=layers, dropout=GCNII_RATE, device="cuda",
+                  generator=torch.Generator().manual_seed(5))
+    def step():
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+        logp = model(g, x, generator=gen) if fused else _gcnii_composed(model, g, x, gen)
+        loss = logp[:, 0].mean()
+        loss.backward()
+        return loss
+
+    _zero_counters()
+    gf.launches_fwd = gf.launches_bwd = 0
+    profiling.reset()
+    with profiling.tracing():
+        loss = step()
+    torch.cuda.synchronize()
+    counts = {"K1 fwd": sm.launches_fwd, "K1 bwd": sm.launches_bwd,
+              "fused fwd": gf.launches_fwd, "fused bwd": gf.launches_bwd,
+              **profiling.report()["counters"]}
+    profiling.reset()
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    return {"loss": float(loss.detach()), "counts": counts, "ms": ms, "grads": grads}
+
+
+def phase_gcnii_fused() -> dict:
+    """Phase 28: GCNII's fused layer (``ops/cuda/gcnii_fused.py``). Both kernels at
+    ``[169343, 64]`` against the composition they replace (``_gcnii_checks``, at the
+    first and the last layer's beta), each timed alone (``_gcnii_times``), and so the
+    tiled kernels at the widths ``GCNII_TILED``; then one training step of the 64-layer
+    model on the ogbn-arxiv-sized graph through the model and through the composition
+    written out, from one state and one generator seed: loss and each leaf's gradient
+    norm within 1e-5 relative, 64 launches of each kernel and 64 + 64 of K1,
+    ``conv.identity_map_fused`` 64 (none on the composition), and each step's ms.
+    Returns {"err", "fwd", "bwd", "tiled", "launches", "step_ms", ...}."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    n = SAGE_N
+    checks = [_gcnii_checks(n, GCN_WIDTH, gen, beta) for beta in GCNII_BETAS]
+    out = {"err": max(c["err"] for c in checks), "checks": checks,
+           **_gcnii_times(n, GCN_WIDTH, gen), "tiled": {}}
+    for f in GCNII_TILED:
+        check_f = _gcnii_checks(n, f, gen, GCNII_BETAS[0])
+        out["tiled"][f] = {"err": check_f["err"], **_gcnii_times(n, f, gen)}
+    g = sage_graph()
+    layers = 64
+    fused = _gcnii_step(g, True, layers)
+    plain = _gcnii_step(g, False, layers)
+    want = {"K1 fwd": layers, "K1 bwd": layers, "fused fwd": layers, "fused bwd": layers,
+            "conv.aggregate_gcn": layers, "conv.identity_map_fused": layers}
+    check(fused["counts"] == want, f"a fused step launched {want}: {fused['counts']}")
+    check(plain["counts"].get("fused fwd") == 0 and "conv.identity_map_fused"
+          not in plain["counts"], f"the composition launched no fused kernel: "
+          f"{plain['counts']}")
+    loss_gap = abs(fused["loss"] - plain["loss"]) / abs(plain["loss"])
+    # each leaf's gap of gradient norms, the benchmark's grad_gap: a ReLU whose input
+    # rounds to the other sign on one side moves single entries, not the norms
+    grad_gap = max(abs(a.norm().item() - b.norm().item()) / b.norm().item()
+                   for a, b in zip(fused["grads"], plain["grads"]))
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(fused["grads"], plain["grads"]))
+    print(f"[28 gcnii step] {layers} x {GCN_WIDTH}, dropout {GCNII_RATE}: fused "
+          f"{fused['ms']:.3f} ms, composition {plain['ms']:.3f} ms a step "
+          f"({plain['ms'] / fused['ms']:.2f}x); loss gap {loss_gap:.3e}, worst leaf's "
+          f"gap of gradient norms {grad_gap:.3e} (of entries {worst:.3e} x its max); "
+          f"launches {fused['counts']}")
+    check(loss_gap <= 1e-5, "the fused step's loss within 1e-5 of the composition's")
+    check(grad_gap <= 1e-5, "the fused step's gradient norms within 1e-5 of the "
+                            "composition's")
+    out.update(launches=fused["counts"], step_ms={"fused": fused["ms"],
+                                                  "composition": plain["ms"]},
+               loss_gap=loss_gap, grad_gap=grad_gap)
+    return out
+
+
 def _tp_reference(t, ranks, device="cuda") -> dict:
     """(d)'s check: the one-process K1 GCN with the whole weights; every rank's
     log-probs and its slices' gradients against it, within ``HALO_TOL`` x max|ref|."""
@@ -4485,6 +4715,7 @@ def main() -> int:
     halo_tp = phase_halo_tp()
     sage = phase_sage_k1()
     gcn = phase_gcn_k1()
+    gcnii = phase_gcnii_fused()
     t = times[(128, "A")]
     kernels = [kernel_row("spmm_csr (K1: weighted SpMM, fused bias + ReLU)", KERNEL_SOURCE,
                           REPLACES, sl["launches"], max(worst, t["err"]), t)]
@@ -4536,6 +4767,10 @@ def main() -> int:
     kernels.append(kernel_row(K1_GCN, KERNEL_SOURCE, REPLACES,
                               gcn["launches"]["K1 fwd"] + gcn["launches"]["K1 bwd"],
                               max(gcn["err"], gcn["A"]["err"], gcn["A^T"]["err"]), gcn["A"]))
+    for name, key in ((GCNII_FWD, "fwd"), (GCNII_BWD, "bwd")):
+        kernels.append(kernel_row(name, GCNII_SOURCE, "none (the JAX package has no GCNII)",
+                                  gcnii["launches"][f"fused {key}"], gcnii["err"],
+                                  gcnii[key]))
     for name, key, line in PROBE_KERNELS:
         kernels.append(kernel_row(name, PROBES_SOURCE, f"{PROBE_SCRIPT}:{line}",
                                   probe_counts[key], probe_kernels[key]["err"],
@@ -4552,6 +4787,7 @@ def main() -> int:
     print(f"[25 halo_tp] {json.dumps(halo_tp)}")
     print(f"[26 sage] {json.dumps(sage)}")
     print(f"[27 gcn] {json.dumps(gcn)}")
+    print(f"[28 gcnii] {json.dumps({k: v for k, v in gcnii.items() if k not in ('fwd', 'bwd')})}")
     print(f"[done] chip_smoke.py in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

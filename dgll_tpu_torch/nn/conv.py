@@ -345,30 +345,36 @@ def uniform_(w: torch.Tensor, bound: float,
     return w
 
 
-# GCN2Conv's initial residual and identity mapping is this span while tracing, and
-# its backward the span of the same name with ``_bwd``.
+# GCN2Conv's layer after ``P x`` (the initial residual, the identity mapping, the ReLU
+# and the next dropout) is this span while tracing, and its backward the span of the
+# same name with ``_bwd``.
 IDENTITY_MAP = "dgll.conv.identity_map"
 
 
 def _gcn_aggregate(g: Graph, x: torch.Tensor) -> torch.Tensor:
-    """``P x`` over ``g.gcn_chunked`` through K1 (its plain version on the CPU)."""
+    """``P x`` over ``g.gcn_chunked`` through K1 (its plain version on the CPU), over
+    K1's whole padded row space."""
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
 
-    return spmm_chunked(*g.gcn_chunked, x.contiguous())[: g.n_node]
+    return spmm_chunked(*g.gcn_chunked, x.contiguous())
 
 
 class GCN2Conv(nn.Module):
     """GCNII's layer (Chen et al., "Simple and Deep Graph Convolutional Networks",
-    ICML 2020): the initial residual ``s = (1 - alpha) P x + alpha x0``, then the
-    identity mapping ``beta (s W) + (1 - beta) s``, with ``P = D^-1/2 (A + I)
-    D^-1/2`` and ``W [features, features]`` (no bias; ``s @ W``, the paper's
-    orientation). The activation is the model's.
+    ICML 2020) with the model's ReLU and the next layer's dropout: the initial
+    residual ``s = (1 - alpha) P x + alpha x0``, the identity mapping ``z = beta (s W)
+    + (1 - beta) s``, with ``P = D^-1/2 (A + I) D^-1/2`` and ``W [features,
+    features]`` (no bias; ``s @ W``, the paper's orientation), then ``relu(z)``, and
+    where ``u`` (the uniforms of the next dropout mask) is given, ``where(u < keep,
+    relu(z) / keep, 0)``.
 
     ``P x`` runs kernel K1 (``spmm_chunked``, its plain version on the CPU) on the
     layouts ``Graph.gcn_chunked`` builds on the graph's device at first use, the
-    backward on A^T. The paper defines the layer on full graphs: a sampled block
-    raises. ``W`` is drawn as the authors' code draws it, uniform on
-    ``±1/sqrt(features)``.
+    backward on A^T. Everything after it is ``ops/cuda/gcnii_fused.py``'s
+    ``gcnii_layer``: one forward and one backward kernel on the card (a width that is
+    a multiple of 4; another raises there), their plain versions on the CPU. The paper
+    defines the layer on full graphs: a sampled block raises. ``W`` is drawn as the
+    authors' code draws it, uniform on ``±1/sqrt(features)``.
     """
 
     def __init__(self, features: int, alpha: float, beta: float, device=None,
@@ -378,17 +384,21 @@ class GCN2Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, features, device=device))
         uniform_(self.weight, 1.0 / math.sqrt(features), generator)
 
-    def _identity_map(self, agg: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
-        s = torch.lerp(agg, x0, self.alpha)
-        return torch.addmm(s, s, self.weight, beta=1.0 - self.beta, alpha=self.beta)
+    def _layer(self, agg: torch.Tensor, x0: torch.Tensor, u: Optional[torch.Tensor],
+               keep: float) -> torch.Tensor:
+        from dgll_tpu_torch.ops.cuda.gcnii_fused import gcnii_layer
 
-    def forward(self, g, x: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+        return gcnii_layer(agg, x0, self.weight, u, self.alpha, self.beta, keep)
+
+    def forward(self, g, x: torch.Tensor, x0: torch.Tensor,
+                u: Optional[torch.Tensor] = None, keep: float = 1.0) -> torch.Tensor:
         if not isinstance(g, Graph):
             raise ValueError(f"GCN2Conv runs on a full Graph (GCNII is defined on full "
                              f"graphs), not on a {type(g).__name__}")
         profiling.count("conv.aggregate_gcn")
+        profiling.count("conv.identity_map_fused")
         agg = profiling.spanned(AGGREGATE, _gcn_aggregate, g, x)
-        return profiling.spanned(IDENTITY_MAP, self._identity_map, agg, x0)
+        return profiling.spanned(IDENTITY_MAP, self._layer, agg, x0, u, keep)
 
 
 class GINConv(nn.Module):

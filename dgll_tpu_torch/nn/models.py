@@ -172,7 +172,12 @@ class GCNII(nn.Module):
     ``dropout`` applies where shown, its masks drawn from the generator passed to
     ``forward`` in that order: the input, each layer, the head. Full graphs only,
     float32. ``fcs`` are drawn as ``nn.Linear`` draws them (uniform on
-    ``±1/sqrt(in)``, the authors' default), on the CPU from ``generator``."""
+    ``±1/sqrt(in)``, the authors' default), on the CPU from ``generator``.
+
+    Each ``GCN2Conv`` applies its layer's ReLU and the next dropout itself (after the
+    last layer, the head's), from uniforms this model draws with one ``torch.rand`` a
+    mask in the same order; at a dropout that keeps nothing it draws none, as
+    ``_dropout`` draws none."""
 
     def __init__(self, in_features: int, hidden: int, n_class: int, n_layers: int = 64,
                  alpha: float = 0.1, lamda: float = 0.5, dropout: float = 0.6,
@@ -200,10 +205,14 @@ class GCNII(nn.Module):
             raise ValueError("GCNII trains on a full Graph (--samp_type full), not on "
                              "sampled blocks")
         h0 = torch.relu(self.fcs[0](self._drop(x, generator)))
-        h = h0
+        keep = 1.0 - self.dropout if self.training else 1.0
+        h = self._drop(h0, generator)
         for conv in self.convs:
-            h = torch.relu(conv(g, self._drop(h, generator), h0))
-        return torch.log_softmax(self.fcs[1](self._drop(h, generator)), dim=-1)
+            # the uniforms of the next layer's mask (after the last, the head's)
+            u = (torch.rand(h0.shape, generator=generator, device=h0.device)
+                 if 0.0 < keep < 1.0 else None)
+            h = conv(g, h, h0, u, keep)
+        return torch.log_softmax(self.fcs[1](h), dim=-1)
 
 
 class GINNode(nn.Module):

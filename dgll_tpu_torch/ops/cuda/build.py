@@ -112,6 +112,9 @@ def load_library() -> ctypes.CDLL:
         "dgll_probe_onehot": [p, p, p, ll, i, i, p],
         "dgll_probe_dynacc": [p, p, p, ll, i, i, p],
         "dgll_probe_gather": [p] * 5 + [ll] + [i] * 6 + [p],
+        "dgll_gcnii_fused_fwd": [p] * 7 + [i] * 2 + [f] * 5 + [p],
+        "dgll_gcnii_fused_bwd": [p] * 8 + [i] * 4 + [f] * 5 + [p],
+        "dgll_gcnii_fused_bwd_blocks": [i],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -10,8 +10,10 @@ D^-1/2 (A + I) D^-1/2`` that K1 sums over) carries ``gcn_normalize``'s weights o
 real edges, 0 on padded ones, and refuses a graph without self-loops. The CLI trains
 ``--Model GCNII --samp_type full`` and refuses its other paths; under the tracer a step
 makes one ``dgll.conv.identity_map`` span, its backward and one
-``conv.aggregate_gcn`` count a layer; the benchmark's ``identity_map_ms.full`` reader
-divides the spans' device time by the steps.
+``conv.aggregate_gcn`` and one ``conv.identity_map_fused`` count a layer, at a width
+of either design of the fused layer's kernels; the benchmark's ``identity_map_ms.full``
+reader divides the spans' device time by the steps. Every layer runs the fused layer
+(``ops/cuda/gcnii_fused.py``, its plain version here).
 """
 import functools
 import math
@@ -75,7 +77,7 @@ def _ref_graph(g: Graph):
     return SimpleNamespace(src=g.src.long(), dst=g.dst.long(), n_node=g.n_node)
 
 
-@pytest.mark.parametrize("n_layers, hidden", [(2, 16), (8, 16), (64, 8)])
+@pytest.mark.parametrize("n_layers, hidden", [(2, 16), (8, 16), (64, 8), (64, 16)])
 def test_port_equals_the_plain_reference(n_layers, hidden):
     """Log-probabilities, the masked loss and every leaf's gradient, with the same
     dropout masks (generators of one seed, masks drawn in the model's order). Both
@@ -211,9 +213,10 @@ def fresh_tracer():
     profiling.reset()
 
 
-def test_traced_step_spans_each_layer(fresh_tracer):
+@pytest.mark.parametrize("width", [8, 16])
+def test_traced_step_spans_each_layer(fresh_tracer, width):
     layers, steps = 5, 2
-    cfg = _cfg(layers, 8)
+    cfg = _cfg(layers, width)  # a tiled width of the fused layer's kernels, and a whole one
     g, model, _ = _pair(cfg)
     state = create_train_state(model, functools.partial(torch.optim.Adam, lr=1e-2))
     step = make_full_batch_step()
@@ -224,7 +227,8 @@ def test_traced_step_spans_each_layer(fresh_tracer):
     assert math.isfinite(float(loss))
     rep = profiling.report()
     assert rep["counters"] == {"step.full_batch": steps,
-                               "conv.aggregate_gcn": steps * layers}
+                               "conv.aggregate_gcn": steps * layers,
+                               "conv.identity_map_fused": steps * layers}
     for name in ("dgll.conv.identity_map", "dgll.conv.identity_map_bwd",
                  "dgll.conv.aggregate", "dgll.conv.aggregate_bwd"):
         assert rep["spans"][name]["count"] == steps * layers, name
