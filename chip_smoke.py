@@ -136,13 +136,13 @@ checkpoints and ``device_trace``:
   against the CPU and an epoch timed;
 * full-batch GraphSAGE's aggregation (phase 26), on an ogbn-arxiv-sized power-law
   graph (169,343 nodes, 2,501,829 edges with both directions and self-loops; the
-  benchmark's degree law): ``Graph.mean_chunked`` built on the card and timed,
+  benchmark's degree law): ``Graph.chunked_pair("mean")`` built on the card and timed,
   then ``spmm_chunked`` forward and autograd backward on it at F 128 and 512 (SAGE's
   two layers) against the plain version through autograd (1e-5 x max|ref|), every
   launch counted; K1 on A and A^T at both widths timed beside the plain version,
   ``sparse.mm`` and its bound, and the COO mean it replaced (``spmm_mean_coo``);
 * full-batch GCNII's propagation (phase 27), on the same graph:
-  ``Graph.gcn_chunked`` (``D^-1/2 (A + I) D^-1/2``) built on the card and timed, then
+  ``Graph.chunked_pair("gcn")`` (``D^-1/2 (A + I) D^-1/2``) built on the card and timed, then
   ``spmm_chunked`` forward and autograd backward on it at F 64 (GCNII's width)
   against the plain version through autograd (1e-5 x max|ref|), every launch
   counted; K1 on A and A^T timed beside the plain version, ``sparse.mm`` and its
@@ -847,6 +847,7 @@ def phase_gat_slice() -> dict:
     """Phase 9: the GAT slice, 20 epochs through ``run.main``. Returns the launch
     counts of the run, per kernel."""
     from dgll_tpu_torch import run
+    from dgll_tpu_torch.nn import GATConv
     from dgll_tpu_torch.ops.cuda import gat_fused as gf
     from dgll_tpu_torch.ops.cuda import segment_matmul as sm
     from dgll_tpu_torch.tools.profile_slice import GAT_SLICE_ARGS
@@ -866,7 +867,8 @@ def phase_gat_slice() -> dict:
     check(all(np.isfinite(losses)), "every loss is finite")
     check(losses[-1] < losses[0], "the last loss is below the first")
     check(trial["test_acc"] > 2 / 16, "test_acc above 2/16")
-    check(trial.get("gat_kernel") == run.GAT_KERNEL, "the slice names the fused GAT op")
+    check(trial.get("gat_kernel") == GATConv.REPORTS["gat_kernel"],
+          "the slice names the fused GAT op")
     # two layers: forward kernels at least twice per epoch (the validation pass
     # runs the forward too), backward kernels exactly twice per epoch
     for k in ("gat_stats", "gat_alpha"):
@@ -4095,7 +4097,7 @@ def sage_graph(seed: int = 27):
 
 
 def phase_sage_k1() -> dict:
-    """Phase 26: full-batch GraphSAGE's mean on K1. ``Graph.mean_chunked`` built on
+    """Phase 26: full-batch GraphSAGE's mean on K1. ``Graph.chunked_pair("mean")`` built on
     the card (timed at its first use, and again by CUDA events on a copy); the
     wrapper as ``SAGEConv`` calls it (``spmm_chunked(a, at, x)``, forward and autograd
     backward on A^T) at each of ``SAGE_WIDTHS`` against the plain version through
@@ -4111,12 +4113,12 @@ def phase_sage_k1() -> dict:
     g = sage_graph()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    a, at = g.mean_chunked
+    a, at = g.chunked_pair("mean")
     torch.cuda.synchronize()
     out = {"build_s": time.perf_counter() - t0, "build_ms": cuda_median_ms(
-        lambda: g.replace().mean_chunked, 2, 7)}
+        lambda: g.replace().chunked_pair("mean"), 2, 7)}
     print(f"[26 sage] {g.n_node} nodes, {g.n_edge} edges; A: {_split_summary(a)}; "
-          f"A^T: {_split_summary(at)}; mean_chunked at first use {out['build_s']:.3f} s, "
+          f"A^T: {_split_summary(at)}; the mean's pair at first use {out['build_s']:.3f} s, "
           f"then {out['build_ms']:.3f} ms")
     gen = torch.Generator(device="cuda").manual_seed(27)
     err = 0.0
@@ -4157,7 +4159,7 @@ GCN_WIDTH = 64  # GCNII's hidden width (gnnbench/configs/gcnii64-64.json)
 
 
 def phase_gcn_k1() -> dict:
-    """Phase 27: full-batch GCNII's propagation on K1. ``Graph.gcn_chunked`` built on
+    """Phase 27: full-batch GCNII's propagation on K1. ``Graph.chunked_pair("gcn")`` built on
     the card (timed at its first use, and again by CUDA events on a copy); the
     wrapper as ``GCN2Conv`` calls it (``spmm_chunked(a, at, x)``, forward and autograd
     backward on A^T) at ``GCN_WIDTH`` against the plain version through autograd,
@@ -4171,12 +4173,12 @@ def phase_gcn_k1() -> dict:
     g = sage_graph()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    a, at = g.gcn_chunked
+    a, at = g.chunked_pair("gcn")
     torch.cuda.synchronize()
     out = {"build_s": time.perf_counter() - t0, "build_ms": cuda_median_ms(
-        lambda: g.replace().gcn_chunked, 2, 7)}
+        lambda: g.replace().chunked_pair("gcn"), 2, 7)}
     print(f"[27 gcn] {g.n_node} nodes, {g.n_edge} edges; A: {_split_summary(a)}; "
-          f"A^T: {_split_summary(at)}; gcn_chunked at first use {out['build_s']:.3f} s, "
+          f"A^T: {_split_summary(at)}; GCN's pair at first use {out['build_s']:.3f} s, "
           f"then {out['build_ms']:.3f} ms")
     gen = torch.Generator(device="cuda").manual_seed(29)
     f = GCN_WIDTH
@@ -4330,7 +4332,7 @@ def _gcnii_composed(model, g, x, gen):
     h0 = torch.relu(model.fcs[0](_dropout(x, model.dropout, gen)))
     h = h0
     for conv in model.convs:
-        agg = spmm_chunked(*g.gcn_chunked, _dropout(h, model.dropout, gen))[: g.n_node]
+        agg = spmm_chunked(*g.chunked_pair("gcn"), _dropout(h, model.dropout, gen))[: g.n_node]
         s = torch.lerp(agg, h0, conv.alpha)
         h = torch.relu(torch.addmm(s, s, conv.weight, beta=1.0 - conv.beta, alpha=conv.beta))
     return torch.log_softmax(model.fcs[1](_dropout(h, model.dropout, gen)), dim=-1)
@@ -4387,7 +4389,7 @@ def phase_gcnii_fused() -> dict:
     model on the ogbn-arxiv-sized graph through the model and through the composition
     written out, from one state and one generator seed: loss and each leaf's gradient
     norm within 1e-5 relative, 64 launches of each kernel and 64 + 64 of K1,
-    ``conv.identity_map_fused`` 64 (none on the composition), and each step's ms.
+    ``conv.aggregate_gcn`` 64 (none on the composition), and each step's ms.
     Returns {"err", "fwd", "bwd", "tiled", "launches", "step_ms", ...}."""
     gen = torch.Generator(device="cuda").manual_seed(28)
     n = SAGE_N
@@ -4402,9 +4404,9 @@ def phase_gcnii_fused() -> dict:
     fused = _gcnii_step(g, True, layers)
     plain = _gcnii_step(g, False, layers)
     want = {"K1 fwd": layers, "K1 bwd": layers, "fused fwd": layers, "fused bwd": layers,
-            "conv.aggregate_gcn": layers, "conv.identity_map_fused": layers}
+            "conv.aggregate_gcn": layers}
     check(fused["counts"] == want, f"a fused step launched {want}: {fused['counts']}")
-    check(plain["counts"].get("fused fwd") == 0 and "conv.identity_map_fused"
+    check(plain["counts"].get("fused fwd") == 0 and "conv.aggregate_gcn"
           not in plain["counts"], f"the composition launched no fused kernel: "
           f"{plain['counts']}")
     loss_gap = abs(fused["loss"] - plain["loss"]) / abs(plain["loss"])

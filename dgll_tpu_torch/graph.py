@@ -10,14 +10,20 @@ Counterpart of ``dgll_tpu/graph.py``. The conventions are the same:
 * Features, labels and split masks ride along as optional tensors.
 
 Construction is host-side: a graph is built on the CPU and moved once with
-``Graph.to(device)``. Its kernel layouts (``with_chunked``, ``mean_chunked``,
-``sum_chunked``, ``gcn_chunked``) are built on the device the graph is on.
+``Graph.to(device)``. K1's layouts (``ops/chunked.py``) come two ways, each built on
+the device the graph is on:
+
+* ``with_chunked()``, the JAX API's: the pair over the real edges and the graph's own
+  weights, attached as the fields ``chunked``/``chunked_t`` by a caller that asks the
+  layers which layouts they read (``nn.conv.attached_layouts``);
+* ``chunked_pair(weighting)``: the pair over every edge under a named weighting
+  (``data.transforms.edge_weights``), built at first use and kept on the instance,
+  for layers that build what they read.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -50,7 +56,7 @@ class Graph:
     val_mask: Optional[torch.Tensor] = None    # [n_node] bool
     test_mask: Optional[torch.Tensor] = None   # [n_node] bool
 
-    # Kernel layouts (ops/chunked.py), attached by ``with_chunked``.
+    # K1's layouts (ops/chunked.py) of the real edges, attached by ``with_chunked``.
     chunked: Optional[Any] = None     # ChunkedCSR of A (dst-major)
     chunked_t: Optional[Any] = None   # ChunkedCSR of A^T (drives backward)
     # Windowed layouts (ops/windowed.py), attached by ``with_windowed``.
@@ -66,6 +72,10 @@ class Graph:
     n_edge: int = 0
     n_real_node: int = 0
     n_real_edge: int = 0
+
+    # ``chunked_pair``'s layouts by weighting, built at first use; not an argument of
+    # the constructor, so ``replace`` and ``to`` start empty.
+    _pairs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @staticmethod
     def from_edges(
@@ -145,52 +155,19 @@ class Graph:
                                    self.n_real_node, w)
         return self.replace(chunked=c, chunked_t=ct)
 
-    @functools.cached_property
-    def mean_chunked(self) -> tuple:
-        """The SpMM kernel layouts ``(A, A^T)`` of SAGE's mean: every edge, padded
-        ones included, weighed ``1 / max(deg(dst), 1)`` (the in-degree read from
-        ``indptr``), so that A is the mean and A^T its exact transpose. Built on the
-        graph's device at first use and kept on this instance; ``replace`` and
-        ``to`` give new instances, which build their own."""
-        from dgll_tpu_torch.ops.chunked import build_chunked_pair
+    def chunked_pair(self, weighting: str) -> tuple:
+        """K1's layouts ``(A, A^T)`` over every edge, padded ones included, weighed by
+        ``weighting`` (``data.transforms.edge_weights``: ``"edges"``, ``"mean"`` or
+        ``"gcn"``), A^T driving the backward. Built on the graph's device at first use
+        and kept on this instance; ``replace`` and ``to`` give new instances, which
+        build their own."""
+        if weighting not in self._pairs:
+            from dgll_tpu_torch.data.transforms import edge_weights
+            from dgll_tpu_torch.ops.chunked import build_chunked_pair
 
-        deg = (self.indptr[1:] - self.indptr[:-1]).clamp_min(1)
-        w = torch.reciprocal(deg.float())[self.dst.long()]
-        return build_chunked_pair(self.src, self.dst, self.n_node, self.n_node, w)
-
-    @functools.cached_property
-    def sum_chunked(self) -> tuple:
-        """``mean_chunked``'s layouts weighed by the edge weights (or 1): SAGE's sum."""
-        from dgll_tpu_torch.ops.chunked import build_chunked_pair
-
-        return build_chunked_pair(self.src, self.dst, self.n_node, self.n_node,
-                                  self.edge_weight)
-
-    @functools.cached_property
-    def gcn_chunked(self) -> tuple:
-        """The SpMM kernel layouts ``(A, A^T)`` of GCN's ``P = D^-1/2 (A + I) D^-1/2``
-        (GCNII's propagation): every edge, weighed ``dinv[dst] * dinv[src]`` on the
-        real ones and 0 on padded ones, the degrees counted over the real edges, in
-        float64 then stored in float32 (``data.transforms.gcn_normalize``'s rule).
-        The graph's own edge weights are not read: P belongs to the model. Raises
-        where a real node lacks its self-loop, as ``gcn_normalize`` does. Built on the
-        graph's device at first use and kept on this instance, as ``mean_chunked``."""
-        from dgll_tpu_torch.ops.chunked import build_chunked_pair
-
-        e = self.n_real_edge
-        src, dst = self.src.long(), self.dst.long()
-        loops = dst[:e][src[:e] == dst[:e]]
-        has_loop = torch.zeros(self.n_node, dtype=torch.bool, device=dst.device)
-        has_loop[loops] = True
-        if not bool(has_loop[: self.n_real_node].all()):
-            raise ValueError("GCN's normalisation D^-1/2 (A + I) D^-1/2 on a graph without "
-                             "self-loops: build with Graph.from_edges(..., "
-                             "add_self_loops=True)")
-        deg = torch.bincount(dst[:e], minlength=self.n_node).double()
-        dinv = 1.0 / torch.sqrt(deg.clamp_min(1.0))
-        real = torch.arange(self.n_edge, device=dst.device) < e
-        w = torch.where(real, dinv[dst] * dinv[src], 0.0).float()
-        return build_chunked_pair(self.src, self.dst, self.n_node, self.n_node, w)
+            self._pairs[weighting] = build_chunked_pair(
+                self.src, self.dst, self.n_node, self.n_node, edge_weights(self, weighting))
+        return self._pairs[weighting]
 
     def with_windowed(self, min_fill: float = 0.25, min_fraction: float = 0.5,
                       reorder: bool = False) -> "Graph":
@@ -314,6 +291,8 @@ class Graph:
         """Move every tensor, and the kernel layouts, to ``device``."""
         moved = {}
         for f in dataclasses.fields(self):
+            if not f.init:
+                continue
             v = getattr(self, f.name)
             moved[f.name] = v.to(device) if hasattr(v, "to") else v
         return Graph(**moved)

@@ -2,13 +2,17 @@
 
 Counterpart of ``dgll_tpu/nn/conv.py``: ``GCNConv``, ``GATConv``, ``SAGEConv`` and
 ``GINConv``; ``GCN2Conv`` (GCNII's layer) is the port's own, on full graphs only. A
-layer takes a *message structure* ``g``: a full ``Graph``, which carries the kernel
-layouts ``chunked``/``chunked_t`` when ``Graph.with_chunked`` attached them, and
-``hybrid``/``hybrid_t`` (GCN and GIN) when ``Graph.with_windowed`` did (SAGE's mean
-and sum, and GCNII, build their own, ``Graph.mean_chunked``/``sum_chunked``/
-``gcn_chunked``); a sampled fanout-dense ``Block``; or a
-layer-wise sampler's ``SparseBlock`` (host) or ``WeightedBlock`` (device). A block's first
-``n_dst`` source rows are the destinations themselves, where ``self_at_head`` holds.
+layer takes a *message structure* ``g``: a full ``Graph``; a sampled fanout-dense
+``Block``; or a layer-wise sampler's ``SparseBlock`` (host) or ``WeightedBlock``
+(device). A block's first ``n_dst`` source rows are the destinations themselves, where
+``self_at_head`` holds.
+
+On a full ``Graph`` each layer class declares in ``LAYOUTS`` the kernel layouts a
+caller attaches for it before the graph moves to a card, and ``attached_layouts``
+takes their union over a model: ``"windowed"`` (``Graph.with_windowed``, tried first:
+GCN and GIN) and ``"chunked"`` (``Graph.with_chunked``: GCN, GIN and GAT). SAGE's mean
+and sum and GCNII declare none: they build what they read on the graph's device
+(``Graph.chunked_pair``).
 
 The layer-wise blocks are chosen by their type, not as a fallback: the JAX package
 runs no Pallas kernel on them either. A ``WeightedBlock`` aggregates by a gather
@@ -96,7 +100,7 @@ def _require_self_at_head(g, layer: str) -> None:
 
 
 def kernel_layouts(g, n_dst: int, device: torch.device):
-    """The graph's kernel layouts ``(A, A^T)`` (``Graph.with_chunked``), or None
+    """The graph's attached kernel layouts ``(A, A^T)`` (``Graph.with_chunked``), or None
     where the layer runs its plain COO version instead, which it does only on the
     CPU. On any other device a graph without the layouts raises: a CUDA input
     launches the kernels and never falls back to the plain version."""
@@ -107,6 +111,16 @@ def kernel_layouts(g, n_dst: int, device: torch.device):
         raise ValueError(f"an input on {device} runs the kernels, and the graph has no "
                          "kernel layouts: attach them with Graph.with_chunked()")
     return None
+
+
+def attached_layouts(model: nn.Module) -> tuple:
+    """``(layouts, reports)`` of ``model``'s layers: the union of their ``LAYOUTS``,
+    ``"windowed"`` before ``"chunked"`` (the order a caller tries them in), and of
+    their ``REPORTS``. No layout where every layer builds what it reads."""
+    layers = [m for m in model.modules() if hasattr(m, "LAYOUTS")]
+    reads = {name for m in layers for name in m.LAYOUTS}
+    reports = {k: v for m in layers for k, v in getattr(m, "REPORTS", {}).items()}
+    return tuple(n for n in ("windowed", "chunked") if n in reads), reports
 
 
 def _weighted_aggregate(g, h: torch.Tensor, n_dst: int) -> torch.Tensor:
@@ -152,6 +166,8 @@ class GCNConv(nn.Module):
     ``dtype``); the parameters stay float32.
     """
 
+    LAYOUTS = ("windowed", "chunked")  # read by ``_weighted_aggregate``
+
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -178,12 +194,15 @@ class SAGEConv(nn.Module):
     On a ``Block`` the aggregation is ``block_aggregate`` (its ``sum`` is the
     mask-weighted mean). On a full ``Graph`` the mean and the sum run kernel K1
     (``spmm_chunked``, its plain version on the CPU) on layouts built from the
-    graph's edges on its device at first use (``Graph.mean_chunked``,
-    ``Graph.sum_chunked``): every edge, the mean's ``1 / deg`` or the graph's edge
-    weights on each, the backward on A^T; rows without in-edges give 0. The max, and the layer-wise blocks' COO views,
-    stay plain PyTorch on every device (``spmm_max_coo``, ``spmm_mean_coo``,
-    ``spmm_coo``), as the JAX package computes them in XLA.
+    graph's edges on its device at first use (``Graph.chunked_pair`` of ``"mean"`` or
+    ``"edges"``): every edge, the mean's ``1 / deg`` or the graph's edge weights on
+    each, the backward on A^T; rows without in-edges give 0. The max, and the
+    layer-wise blocks' COO views, stay plain PyTorch on every device
+    (``spmm_max_coo``, ``spmm_mean_coo``, ``spmm_coo``), as the JAX package computes
+    them in XLA.
     """
+
+    LAYOUTS = ()  # the mean and the sum build their own
 
     def __init__(self, in_features: int, features: int, aggregator: str = "mean",
                  combine: str = "concat", use_bias: bool = True,
@@ -209,8 +228,8 @@ class SAGEConv(nn.Module):
             from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
 
             profiling.count("conv.aggregate_k1")
-            a, at = g.mean_chunked if self.aggregator == "mean" else g.sum_chunked
-            return spmm_chunked(a, at, x.contiguous())[:n_dst]
+            pair = g.chunked_pair("mean" if self.aggregator == "mean" else "edges")
+            return spmm_chunked(*pair, x.contiguous())[:n_dst]
         if self.aggregator == "mean":
             return spmm_mean_coo(g.src, g.dst, x, n_dst)
         if self.aggregator == "sum":
@@ -254,6 +273,9 @@ class GATConv(nn.Module):
     COO branch (``gat_attention_coo``) sums its messages in float32 and, unlike the
     JAX package, which returns that float32 sum, casts it back to the compute type.
     """
+
+    LAYOUTS = ("chunked",)  # read by the fused op
+    REPORTS = {"gat_kernel": "gat_attention_fused"}  # what the CLI reports of it
 
     def __init__(self, in_features: int, features: int, num_heads: int = 1,
                  concat_heads: bool = True, negative_slope: float = 0.2,
@@ -352,11 +374,11 @@ IDENTITY_MAP = "dgll.conv.identity_map"
 
 
 def _gcn_aggregate(g: Graph, x: torch.Tensor) -> torch.Tensor:
-    """``P x`` over ``g.gcn_chunked`` through K1 (its plain version on the CPU), over
-    K1's whole padded row space."""
+    """``P x`` over ``g.chunked_pair("gcn")`` through K1 (its plain version on the
+    CPU), over K1's whole padded row space."""
     from dgll_tpu_torch.ops.cuda.segment_matmul import spmm_chunked
 
-    return spmm_chunked(*g.gcn_chunked, x.contiguous())
+    return spmm_chunked(*g.chunked_pair("gcn"), x.contiguous())
 
 
 class GCN2Conv(nn.Module):
@@ -369,13 +391,15 @@ class GCN2Conv(nn.Module):
     relu(z) / keep, 0)``.
 
     ``P x`` runs kernel K1 (``spmm_chunked``, its plain version on the CPU) on the
-    layouts ``Graph.gcn_chunked`` builds on the graph's device at first use, the
+    layouts ``Graph.chunked_pair("gcn")`` builds on the graph's device at first use, the
     backward on A^T. Everything after it is ``ops/cuda/gcnii_fused.py``'s
     ``gcnii_layer``: one forward and one backward kernel on the card (a width that is
     a multiple of 4; another raises there), their plain versions on the CPU. The paper
     defines the layer on full graphs: a sampled block raises. ``W`` is drawn as the
     authors' code draws it, uniform on ``±1/sqrt(features)``.
     """
+
+    LAYOUTS = ()  # ``P`` is built on the graph's device
 
     def __init__(self, features: int, alpha: float, beta: float, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -396,7 +420,6 @@ class GCN2Conv(nn.Module):
             raise ValueError(f"GCN2Conv runs on a full Graph (GCNII is defined on full "
                              f"graphs), not on a {type(g).__name__}")
         profiling.count("conv.aggregate_gcn")
-        profiling.count("conv.identity_map_fused")
         agg = profiling.spanned(AGGREGATE, _gcn_aggregate, g, x)
         return profiling.spanned(IDENTITY_MAP, self._layer, agg, x0, u, keep)
 
@@ -406,6 +429,8 @@ class GINConv(nn.Module):
     width through ``_weighted_aggregate`` (K1, or K2 and K1, on a graph with the
     kernel layouts). ``eps`` is a learned scalar with ``learn_eps``, else 0;
     ``activation`` None is the identity."""
+
+    LAYOUTS = GCNConv.LAYOUTS
 
     def __init__(self, in_features: int, features: int, learn_eps: bool = False,
                  activation: Optional[Callable] = torch.relu,

@@ -64,8 +64,9 @@ def batch_graphs(graphs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray, int]
                  node_pad_multiple: int = 8, edge_pad_multiple: int = 128):
     """Merge ``(src, dst, feats, label)`` tuples into one padded ``Graph`` on the
     host: ``(graph, graph_id int32 [n_node], labels int32 [n_graph])``, padded nodes
-    with ``graph_id == n_graph``. On a CUDA device, attach the kernel layouts
-    (``Graph.with_chunked``) before moving the graph there."""
+    with ``graph_id == n_graph``. On a CUDA device, attach the kernel layouts that
+    the model's layers read (``nn.conv.attached_layouts``) before moving the graph
+    there."""
     srcs, dsts, feats, gids, labels = [], [], [], [], []
     off = 0
     for i, (s, d, f, y) in enumerate(graphs):

@@ -15,7 +15,7 @@ The API conventions stay:
 
 * the output row space is padded up to a multiple of ``R_BLOCK`` (``n_rows``);
 * the layouts hold the edges they are given (``Graph.with_chunked``: the real ones;
-  ``Graph.mean_chunked``: every edge, padded ones included), built on their device;
+  ``Graph.chunked_pair``: every edge, padded ones included), built on their device;
 * padded rows and rows without edges come out as ``act(bias)``;
 * ``build_chunked_pair`` gives the layouts of A and of A^T, the second driving the
   backward pass, and attaches to A's layout ``t_slot_perm``: for each edge of A^T,

@@ -42,18 +42,17 @@ path (``--device_sampling``, neighbor, FastGCN or LADIES) runs
 accuracy, so all stop together; only rank 0 writes a checkpoint. ``--samp_type
 full`` trains on one device, as the JAX CLI does.
 
-On a CUDA device the graph gets the kernel layouts, whatever its size. A GCN or GIN
-run attaches ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI does:
-where the graph has source locality, or a relabelling gives it some, every layer
-aggregates through the windowed kernel K2 and K1 on the residual edges; where it
-declines, through K1 alone. Every GAT layer runs the fused attention op (K3-K7 and
-K1) on ``with_chunked()`` only, since GAT never reads the windowed layout. The JAX
-package's 100k-edge threshold is the TPU's launch-overhead rule; the port's layers
-have no plain version on the card. A full-batch GraphSAGE run attaches no layout:
-its mean and sum run K1 on layouts built from the graph's edges on the device at the
-first step (``Graph.mean_chunked``), its max plain PyTorch (XLA in the JAX
-package). Nor does a GCNII run: its propagation runs K1 on ``Graph.gcn_chunked``,
-built on the device at the first step.
+On a CUDA device the graph gets the kernel layouts that the model's layers declare
+(``nn.conv.attached_layouts``, read by ``attach_kernel_layouts``), whatever its size.
+GCN and GIN read ``g.with_windowed(reorder=True).with_chunked()`` as the JAX CLI
+attaches it: where the graph has source locality, or a relabelling gives it some,
+every layer aggregates through the windowed kernel K2 and K1 on the residual edges;
+where it declines, through K1 alone. GAT's fused attention op (K3-K7 and K1) reads
+``with_chunked()`` only. The JAX package's 100k-edge threshold is the TPU's
+launch-overhead rule; the port's layers have no plain version on the card.
+GraphSAGE and GCNII declare none: SAGE's mean and sum, and GCNII's propagation, run
+K1 on layouts built from the graph's edges on the device at the first step
+(``Graph.chunked_pair``), SAGE's max plain PyTorch (XLA in the JAX package).
 
 On the host minibatch path the graph stays on the host for the sampler, and the
 features and labels live on the device; with the cache only the cached rows do, and
@@ -72,10 +71,10 @@ import numpy as np
 import torch
 
 # The port's names for its SpMM kernels (K1, and K2 composed with K1 on the
-# residual) and its fused GAT op, reported as ``spmm_kernel`` and ``gat_kernel``.
+# residual), reported as ``spmm_kernel``; a layer reports its own fused op
+# (``GATConv.REPORTS``).
 SPMM_KERNEL = "spmm_csr_cuda"
 WINDOWED_KERNEL = "spmm_windowed_cuda"
-GAT_KERNEL = "gat_attention_fused"
 N_PARTS_NEEDS_NEIGHBOR = ("--n_parts > 1 requires --samp_type neighbor "
                           "(community-restricted neighbour sampling)")
 DEVICE_SAMPLING_ALONE = ("--device_sampling keeps the graph and features in device "
@@ -270,20 +269,21 @@ def _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
     }
 
 
-def attach_kernel_layouts(cfg, g):
-    """The graph with the kernel layouts of ``cfg``'s model attached, and what the
-    CLI reports of them: GCN and GIN try the windowed layouts (relabelling for
-    locality where needed) and keep the chunked ones for a decline; GAT takes the
-    chunked ones only; GraphSAGE and GCNII take none."""
+def attach_kernel_layouts(model, g):
+    """The graph with the kernel layouts that ``model``'s layers read attached
+    (``nn.conv.attached_layouts``), and what the CLI reports of them: the windowed
+    layouts are tried first (relabelling for locality where needed) and the chunked
+    ones kept for a decline. Where the layers build what they read, the graph as it
+    is and nothing to report."""
+    from dgll_tpu_torch.nn.conv import attached_layouts
+
     t_pre = time.perf_counter()
-    extra: dict = {}
-    if cfg.model.upper() in ("GRAPHSAGE", "SAGE", "GCNII"):
-        return g, extra  # their layers derive their layouts on the device
-    if cfg.model.upper() == "GAT":
-        g = g.with_chunked()
-        extra["gat_kernel"] = GAT_KERNEL
-    else:
-        g = g.with_windowed(reorder=True).with_chunked()
+    layouts, extra = attached_layouts(model)
+    if not layouts:
+        return g, {}
+    if "windowed" in layouts:
+        g = g.with_windowed(reorder=True)
+    g = g.with_chunked()
     extra["spmm_kernel"] = SPMM_KERNEL if g.hybrid is None else WINDOWED_KERNEL
     extra["layout_preprocess_s"] = time.perf_counter() - t_pre
     if g.node_perm is not None:
@@ -653,7 +653,7 @@ def run_trial(cfg, g, trial_seed: int, dev: torch.device) -> dict:
         return _finalize_trial(cfg, timer, t_start, extra, test_acc, f1, best_val,
                                n_epochs, model)
     if dev.type == "cuda":
-        g, extra = attach_kernel_layouts(cfg, g)
+        g, extra = attach_kernel_layouts(model, g)
     g = g.to(dev)
     maybe_restore(cfg, model, extra)
 

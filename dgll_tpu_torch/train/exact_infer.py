@@ -5,10 +5,12 @@ full ``Graph`` for all its layers, so exact inference is one full-graph forward 
 the minibatch-trained parameters, under ``torch.no_grad()`` and in eval mode: each
 layer aggregates over the complete in-neighbourhood, with no sampling noise.
 
-On a CUDA device a GCN, GIN or GAT layer runs its kernels (K1; K3-K7 for GAT),
-which read the chunked layouts: they are attached to the graph first where it lacks
-them (``Graph.with_chunked``). GraphSAGE's mean and sum run K1 too, on layouts
-built from the graph's edges on the device (``Graph.mean_chunked``); its max is plain PyTorch on every device, as the JAX package computes it in XLA.
+On a CUDA device the chunked layouts are attached to the graph first where it lacks
+them and the model's layers read them (``nn.conv.attached_layouts``: GCN, GIN and
+GAT, whose kernels are K1 and K3-K7). GraphSAGE's mean and sum and GCNII's
+propagation run K1 on layouts built from the graph's edges on the device
+(``Graph.chunked_pair``); SAGE's max is plain PyTorch on every device, as the JAX
+package computes it in XLA.
 """
 from __future__ import annotations
 
@@ -18,12 +20,6 @@ import numpy as np
 import torch
 
 
-def _uses_kernels(model: torch.nn.Module) -> bool:
-    from dgll_tpu_torch.nn.conv import GATConv, GCNConv, GINConv
-
-    return any(isinstance(m, (GCNConv, GATConv, GINConv)) for m in model.modules())
-
-
 def exact_logits(model: torch.nn.Module, graph, feats: torch.Tensor,
                  feat_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Log-probabilities ``[n_node, C]`` of one full-graph forward on ``feats``'s
@@ -31,12 +27,14 @@ def exact_logits(model: torch.nn.Module, graph, feats: torch.Tensor,
     ``feat_dtype`` (the model's compute type, e.g. bfloat16) casts the features
     first, as the JAX package does: GraphSAGE and GIN aggregate them before their
     first ``Dense`` casts."""
+    from dgll_tpu_torch.nn.conv import attached_layouts
+
     dev = feats.device
     if feat_dtype is not None:
         feats = feats.to(feat_dtype)
     g = graph.replace(node_feat=None, labels=None, train_mask=None, val_mask=None,
                       test_mask=None)
-    if dev.type != "cpu" and g.chunked is None and _uses_kernels(model):
+    if dev.type != "cpu" and g.chunked is None and "chunked" in attached_layouts(model)[0]:
         g = g.with_chunked()
     g = g.to(dev)
     was_training = model.training

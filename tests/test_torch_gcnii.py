@@ -5,12 +5,12 @@ plain reference is what it is held to.
 
 The port and the reference get the same seeded weights (``gnnbench.weights``) and
 dropout generators of one seed, and must agree in log-probabilities, loss and every
-leaf's gradient at 2, 8 and 64 layers. ``Graph.gcn_chunked`` (the layouts of ``P =
-D^-1/2 (A + I) D^-1/2`` that K1 sums over) carries ``gcn_normalize``'s weights on the
+leaf's gradient at 2, 8 and 64 layers. ``Graph.chunked_pair("gcn")`` (the layouts of
+``P = D^-1/2 (A + I) D^-1/2`` that K1 sums over) carries ``gcn_normalize``'s weights on the
 real edges, 0 on padded ones, and refuses a graph without self-loops. The CLI trains
 ``--Model GCNII --samp_type full`` and refuses its other paths; under the tracer a step
 makes one ``dgll.conv.identity_map`` span, its backward and one
-``conv.aggregate_gcn`` and one ``conv.identity_map_fused`` count a layer, at a width
+``conv.aggregate_gcn`` count a layer, at a width
 of either design of the fused layer's kernels; the benchmark's ``identity_map_ms.full``
 reader divides the spans' device time by the steps. Every layer runs the fused layer
 (``ops/cuda/gcnii_fused.py``, its plain version here).
@@ -144,8 +144,8 @@ def test_gcn_chunked_carries_gcn_normalize_weights(padded):
         g = pad_graph(g)
         assert g.n_edge > g.n_real_edge
     want = gcn_normalize(g).edge_weight.numpy()
-    a, at = g.gcn_chunked
-    assert g.gcn_chunked is not None and g.gcn_chunked[0] is a  # kept on the instance
+    a, at = g.chunked_pair("gcn")
+    assert g.chunked_pair("gcn") is not None and g.chunked_pair("gcn")[0] is a  # kept
     src, dst = g.src.numpy().astype(np.int64), g.dst.numpy().astype(np.int64)
     for lay, rows, cols in ((a, dst, src), (at, src, dst)):
         got = _edges_by_value(lay.rows.numpy(), lay.src.numpy(), lay.weight.numpy())
@@ -161,7 +161,7 @@ def test_gcn_chunked_carries_gcn_normalize_weights(padded):
 def test_gcn_chunked_refuses_a_graph_without_self_loops():
     g = _graph(self_loops=False)
     with pytest.raises(ValueError, match="self-loops"):
-        g.gcn_chunked
+        g.chunked_pair("gcn")
     with pytest.raises(ValueError, match="self-loops"):
         gcn_normalize(g)
 
@@ -201,9 +201,11 @@ def test_cli_refuses_gcnii_off_its_path(extra):
 
 
 def test_cli_attaches_no_layout():
-    cfg = SimpleNamespace(model="GCNII")
+    cfg = SimpleNamespace(model="GCNII", nhid=4, n_layers=2, alpha=0.1, lamda=0.5,
+                          dropout=0.0)
     g = _shared_graph()
-    assert torch_run.attach_kernel_layouts(cfg, g) == (g, {})
+    model = torch_run.build_model(cfg, CLASSES, FEAT)
+    assert torch_run.attach_kernel_layouts(model, g) == (g, {})
 
 
 @pytest.fixture
@@ -227,8 +229,7 @@ def test_traced_step_spans_each_layer(fresh_tracer, width):
     assert math.isfinite(float(loss))
     rep = profiling.report()
     assert rep["counters"] == {"step.full_batch": steps,
-                               "conv.aggregate_gcn": steps * layers,
-                               "conv.identity_map_fused": steps * layers}
+                               "conv.aggregate_gcn": steps * layers}
     for name in ("dgll.conv.identity_map", "dgll.conv.identity_map_bwd",
                  "dgll.conv.aggregate", "dgll.conv.aggregate_bwd"):
         assert rep["spans"][name]["count"] == steps * layers, name

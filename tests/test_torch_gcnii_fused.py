@@ -14,7 +14,7 @@ of the kernels' tiles, and with a NaN in K1's sum (kept, with its gradient, as
 the model draws them in the same order: the model and the composition written out give
 the same log-probabilities and leave the generator in the same state, at every width
 and at a dropout that keeps nothing, each layer counting one
-``conv.identity_map_fused``.
+``conv.aggregate_gcn``.
 
 The card tests (marker ``card``; this file imports no JAX, so it runs on the machine
 with the card, where ``tests/conftest.py`` cannot load):
@@ -148,7 +148,7 @@ def _composed(model, g, x, gen):
     h0 = torch.relu(model.fcs[0](drop(x)))
     h = h0
     for conv in model.convs:
-        agg = spmm_chunked(*g.gcn_chunked, drop(h).contiguous())[: g.n_node]
+        agg = spmm_chunked(*g.chunked_pair("gcn"), drop(h).contiguous())[: g.n_node]
         s = torch.lerp(agg, h0, conv.alpha)
         h = torch.relu(torch.addmm(s, s, conv.weight, beta=1.0 - conv.beta, alpha=conv.beta))
     return torch.log_softmax(model.fcs[1](drop(h)), dim=-1)
@@ -190,8 +190,8 @@ def test_model_equals_the_composition(hidden, dropout, training):
     assert torch.equal(got[1], want[1])  # the same draws, in the same order
     for a, b in zip(got[2], want[2]):
         assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()
-    assert got[3]["conv.identity_map_fused"] == got[3]["conv.aggregate_gcn"] == layers
-    assert "conv.identity_map_fused" not in want[3]
+    assert got[3]["conv.aggregate_gcn"] == layers
+    assert "conv.aggregate_gcn" not in want[3]
 
 
 def test_the_kernels_take_a_width_that_is_a_multiple_of_4():

@@ -290,7 +290,9 @@ def test_cli_attaches_gins_layouts_as_gcns():
     from dgll_tpu_torch.utils import parse_train_config
 
     g = torch_run.build_dataset(parse_train_config(["--n_node", "2000"]))
-    gin, extra = torch_run.attach_kernel_layouts(parse_train_config(["--Model", "GIN"]), g)
-    gcn, extra_gcn = torch_run.attach_kernel_layouts(parse_train_config([]), g)
+    gin, gcn = (torch_run.build_model(parse_train_config(m), 3, g.node_feat.shape[1])
+                for m in (["--Model", "GIN"], []))
+    gin, extra = torch_run.attach_kernel_layouts(gin, g)
+    gcn, extra_gcn = torch_run.attach_kernel_layouts(gcn, g)
     assert gin.chunked is not None and (gin.hybrid is None) == (gcn.hybrid is None)
     assert extra["spmm_kernel"] == extra_gcn["spmm_kernel"]

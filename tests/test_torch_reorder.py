@@ -208,18 +208,19 @@ def test_cli_attaches_windowed_where_it_pays():
     windowed layouts on a clustered graph and K1 alone where they decline; GAT
     takes the chunked ones only."""
     from dgll_tpu_torch import run
+    from dgll_tpu_torch.nn import GATConv
     from dgll_tpu_torch.utils import parse_train_config
 
-    gcn, gat = (parse_train_config(["--Model", m, "--samp_type", "full"])
-                for m in ("GCN", "GAT"))
     _, gt = graphs("shuffled")
+    gcn, gat = (run.build_model(parse_train_config(["--Model", m, "--samp_type", "full"]),
+                                3, gt.node_feat.shape[1]) for m in ("GCN", "GAT"))
     g, extra = run.attach_kernel_layouts(gcn, gt)
     assert g.hybrid is not None and g.chunked is not None
     assert extra["spmm_kernel"] == run.WINDOWED_KERNEL and extra["locality_reordered"]
     g, extra = run.attach_kernel_layouts(gat, gt)
     assert g.hybrid is None and g.chunked is not None and g is not gt
     assert extra["spmm_kernel"] == run.SPMM_KERNEL and "locality_reordered" not in extra
-    assert extra["gat_kernel"] == run.GAT_KERNEL
+    assert extra["gat_kernel"] == GATConv.REPORTS["gat_kernel"] == "gat_attention_fused"
     _, gt = graphs("expander")
     g, extra = run.attach_kernel_layouts(gcn, gt)
     assert g.hybrid is None and g.chunked is not None and g.node_perm is None

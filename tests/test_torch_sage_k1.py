@@ -1,6 +1,6 @@
 """SAGE's mean and sum on a full ``Graph`` through kernel K1 (``SAGEConv._aggregate``),
-on layouts built from the graph's edges on its device (``Graph.mean_chunked``,
-``Graph.sum_chunked``, through ``ops/chunked.py:build_chunked_pair``).
+on layouts built from the graph's edges on its device (``Graph.chunked_pair`` of
+``"mean"`` and ``"edges"``, through ``ops/chunked.py:build_chunked_pair``).
 
 The pair equals a host lexsort build over every edge of the graph (duplicates,
 self-loops, rows without in-edges, a row that K1 splits, a padded graph), with the
@@ -63,7 +63,7 @@ def _lexsort_layout(src, dst, n_rows, w):
 
 
 def _layouts(g, kind):
-    return g.mean_chunked if kind == "mean" else g.sum_chunked
+    return g.chunked_pair("mean" if kind == "mean" else "edges")
 
 
 @pytest.mark.parametrize("kind", ["mean", "sum"])
@@ -188,17 +188,17 @@ def test_max_and_the_blocks_keep_their_paths(what):
         out = SAGEConv(5, 3, "max" if what == "max" else "mean")(b, x)
     assert out.shape[0] == (g.n_node if what == "max" else b.n_dst)
     assert profiling.report()["counters"] == {}
-    assert not {"mean_chunked", "sum_chunked"} & set(g.__dict__)
+    assert not g._pairs  # no pair built
     profiling.reset()
 
 
 def test_replace_and_to_build_anew():
     g = _graph("duplicates")
-    a, _ = g.sum_chunked
+    a, _ = g.chunked_pair("edges")
     g2 = g.replace(edge_weight=2 * g.edge_weight)
-    assert torch.equal(g2.sum_chunked[0].weight, 2 * a.weight)
-    assert g.to("cpu").sum_chunked[0] is not a
-    assert g.mean_chunked[0] is not a
+    assert torch.equal(g2.chunked_pair("edges")[0].weight, 2 * a.weight)
+    assert g.to("cpu").chunked_pair("edges")[0] is not a
+    assert g.chunked_pair("mean")[0] is not a
 
 
 @pytest.fixture
